@@ -1,12 +1,12 @@
-"""Pack a BVH8 + the merged triangle table into the records the traversal
+"""Pack a BVH8 + the merged primitive table into the records the traversal
 kernel reads.
 
-Port of embree_tpu/accel/pack.py:59-311, triangle-only. The record contents
-are the JAX package's, bit for bit; only their arrangement differs. The TPU
-keeps records along the 128 lanes of one unified tile table, because its
-kernel gathers one record per lane per step. A Hopper thread instead reads
-its own record with 16-byte loads, so each record is contiguous, and nodes
-and leaves live in two arrays:
+Port of embree_tpu/accel/pack.py:59-311 for static scenes. The record
+contents are the JAX package's, bit for bit; only their arrangement
+differs. The TPU keeps records along the 128 lanes of one unified tile
+table, because its kernel gathers one record per lane per step. A Hopper
+thread instead reads its own record with 16-byte loads, so each record is
+contiguous, and nodes and leaves live in two arrays:
 
 Node record (int32 x 32 = 128 B):
   word 0..7    : child refs (>=0: node record id; <0: leaf ref
@@ -16,12 +16,19 @@ Node record (int32 x 32 = 128 B):
                  (decode = bits & 0xFFFF0000); lo rounded toward -inf, hi
                  toward +inf (boxes only grow).
 
-Leaf record (int32 bit patterns x 72 = 288 B, or x 80 = 320 B with masks):
-  word 8*k+s   : field k of slot s as float32 bits; fields v0(3) e1(3) e2(3)
+Leaf record (int32 x 72 = 288 B, + 8 words per optional chunk), in the
+Pallas kernel's chunk order (traverse_pallas.py:123-126):
+  word 8*k+s   : field k of slot s as float32 bits; 9 generic fields:
+                 triangle / quad half : v0(3) e1(3) e2(3)
+                 sphere / disc        : center(3) radius
+                 oriented disc        : center(3) radius normal(3)
+                 round / flat line    : p0(3) r0 p1(3) r1 begin-flag
   word 72+s    : geometry mask of slot s (scenes with a non-default mask)
-Padding slots are zero: Möller's det == 0 there, so they never hit. Slot
-identity is implicit (8*leaf+slot), mapped back to the merged prim table
-through ``pid_map`` (-1 for padding).
+  word 72|80+s : kind tag of slot s (scenes with another class than
+                 triangles; quads are two triangle slots tagged 0)
+Padding slots are zero with tag 0: Möller's det == 0 there, so they never
+hit. Slot identity is implicit (8*leaf+slot), mapped back to the merged
+prim table through ``pid_map`` (-1 for padding).
 
 Record 0 of ``nodes`` is the root.
 """
@@ -49,6 +56,17 @@ class PackedScene:
     pid_map: torch.Tensor    # (n_leaves * 8,) int64: slot -> merged prim
     has_mask: bool = False   # leaf records carry per-slot geometry masks
     tri_attrs: bool = True   # pure-triangle scene: the kernel emits u/v/Ng
+    has_kinds: bool = False  # leaf records carry per-slot kind tags
+    kind_classes: tuple = (0,)   # the kind tags that occur
+
+    @property
+    def leaf_words(self) -> int:
+        return leaf_words(self.has_mask, self.has_kinds)
+
+
+def leaf_words(has_mask: bool, has_kinds: bool) -> int:
+    """Words of one leaf record: the fields, then the optional chunks."""
+    return LEAF_WORDS + LEAF_WIDTH * (int(has_mask) + int(has_kinds))
 
 
 def _dfs_positions(child, n_wide):
@@ -104,14 +122,19 @@ def _bf16_bits_dir(x, toward_pos: bool):
 
 
 def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
-                slot_fields, slot_mask, slot_pid, has_mask):
+                slot_fields, slot_mask, slot_pid, has_mask, slot_kind=None,
+                slot_factor=1):
     """Host numpy packing. Returns (nodes (n_wide, 32) int32, leaves
-    (n_leaf, 72|80) int32, pid_map (n_leaf*8,) int32).
+    (n_leaf, leaf_words) int32, pid_map (n_leaf*8,) int32).
 
-    slot_* arrays index merged prims (one triangle slot per prim):
-    slot_fields (T, 9) float32, slot_mask (T,) uint32, slot_pid (T,) int32.
+    slot_* arrays index slots: merged prim p owns slots p*slot_factor ..
+    p*slot_factor+slot_factor-1 (factor 2 when quads are present, each quad
+    being two triangle slots); slot_pid < 0 marks an unused slot.
+    slot_fields (S, 9) float32, slot_mask (S,) uint32, slot_pid (S,) int32,
+    slot_kind (S,) int32 or None (no kind chunk).
     """
     W = 8
+    leaf_prims = LEAF_WIDTH // slot_factor
     child = np.asarray(node_child[:n_wide])               # (n_wide, 8)
     lo = np.asarray(node_lower[:n_wide])                  # (n_wide, 8, 3)
     up = np.asarray(node_upper[:n_wide])
@@ -152,10 +175,14 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
     starts = np.asarray(starts).reshape(-1)[leaf_mask]
     counts = np.asarray(counts).reshape(-1)[leaf_mask]
     n_prims = np.asarray(prim_order).shape[0]
-    pslot = starts[:, None] + np.arange(LEAF_WIDTH)[None, :]     # (n_leaf, 8)
-    valid = np.arange(LEAF_WIDTH)[None, :] < counts[:, None]
+    pslot = starts[:, None] + np.arange(leaf_prims)[None, :]    # (n_leaf, P)
+    pvalid = np.arange(leaf_prims)[None, :] < counts[:, None]
     pslot = np.clip(pslot, 0, n_prims - 1)
-    slots = np.asarray(prim_order)[pslot]                        # merged ids
+    prim = np.asarray(prim_order)[pslot]                         # merged ids
+    # expand prims to slots: (n_leaf, P, factor) -> (n_leaf, 8)
+    slots = (prim[:, :, None] * slot_factor
+             + np.arange(slot_factor)[None, None, :]).reshape(-1, LEAF_WIDTH)
+    valid = np.repeat(pvalid, slot_factor, axis=1)
     slot_fields = np.asarray(slot_fields, np.float32)
     slots = np.clip(slots, 0, slot_fields.shape[0] - 1)
     pid = np.asarray(slot_pid)[slots]
@@ -167,6 +194,9 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
     if has_mask:
         cols.append(np.where(valid, np.asarray(slot_mask, np.int64)[slots],
                              0).astype(np.uint32).view(np.int32))
+    if slot_kind is not None:
+        cols.append(np.where(valid, np.asarray(slot_kind, np.int32)[slots],
+                             0).astype(np.int32))
     leaves = np.concatenate(cols, axis=1)
     if n_leaf == 0:
         leaves = np.zeros((1, leaves.shape[1]), np.int32)
@@ -177,18 +207,22 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
             pid_map.astype(np.int32))
 
 
-def from_table(table, pid_map, gn, has_mask, tri_attrs, device) -> PackedScene:
+def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
+               has_kinds=False, kind_classes=(0,)) -> PackedScene:
     """Re-lay the JAX package's unified tile table (GN+GL, rows, 128) int32
     into the port's records: record r of tile g is column r of that tile.
-    Node tiles come first (their first 32 rows), then leaf tiles."""
+    Node tiles come first (their first 32 rows), then leaf tiles, whose
+    rows already follow the port's chunk order."""
     table = np.asarray(table, np.int32)
     rows = table.shape[1]
     recs = table.transpose(0, 2, 1).reshape(-1, rows)
-    lw = LEAF_WORDS + (LEAF_WIDTH if has_mask else 0)
     nodes = np.ascontiguousarray(recs[:gn * 128, :NODE_WORDS])
-    leaves = np.ascontiguousarray(recs[gn * 128:, :lw])
+    leaves = np.ascontiguousarray(
+        recs[gn * 128:, :leaf_words(has_mask, has_kinds)])
     pid = np.asarray(pid_map, np.int64)
     return PackedScene(nodes=torch.from_numpy(nodes).to(device),
                        leaves=torch.from_numpy(leaves).to(device),
                        pid_map=torch.from_numpy(pid).to(device),
-                       has_mask=bool(has_mask), tri_attrs=bool(tri_attrs))
+                       has_mask=bool(has_mask), tri_attrs=bool(tri_attrs),
+                       has_kinds=bool(has_kinds),
+                       kind_classes=tuple(int(k) for k in kind_classes))

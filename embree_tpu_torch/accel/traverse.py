@@ -6,8 +6,9 @@ keeps the JAX wrapper's contract (coherence sort, launch, ``pid_map`` and
 id-table gathers, unsort) and returns the same values. Beneath it:
 
 - ``traverse_kernel`` launches ``csrc/traverse.cu`` on CUDA tensors. It is
-  the port of ``_kernel`` (traverse_pallas.py:108), triangle specialization;
-  ``LAUNCHES`` counts its launches per variant.
+  the port of ``_kernel`` (traverse_pallas.py:108) for static scenes: the
+  triangle specialization (B1), robust mode (B2), per-slot kind tags (B3),
+  points (B4) and lines (B5); ``LAUNCHES`` counts its launches per variant.
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
@@ -21,11 +22,13 @@ the kernel, and there is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -37,20 +40,34 @@ MAX_STEPS = 200_000      # runaway guard (:77)
 INF_BITS = 0x7F800000
 SORT_MIN_RAYS = 128      # the JAX wrapper sorts only batches above one lane row
 
+# kind classes the mixed kernel serves (traverse_pallas.py:525-717); quads
+# ride as triangle slots (class 0)
+KERNEL_CLASSES = (0, 2, 3, 4, 5, 6)
+# float32 constants of the leaf and slab tests, as the Pallas kernel
+# rounds them
+ROBUST_DOWN = float(np.float32(1.0 - 3.0 * 1.19209290e-07))
+ROBUST_UP = float(np.float32(1.0 + 3.0 * 1.19209290e-07))
+ULP1 = float(np.float32(1.19209290e-07))
+BIG = float(np.float32(3e38))
+
 # Kernel launches by variant, counted where the kernel is launched and
-# nowhere else (the smoke run zeroes them before a path and reads them after).
-LAUNCHES: Dict[str, int] = {"closest": 0, "closest_attrs": 0, "occluded": 0}
+# nowhere else (the smoke run zeroes them before a path and reads them
+# after). Keys come from ``variant_name``.
+LAUNCHES: Dict[str, int] = collections.defaultdict(int)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.clear()
 
 
-def variant_name(occlusion: bool, want_attrs: bool) -> str:
-    if occlusion:
-        return "occluded"
-    return "closest_attrs" if want_attrs else "closest"
+def variant_name(occlusion: bool, want_attrs: bool, robust: bool = False,
+                 kinds: bool = False, masked: bool = False) -> str:
+    """closest | closest_attrs | occluded, then _robust (B2), _kinds (the
+    mixed-class kernel, B3-B5) and _masked (per-slot mask chunk)."""
+    name = ("occluded" if occlusion else
+            "closest_attrs" if want_attrs else "closest")
+    return (name + ("_robust" if robust else "") + ("_kinds" if kinds else "")
+            + ("_masked" if masked else ""))
 
 
 @dataclasses.dataclass
@@ -61,6 +78,10 @@ class TraceResult:
     visits: torch.Tensor          # (2, R) int32: node, leaf records visited
     attrs: Optional[torch.Tensor]  # (5, R) float32 u, v, Ng (want_attrs)
     overflow: torch.Tensor        # () int32: rays whose stack overflowed
+    # (8,) int64 slot tests by kind tag over all leaf visits, tags of the
+    # scene's classes only (the plain version counts them; the operation
+    # count of a bound needs them)
+    class_slots: Optional[torch.Tensor] = None
 
 
 def _coherence_key(org, dir, tnear=None, tfar=None):
@@ -104,12 +125,18 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask):
                              f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lw = LEAF_WORDS + (LEAF_WIDTH if packed.has_mask else 0)
+    lw = packed.leaf_words
     if packed.nodes.ndim != 2 or packed.nodes.shape[1] != NODE_WORDS:
         raise ValueError(f"nodes must be (n, {NODE_WORDS})")
     if packed.leaves.ndim != 2 or packed.leaves.shape[1] != lw:
         raise ValueError(f"leaves must be (n, {lw}) for has_mask="
-                         f"{packed.has_mask}")
+                         f"{packed.has_mask}, has_kinds={packed.has_kinds}")
+    if packed.has_kinds:
+        if not set(packed.kind_classes) <= set(KERNEL_CLASSES):
+            raise ValueError(f"kind classes {packed.kind_classes} are not "
+                             f"all in {KERNEL_CLASSES}")
+    elif tuple(packed.kind_classes) != (0,):
+        raise ValueError("a scene without kind tags holds triangles only")
     if packed.nodes.shape[0] < 1 or packed.leaves.shape[0] < 1:
         raise ValueError("packed scene has no records")
 
@@ -129,7 +156,7 @@ def _ptr(x):
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
           ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
@@ -146,7 +173,7 @@ def _load(target: str, fn: str, extra_args=()):
 
 
 def _call_args(packed, org, dir, tnear, tfar, mask, outs, occlusion,
-               want_attrs):
+               want_attrs, robust):
     out_t, out_best, out_visits, out_attr, out_ovf = outs
     return [_ptr(packed.nodes), packed.nodes.shape[0],
             _ptr(packed.leaves), packed.leaves.shape[0],
@@ -155,20 +182,28 @@ def _call_args(packed, org, dir, tnear, tfar, mask, outs, occlusion,
             org.shape[0],
             _ptr(out_t), _ptr(out_best), _ptr(out_visits), _ptr(out_attr),
             _ptr(out_ovf), int(occlusion), int(want_attrs),
-            int(packed.has_mask)]
+            int(packed.has_mask), int(robust), int(packed.has_kinds),
+            sum(1 << k for k in packed.kind_classes)]
 
 
 # ---------------------------------------------------------------------------
 # the Hopper kernel
 # ---------------------------------------------------------------------------
 
+def _want_attrs(packed: PackedScene, occlusion: bool, want_attrs: bool):
+    if want_attrs and not occlusion and not packed.tri_attrs:
+        raise ValueError("the kernel emits u/v/Ng for pure-triangle scenes "
+                         "only (tri_attrs)")
+    return want_attrs and not occlusion
+
+
 def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
-                    occlusion: bool = False,
-                    want_attrs: bool = False) -> TraceResult:
+                    occlusion: bool = False, want_attrs: bool = False,
+                    robust: bool = False) -> TraceResult:
     """Launch the traversal kernel on CUDA tensors (raises for others)."""
     if org.device.type != "cuda":
         raise ValueError("traverse_kernel takes CUDA tensors only")
-    want_attrs = want_attrs and not occlusion
+    want_attrs = _want_attrs(packed, occlusion, want_attrs)
     _check(packed, org, dir, tnear, tfar, mask)
     for name, x in (("nodes", packed.nodes), ("leaves", packed.leaves)):
         if x.data_ptr() % 16:
@@ -177,25 +212,27 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     outs = _outputs(org.shape[0], org.device, want_attrs)
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, outs,
-                             occlusion, want_attrs), ctypes.c_void_p(stream))
+                             occlusion, want_attrs, robust),
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
-    LAUNCHES[variant_name(occlusion, want_attrs)] += 1
+    LAUNCHES[variant_name(occlusion, want_attrs, robust, packed.has_kinds,
+                          packed.has_mask)] += 1
     return TraceResult(*outs)
 
 
 def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
-                  occlusion: bool = False,
-                  want_attrs: bool = False) -> TraceResult:
+                  occlusion: bool = False, want_attrs: bool = False,
+                  robust: bool = False) -> TraceResult:
     """The kernel's per-ray logic compiled for the host (test-only)."""
     if org.device.type != "cpu":
         raise ValueError("traverse_twin takes CPU tensors only")
-    want_attrs = want_attrs and not occlusion
+    want_attrs = _want_attrs(packed, occlusion, want_attrs)
     _check(packed, org, dir, tnear, tfar, mask)
     run = _load("traverse_twin", "traverse_twin")
     outs = _outputs(org.shape[0], org.device, want_attrs)
     run(*_call_args(packed, org, dir, tnear, tfar, mask, outs, occlusion,
-                    want_attrs))
+                    want_attrs, robust))
     return TraceResult(*outs)
 
 
@@ -207,10 +244,18 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
+def _as_tensors(a, b):
+    if not isinstance(a, torch.Tensor):
+        a = torch.tensor(a, dtype=b.dtype, device=b.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+    return torch.broadcast_tensors(a, b)
+
+
 def _jmin(a, b):
     """jnp.minimum: NaN propagates, and -0 < +0 (torch.minimum has no
     order between the zeros)."""
-    a, b = torch.broadcast_tensors(a, b)
+    a, b = _as_tensors(a, b)
     eq = (_bits(a) | _bits(b)).view(torch.float32)
     r = torch.where(a < b, a, torch.where(b < a, b, eq))
     return torch.where(torch.isnan(a) | torch.isnan(b), a + b, r)
@@ -218,10 +263,280 @@ def _jmin(a, b):
 
 def _jmax(a, b):
     """jnp.maximum: NaN propagates, and +0 > -0."""
-    a, b = torch.broadcast_tensors(a, b)
+    a, b = _as_tensors(a, b)
     eq = (_bits(a) & _bits(b)).view(torch.float32)
     r = torch.where(a > b, a, torch.where(b > a, b, eq))
     return torch.where(torch.isnan(a) | torch.isnan(b), a + b, r)
+
+
+def _sqrt(x):
+    """Correctly rounded float32 square root. PyTorch's CPU kernel is not
+    (it can be 1 ulp off); the Pallas kernel's, CUDA's sqrtf and the twin's
+    are. The float64 root rounded once to float32 is exact."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def _where(c, a, b):
+    """jnp.where with float32 scalars allowed on either side."""
+    a, b = _as_tensors(a, b)
+    return torch.where(c, a, b)
+
+
+# ---- leaf tests per kind class, over (n, 8) slots, in the Pallas kernel's
+# association order (traverse_pallas.py:525-717). o, d: 3-tuples of (n, 1)
+# ray components; tn, tf: (n, 1); f: the 9 generic fields, each (n, 8).
+
+def _leaf_moeller(f, o, d, tn, tf):
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
+    ox, oy, oz = o
+    dx, dy, dz = d
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    det_ok = det.abs() > 1e-24
+    inv_det = _where(det_ok, torch.reciprocal(det), 0.0)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    valid = (det_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+             & (tt >= tn) & (tt <= tf))
+    return valid, tt, (uu, vv)
+
+
+def _leaf_pluecker(f, o, d, tn, tf):
+    """B2: the watertight Plücker test (:529-556)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
+    ox, oy, oz = o
+    dx, dy, dz = d
+    ax = v0x - ox
+    ay = v0y - oy
+    az = v0z - oz
+    bx = ax + e1x
+    by = ay + e1y
+    bz = az + e1z
+    cx = ax + e2x
+    cy = ay + e2y
+    cz = az + e2z
+    up = (dx * (cy * bz - cz * by) + dy * (cz * bx - cx * bz)
+          + dz * (cx * by - cy * bx))
+    vp = (dx * (ay * cz - az * cy) + dy * (az * cx - ax * cz)
+          + dz * (ax * cy - ay * cx))
+    wp = (dx * (by * az - bz * ay) + dy * (bz * ax - bx * az)
+          + dz * (bx * ay - by * ax))
+    min_uvw = _jmin(_jmin(up, vp), wp)
+    max_uvw = _jmax(_jmax(up, vp), wp)
+    ngx = e1y * e2z - e1z * e2y
+    ngy = e1z * e2x - e1x * e2z
+    ngz = e1x * e2y - e1y * e2x
+    den = ngx * dx + ngy * dy + ngz * dz
+    den_ok = den.abs() > 1e-30
+    inv_den = _where(den_ok, torch.reciprocal(den), 0.0)
+    tt = (ngx * ax + ngy * ay + ngz * az) * inv_den
+    valid = (((min_uvw >= 0.0) | (max_uvw <= 0.0)) & den_ok
+             & (tt >= tn) & (tt <= tf))
+    s = up + vp + wp
+    rcp_s = _where(s.abs() > 1e-30, torch.reciprocal(s), 0.0)
+    return valid, tt, (up * rcp_s, vp * rcp_s)
+
+
+def _leaf_sphere(f, o, d, tn, tf, ddot):
+    """B4: sphere point (:585-598)."""
+    ocx = o[0] - f[0]
+    ocy = o[1] - f[1]
+    ocz = o[2] - f[2]
+    r = f[3]
+    dx, dy, dz = d
+    bq = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = bq * bq - 4.0 * ddot * cq
+    sq = _sqrt(_jmax(disc, 0.0))
+    inv2a = 1.0 / _jmax(2.0 * ddot, 1e-30)
+    st0 = (-bq - sq) * inv2a
+    st1 = (-bq + sq) * inv2a
+    ok = disc >= 0.0
+    v0 = ok & (st0 >= tn) & (st0 <= tf)
+    v1 = ok & (st1 >= tn) & (st1 <= tf)
+    return v0 | v1, torch.where(v0, st0, st1)
+
+
+def _disc_hit(f, o, d, tn, tf, td, cmo):
+    dx, dy, dz = d
+    px = td * dx - cmo[0]
+    py = td * dy - cmo[1]
+    pz = td * dz - cmo[2]
+    r2 = px * px + py * py + pz * pz
+    r = f[3]
+    return (td >= tn) & (td <= tf) & (r2 <= r * r)
+
+
+def _leaf_disc(f, o, d, tn, tf):
+    """B4: ray-facing disc (:600-608)."""
+    cmo = (f[0] - o[0], f[1] - o[1], f[2] - o[2])
+    dx, dy, dz = d
+    d2 = _jmax(dx * dx + dy * dy + dz * dz, 1e-30)
+    td = (cmo[0] * dx + cmo[1] * dy + cmo[2] * dz) / d2
+    return _disc_hit(f, o, d, tn, tf, td, cmo), td
+
+
+def _leaf_oriented_disc(f, o, d, tn, tf):
+    """B4: oriented disc (:610-620)."""
+    cmo = (f[0] - o[0], f[1] - o[1], f[2] - o[2])
+    nx, ny, nz = f[4], f[5], f[6]
+    dx, dy, dz = d
+    dn = dx * nx + dy * ny + dz * nz
+    ok = dn.abs() > 1e-12
+    td = (cmo[0] * nx + cmo[1] * ny + cmo[2] * nz) / _where(ok, dn, 1.0)
+    return ok & _disc_hit(f, o, d, tn, tf, td, cmo), td
+
+
+def _leaf_round_line(f, o, d, tn, tf, ddot):
+    """B5: tangent cone + end spheres, begin-cap flag in field 8
+    (:622-691)."""
+    p0x, p0y, p0z, r0, p1x, p1y, p1z, r1, flag = f
+    ox, oy, oz = o
+    dx, dy, dz = d
+    rcpdd = 1.0 / _jmax(ddot, 1e-30)
+    ccx = 0.5 * (p0x + p1x)
+    ccy = 0.5 * (p0y + p1y)
+    ccz = 0.5 * (p0z + p1z)
+    dtl = ((ccx - ox) * dx + (ccy - oy) * dy + (ccz - oz) * dz) * rcpdd
+    o2x = ox + dtl * dx
+    o2y = oy + dtl * dy
+    o2z = oz + dtl * dz
+    dpx = p1x - p0x
+    dpy = p1y - p0y
+    dpz = p1z - p0z
+    dpdp = dpx * dpx + dpy * dpy + dpz * dpz
+    drr = r1 - r0
+    r0dr = r0 * drr
+    gco = dpdp - drr * drr
+    oxx = o2x - p0x
+    oyy = o2y - p0y
+    ozz = o2z - p0z
+    odp = oxx * dpx + oyy * dpy + ozz * dpz
+    dodp = dx * dpx + dy * dpy + dz * dpz
+    ypc = odp + r0dr
+    oo = oxx * oxx + oyy * oyy + ozz * ozz
+    odo = dx * oxx + dy * oyy + dz * ozz
+    ac = gco * ddot - dodp * dodp
+    bc = 2.0 * (gco * odo - dodp * ypc)
+    cc = gco * oo - odp * odp - r0 * r0 * dpdp - 2.0 * r0dr * odp
+    dc = bc * bc - 4.0 * ac * cc
+    cone_ok = (dc >= 0.0) & (gco > 0.0) & (ac.abs() > 1e-18)
+    qc = _sqrt(_jmax(dc, 0.0))
+    rc2a = 1.0 / _where(cone_ok, 2.0 * ac, 1.0)
+    tcf = (-bc - qc) * rc2a
+    tcb = (-bc + qc) * rc2a
+    ycf = ypc + tcf * dodp
+    ycb = ypc + tcb * dodp
+    cf_ok = cone_ok & (ycf > -ULP1) & (ycf <= gco)
+    cb_ok = cone_ok & (ycb > -ULP1) & (ycb <= gco)
+
+    def lsph(cx, cy, cz, cr):
+        o1x = o2x - cx
+        o1y = o2y - cy
+        o1z = o2z - cz
+        o1do = o1x * dx + o1y * dy + o1z * dz
+        h2 = o1do * o1do - ddot * (o1x * o1x + o1y * o1y + o1z * o1z
+                                   - cr * cr)
+        rt = _sqrt(_jmax(h2, 0.0))
+        return h2 >= 0.0, (-o1do - rt) * rcpdd, (-o1do + rt) * rcpdd
+
+    s0ok, ts0f, ts0b = lsph(p0x, p0y, p0z, r0)
+    s1ok, ts1f, ts1b = lsph(p1x, p1y, p1z, r1)
+    s0ok = s0ok & (flag < 0.5)
+    s0f = s0ok & (ypc + ts0f * dodp < 0.0)
+    s0b = s0ok & (ypc + ts0b * dodp < 0.0)
+    s1f = s1ok & (ypc + ts1f * dodp > gco)
+    s1b = s1ok & (ypc + ts1b * dodp > gco)
+    t_lo = _jmin(_where(cf_ok, tcf, BIG),
+                 _jmin(_where(s0f, ts0f, BIG), _where(s1f, ts1f, BIG)))
+    t_up = _jmax(_where(cb_ok, tcb, -BIG),
+                 _jmax(_where(s0b, ts0b, -BIG), _where(s1b, ts1b, -BIG)))
+    lo_ok = (tn <= dtl + t_lo) & (dtl + t_lo <= tf) & (t_lo < BIG)
+    up_ok = (tn <= dtl + t_up) & (dtl + t_up <= tf) & (t_up > -BIG)
+    return lo_ok | up_ok, dtl + torch.where(lo_ok, t_lo, t_up)
+
+
+def _leaf_flat_line(f, o, d, tn, tf):
+    """B5: ray-facing flat segment (:693-717). The Pallas kernel's
+    ``rsqrt`` is taken as 1/sqrt, correctly rounded in every port
+    version."""
+    p0x, p0y, p0z, r0, p1x, p1y, p1z, r1 = f[:8]
+    ox, oy, oz = o
+    dx, dy, dz = d
+    vx = p1x - p0x
+    vy = p1y - p0y
+    vz = p1z - p0z
+    wx = p0x - ox
+    wy = p0y - oy
+    wz = p0z - oz
+    dd = _jmax(dx * dx + dy * dy + dz * dz, 1e-30)
+    invdd = 1.0 / dd
+    wd = wx * dx + wy * dy + wz * dz
+    vd = vx * dx + vy * dy + vz * dz
+    wv = (wx * vx + wy * vy + wz * vz) - wd * vd * invdd
+    vv2 = (vx * vx + vy * vy + vz * vz) - vd * vd * invdd
+    okf = vv2 > 1e-20
+    sf = _jmin(1.0, _jmax(0.0, _where(okf, -wv / _where(okf, vv2, 1.0),
+                                      0.0)))
+    mx = wx + sf * vx
+    my = wy + sf * vy
+    mz = wz + sf * vz
+    md = mx * dx + my * dy + mz * dz
+    tl = md * invdd
+    d2f = mx * mx + my * my + mz * mz - md * md * invdd
+    rr = r0 + sf * (r1 - r0)
+    ok = ((d2f <= rr * rr) & (tl >= tn) & (tl <= tf)
+          & (tl > 2.0 * rr * (1.0 / _sqrt(dd)))
+          & ((vx != 0.0) | (vy != 0.0) | (vz != 0.0)))
+    return ok, tl
+
+
+def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool):
+    """Per-slot (valid, t, u/v of class 0, kind tag, fields) of one leaf
+    record per ray, selected by the kind tag where the record carries one
+    (:1048-1057)."""
+    fw = rec[:, :LEAF_WORDS].contiguous().view(torch.float32)
+    f = fw.reshape(-1, 9, 8).unbind(1)
+    dx, dy, dz = d
+    ddot = dx * dx + dy * dy + dz * dz
+    results = []
+    uv = None
+    for k in packed.kind_classes:
+        if k == 0:
+            v, t, uv = (_leaf_pluecker if robust else _leaf_moeller)(
+                f, o, d, tn, tf)
+        elif k == 2:
+            v, t = _leaf_sphere(f, o, d, tn, tf, ddot)
+        elif k == 3:
+            v, t = _leaf_disc(f, o, d, tn, tf)
+        elif k == 4:
+            v, t = _leaf_oriented_disc(f, o, d, tn, tf)
+        elif k == 5:
+            v, t = _leaf_round_line(f, o, d, tn, tf, ddot)
+        else:
+            v, t = _leaf_flat_line(f, o, d, tn, tf)
+        results.append((k, v, t))
+    if not packed.has_kinds:
+        _, valid, tt = results[0]
+        return valid, tt, uv, torch.zeros_like(rec[:, :LEAF_WIDTH]), f
+    kw = LEAF_WORDS + (LEAF_WIDTH if packed.has_mask else 0)
+    tag = rec[:, kw:kw + LEAF_WIDTH]
+    valid = torch.zeros_like(tag, dtype=torch.bool)
+    tt = torch.zeros_like(fw[:, :LEAF_WIDTH])
+    for k, v, t in results:
+        sel = tag == k
+        valid = valid | (sel & v)
+        tt = torch.where(sel, t, tt)
+    return valid, tt, uv, tag, f
 
 
 def _bf16_pairs(words):
@@ -234,10 +549,11 @@ def _bf16_pairs(words):
 
 def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
                               mask, occlusion: bool = False,
-                              want_attrs: bool = False) -> TraceResult:
+                              want_attrs: bool = False,
+                              robust: bool = False) -> TraceResult:
     """Plain PyTorch version of the traversal kernel: same inputs, same
     outputs, bit for bit."""
-    want_attrs = want_attrs and not occlusion
+    want_attrs = _want_attrs(packed, occlusion, want_attrs)
     _check(packed, org, dir, tnear, tfar, mask)
     dev = org.device
     R = org.shape[0]
@@ -255,6 +571,7 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     cur = torch.zeros(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
+    class_slots = torch.zeros(8, dtype=torch.int64, device=dev)
     live = tnear <= tfar
     if not packed.has_mask:
         # mask-free scenes fold the ray mask into activation (:1231-1235)
@@ -280,6 +597,10 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             t1 = (hi - o) * r
             tmin = _jmin(t0, t1)
             tmax = _jmax(t0, t1)
+            if robust:
+                # +-3-ulp widened slabs (:469-479); tnear, tf unscaled
+                tmin = tmin * ROBUST_DOWN
+                tmax = tmax * ROBUST_UP
             tent = _jmax(_jmax(tmin[:, 0], tmin[:, 1]),
                          _jmax(tmin[:, 2], tnear[na, None]))
             tex = _jmin(_jmin(tmax[:, 0], tmax[:, 1]),
@@ -303,38 +624,21 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             cur[na[has]] = srefs[has, 0]
             pop.append(na[~has])
 
-        # ---- leaves: Möller over 8 slots, best slot key (:557-579) ----
+        # ---- leaves: per-kind tests over 8 slots, best slot key
+        # (:496-579, :1048-1068) ----
         la = act[~at_node]
         if la.numel():
             visits[1, la] += 1
             lid = (-c[~at_node] - 1).long()
             rec = leaves[lid.clamp(0, n_leaves - 1)]
-            f = rec[:, :LEAF_WORDS].contiguous().view(torch.float32)
-            f = f.reshape(-1, 9, 8)
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f.unbind(1)
             o = org[la]
             d = dir[la]
-            ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-            dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-            tn = tnear[la, None]
-            tfa = tf[la, None]
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            det_ok = det.abs() > 1e-24
-            inv_det = torch.where(det_ok, torch.reciprocal(det), zero)
-            tvx = ox - v0x
-            tvy = oy - v0y
-            tvz = oz - v0z
-            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-            qvx = tvy * e1z - tvz * e1y
-            qvy = tvz * e1x - tvx * e1z
-            qvz = tvx * e1y - tvy * e1x
-            vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-            tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-            valid = (det_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                     & (tt >= tn) & (tt <= tfa))
+            valid, tt, uv, tag, f = _leaf_classes(
+                packed, rec, (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
+                (d[:, 0:1], d[:, 1:2], d[:, 2:3]), tnear[la, None],
+                tf[la, None], robust)
+            class_slots += torch.bincount(tag.reshape(-1).long().clamp(0, 7),
+                                          minlength=8)[:8]
             if packed.has_mask:
                 smask = rec[:, LEAF_WORDS:LEAF_WORDS + 8]
                 valid = valid & ((smask & mask[la, None]) != 0)
@@ -349,11 +653,12 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             tf[fr] = t_new[found]
             best[fr] = (lid[found] * 8 + ws[found, 0]).to(torch.int32)
             if want_attrs:
+                e1x, e1y, e1z, e2x, e2y, e2z = f[3:9]
                 ngx = e1y * e2z - e1z * e2y
                 ngy = e1z * e2x - e1x * e2z
                 ngz = e1x * e2y - e1y * e2x
                 wf = ws[found]
-                for k, a in enumerate((uu, vv, ngx, ngy, ngz)):
+                for k, a in enumerate(uv + (ngx, ngy, ngz)):
                     attrs[k, fr] = a[found].gather(1, wf).squeeze(1)
             pop.append(la)
 
@@ -371,19 +676,23 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             live &= best < 0
         act = act[live[act]]
 
+    in_classes = torch.zeros(8, dtype=torch.bool, device=dev)
+    in_classes[list(packed.kind_classes)] = True
     return TraceResult(t=tf, best=best, visits=visits, attrs=attrs,
-                       overflow=overflow.sum().to(torch.int32))
+                       overflow=overflow.sum().to(torch.int32),
+                       class_slots=torch.where(in_classes, class_slots, 0))
 
 
 def trace(packed: PackedScene, org, dir, tnear, tfar, mask,
-          occlusion: bool = False, want_attrs: bool = False) -> TraceResult:
+          occlusion: bool = False, want_attrs: bool = False,
+          robust: bool = False) -> TraceResult:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if org.device.type == "cuda":
         return traverse_kernel(packed, org, dir, tnear, tfar, mask,
-                               occlusion, want_attrs)
+                               occlusion, want_attrs, robust)
     if org.device.type == "cpu":
         return traverse_packed_reference(packed, org, dir, tnear, tfar, mask,
-                                          occlusion, want_attrs)
+                                          occlusion, want_attrs, robust)
     raise ValueError(f"no traversal for device {org.device}")
 
 
@@ -403,7 +712,8 @@ def sort_rays_by_coherence(org, dir, tnear, tfar, mask):
 def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
                     occlusion: bool = False, sort_rays: bool = True,
                     want_attrs: bool = False,
-                    id_tables: Tuple[torch.Tensor, ...] = ()):
+                    id_tables: Tuple[torch.Tensor, ...] = (),
+                    robust: bool = False):
     """Trace R rays against a packed scene. Returns (t, best_prim) with
     best_prim = merged prim index, -1 for miss. Inputs are flat (R,3)/(R,);
     ray_mask holds uint32 values (any integer dtype).
@@ -417,6 +727,8 @@ def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
     dict(u, v, ng (R,3), ids tuple); id_tables are per-merged-prim tensors
     gathered by best_prim (misses gather entry 0 — mask by best_prim >= 0).
     For other scenes attrs is None.
+
+    robust: the scene's robust mode (widened slabs, Plücker leaf, B2).
     """
     R = org.shape[0]
     org = org.to(torch.float32).contiguous()
@@ -429,7 +741,8 @@ def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
         perm, (org, dir, tnear, tfar, mask) = sort_rays_by_coherence(
             org, dir, tnear, tfar, mask)
     emit_attrs = want_attrs and packed.tri_attrs
-    res = trace(packed, org, dir, tnear, tfar, mask, occlusion, emit_attrs)
+    res = trace(packed, org, dir, tnear, tfar, mask, occlusion, emit_attrs,
+                robust)
     prim = torch.where(res.best >= 0,
                        packed.pid_map[res.best.clamp(min=0).long()], -1)
 

@@ -1,25 +1,36 @@
 // Per-ray BVH8 traversal: closest hit or any hit of one ray against the
 // port's packed records (embree_tpu_torch/accel/pack.py).
 //
-// Replaces embree_tpu/accel/traverse_pallas.py::_kernel, its triangle
-// specialization (resident table, non-robust, static scene). Each ray walks
-// the exact sequence of records the Pallas kernel gives its lane: the same
-// bf16 slab test, the same sort keys (t bits with the low 3 bits replaced by
-// the slot), the same push order, the same strict `t < tfar` acceptance.
-// The TPU kernel's fetch stalls and 16-group lockstep only delay a lane,
-// never change its result, so they have no counterpart here.
+// Replaces embree_tpu/accel/traverse_pallas.py::_kernel for static scenes:
+// the triangle specialization (B1, resident or streamed table), robust mode
+// (B2: +-3-ulp widened slabs, watertight Pluecker leaf, :469-479, :529-556),
+// per-slot kind tags with quads as two triangle slots (B3, :1048-1057),
+// points (B4: sphere, ray-facing disc, oriented disc, :582-621) and lines
+// (B5: round cone-sphere with the begin-cap flag, flat ray-facing,
+// :622-717). Each ray walks the exact sequence of records the Pallas kernel
+// gives its lane: the same bf16 slab test, the same sort keys (t bits with
+// the low 3 bits replaced by the slot), the same push order, the same strict
+// `t < tfar` acceptance, and every leaf expression in the Pallas kernel's
+// association order. The TPU kernel's fetch stalls and 16-group lockstep
+// only delay a lane, never change its result, so they have no counterpart
+// here. Where the Pallas kernel computes every class of a slot and selects
+// by tag, this code switches on the tag: selection never mixes classes, so
+// the result is the same.
 //
 // What bounds it on an H100: every step reads one record (128 B for a node,
-// 288 B for a leaf, 320 B with per-slot masks) through L2, dependent on the
-// step before, and rays of one warp diverge in depth and record kind. This
-// first design does nothing about either: one ray per thread, a 64-entry
-// stack in local memory, records read with 16-byte __ldg loads. It is the
-// baseline that later designs (warp-cooperative node tests, a treelet
-// queue, shared-memory top levels) are measured against.
+// 288 B for a leaf, +32 B for each mask or kind chunk) through L2, dependent
+// on the step before; rays of one warp diverge in depth, in record kind and,
+// with kind tags, in primitive class (a round line costs ~150 operations, a
+// disc ~20). This design does nothing about either yet: one ray per thread,
+// a 64-entry stack in local memory, records read with 16-byte __ldg loads,
+// a switch per slot. It is the baseline that later designs (warp-cooperative
+// node tests, a treelet queue, shared-memory top levels, class-sorted leaf
+// work) are measured against.
 //
 // The file is compiled twice: by nvcc into the kernel (traverse.cu) and by
 // g++ into a CPU twin (traverse_cpu.cpp) that the tests hold against the
-// plain PyTorch version. Both builds forbid FMA contraction.
+// plain PyTorch version. Both builds forbid FMA contraction, and both take
+// 1/sqrt for the Pallas kernel's rsqrt, correctly rounded.
 #pragma once
 
 #include <stdint.h>
@@ -40,13 +51,18 @@ constexpr int32_t kInvalidRec = 0x40000000;
 constexpr int32_t kInfBits = 0x7F800000;
 constexpr int kNodeWords = 32;         // 8 child refs + 24 bf16 lo|hi words
 constexpr int kLeafFields = 72;        // 9 fields x 8 slots, field-major
+// robust slab widening, rounded to float32 as the Pallas kernel does
+constexpr float kRobustDown = static_cast<float>(1.0 - 3.0 * 1.19209290e-07);
+constexpr float kRobustUp = static_cast<float>(1.0 + 3.0 * 1.19209290e-07);
+constexpr float kUlp1 = 1.19209290e-07f;
+constexpr float kBig = 3e38f;
 
 struct Params {
   const int32_t* nodes;    // (n_nodes, 32)
   int32_t n_nodes;
   const int32_t* leaves;   // (n_leaves, leaf_stride): float bits [+ masks]
   int32_t n_leaves;
-  int32_t leaf_stride;     // 72, or 80 with the per-slot mask words
+  int32_t leaf_stride;     // 72, +8 with mask words, +8 with kind words
   const float* org;        // (R, 3)
   const float* dir;        // (R, 3)
   const float* tnear;      // (R,)
@@ -57,6 +73,7 @@ struct Params {
   int32_t* out_best;       // (R,)   8 * leaf + slot of the best hit, else -1
   int32_t* out_visits;     // (2, R) node records, leaf records visited
   float* out_attr;         // (5, R) u, v, Ng of the best hit (WANT_ATTRS)
+  int32_t kind_classes;    // bit k set: kind tag k occurs (KINDS)
 };
 
 struct I4 {
@@ -154,14 +171,270 @@ TRAV_HD void sort8(int32_t* k, int32_t* r) {
   cswap(k, r, 2, 4); cswap(k, r, 3, 5); cswap(k, r, 3, 4);
 }
 
+// One ray's constants for the leaf tests.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tnear, ddot;
+};
+
+// The 9 fields of slot s of a leaf record (field-major words).
+struct Slot {
+  float f0, f1, f2, f3, f4, f5, f6, f7, f8;
+};
+
+TRAV_HD Slot slot_fields(const float* f, int s) {
+  return Slot{f[s],      f[8 + s],  f[16 + s], f[24 + s], f[32 + s],
+              f[40 + s], f[48 + s], f[56 + s], f[64 + s]};
+}
+
+// ---- class 0: Moeller-Trumbore (fields v0, e1, e2), in kind-tagged
+// scenes; triangle-only scenes run B1's own copy in trace_ray ----
+TRAV_HD bool leaf_moeller(const Slot& q, const Ray& r, float tf, float& tt,
+                          float& uu, float& vv) {
+  const float v0x = q.f0, v0y = q.f1, v0z = q.f2;
+  const float e1x = q.f3, e1y = q.f4, e1z = q.f5;
+  const float e2x = q.f6, e2y = q.f7, e2z = q.f8;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool det_ok = fabsf(det) > 1e-24f;
+  const float inv_det = det_ok ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+  uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+  tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  return det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+         tt >= r.tnear && tt <= tf;
+}
+
+// ---- class 0 in robust mode, B2: watertight Pluecker test; u/v = U/S,
+// V/S (:529-556) ----
+TRAV_HD bool leaf_pluecker(const Slot& q, const Ray& r, float tf, float& tt,
+                           float& uu, float& vv) {
+  const float e1x = q.f3, e1y = q.f4, e1z = q.f5;
+  const float e2x = q.f6, e2y = q.f7, e2z = q.f8;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  const float ax = q.f0 - r.ox, ay = q.f1 - r.oy, az = q.f2 - r.oz;
+  const float bx = ax + e1x, by = ay + e1y, bz = az + e1z;
+  const float cx = ax + e2x, cy = ay + e2y, cz = az + e2z;
+  const float up = dx * (cy * bz - cz * by) + dy * (cz * bx - cx * bz) +
+                   dz * (cx * by - cy * bx);
+  const float vp = dx * (ay * cz - az * cy) + dy * (az * cx - ax * cz) +
+                   dz * (ax * cy - ay * cx);
+  const float wp = dx * (by * az - bz * ay) + dy * (bz * ax - bx * az) +
+                   dz * (bx * ay - by * ax);
+  const float min_uvw = jmin(jmin(up, vp), wp);
+  const float max_uvw = jmax(jmax(up, vp), wp);
+  const float ngx = e1y * e2z - e1z * e2y;
+  const float ngy = e1z * e2x - e1x * e2z;
+  const float ngz = e1x * e2y - e1y * e2x;
+  const float den = ngx * dx + ngy * dy + ngz * dz;
+  const bool den_ok = fabsf(den) > 1e-30f;
+  const float inv_den = den_ok ? 1.0f / den : 0.0f;
+  tt = (ngx * ax + ngy * ay + ngz * az) * inv_den;
+  const float sum = up + vp + wp;
+  const float rcp_s = fabsf(sum) > 1e-30f ? 1.0f / sum : 0.0f;
+  uu = up * rcp_s;
+  vv = vp * rcp_s;
+  return (min_uvw >= 0.0f || max_uvw <= 0.0f) && den_ok && tt >= r.tnear &&
+         tt <= tf;
+}
+
+// ---- class 2, B4: sphere point (center, radius; :585-598) ----
+TRAV_HD bool leaf_sphere(const Slot& q, const Ray& r, float tf, float& tt) {
+  const float ocx = r.ox - q.f0, ocy = r.oy - q.f1, ocz = r.oz - q.f2;
+  const float rad = q.f3;
+  const float bq = 2.0f * (ocx * r.dx + ocy * r.dy + ocz * r.dz);
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = bq * bq - 4.0f * r.ddot * cq;
+  const float sq = sqrtf(jmax(disc, 0.0f));
+  const float inv2a = 1.0f / jmax(2.0f * r.ddot, 1e-30f);
+  const float st0 = (-bq - sq) * inv2a;
+  const float st1 = (-bq + sq) * inv2a;
+  const bool ok = disc >= 0.0f;
+  const bool v0 = ok && st0 >= r.tnear && st0 <= tf;
+  const bool v1 = ok && st1 >= r.tnear && st1 <= tf;
+  tt = v0 ? st0 : st1;
+  return v0 || v1;
+}
+
+TRAV_HD bool disc_hit(const Slot& q, const Ray& r, float tf, float td,
+                      float cmox, float cmoy, float cmoz) {
+  const float px = td * r.dx - cmox;
+  const float py = td * r.dy - cmoy;
+  const float pz = td * r.dz - cmoz;
+  const float r2 = px * px + py * py + pz * pz;
+  return td >= r.tnear && td <= tf && r2 <= q.f3 * q.f3;
+}
+
+// ---- class 3, B4: ray-facing disc (:600-608) ----
+TRAV_HD bool leaf_disc(const Slot& q, const Ray& r, float tf, float& tt) {
+  const float cmox = q.f0 - r.ox, cmoy = q.f1 - r.oy, cmoz = q.f2 - r.oz;
+  const float d2 = jmax(r.ddot, 1e-30f);
+  tt = (cmox * r.dx + cmoy * r.dy + cmoz * r.dz) / d2;
+  return disc_hit(q, r, tf, tt, cmox, cmoy, cmoz);
+}
+
+// ---- class 4, B4: oriented disc (normal in fields 4-6; :610-620) ----
+TRAV_HD bool leaf_oriented_disc(const Slot& q, const Ray& r, float tf,
+                                float& tt) {
+  const float cmox = q.f0 - r.ox, cmoy = q.f1 - r.oy, cmoz = q.f2 - r.oz;
+  const float dn = r.dx * q.f4 + r.dy * q.f5 + r.dz * q.f6;
+  const bool ok = fabsf(dn) > 1e-12f;
+  tt = (cmox * q.f4 + cmoy * q.f5 + cmoz * q.f6) / (ok ? dn : 1.0f);
+  return ok && disc_hit(q, r, tf, tt, cmox, cmoy, cmoz);
+}
+
+// ---- class 5, B5: round line, tangent cone + end spheres, CSG interval
+// union; field 8 flags a joint whose begin sphere belongs to the previous
+// segment (:622-691) ----
+TRAV_HD bool leaf_round_line(const Slot& q, const Ray& r, float tf,
+                             float& tt) {
+  const float p0x = q.f0, p0y = q.f1, p0z = q.f2, r0 = q.f3;
+  const float p1x = q.f4, p1y = q.f5, p1z = q.f6, r1 = q.f7;
+  const float dx = r.dx, dy = r.dy, dz = r.dz, ddot = r.ddot;
+  const float rcpdd = 1.0f / jmax(ddot, 1e-30f);
+  const float ccx = 0.5f * (p0x + p1x), ccy = 0.5f * (p0y + p1y),
+              ccz = 0.5f * (p0z + p1z);
+  const float dtl =
+      ((ccx - r.ox) * dx + (ccy - r.oy) * dy + (ccz - r.oz) * dz) * rcpdd;
+  const float o2x = r.ox + dtl * dx, o2y = r.oy + dtl * dy,
+              o2z = r.oz + dtl * dz;
+  const float dpx = p1x - p0x, dpy = p1y - p0y, dpz = p1z - p0z;
+  const float dpdp = dpx * dpx + dpy * dpy + dpz * dpz;
+  const float drr = r1 - r0;
+  const float r0dr = r0 * drr;
+  const float gco = dpdp - drr * drr;
+  const float oxx = o2x - p0x, oyy = o2y - p0y, ozz = o2z - p0z;
+  const float odp = oxx * dpx + oyy * dpy + ozz * dpz;
+  const float dodp = dx * dpx + dy * dpy + dz * dpz;
+  const float ypc = odp + r0dr;
+  const float oo = oxx * oxx + oyy * oyy + ozz * ozz;
+  const float odo = dx * oxx + dy * oyy + dz * ozz;
+  const float ac = gco * ddot - dodp * dodp;
+  const float bc = 2.0f * (gco * odo - dodp * ypc);
+  const float cc = gco * oo - odp * odp - r0 * r0 * dpdp - 2.0f * r0dr * odp;
+  const float dc = bc * bc - 4.0f * ac * cc;
+  const bool cone_ok = dc >= 0.0f && gco > 0.0f && fabsf(ac) > 1e-18f;
+  const float qc = sqrtf(jmax(dc, 0.0f));
+  const float rc2a = 1.0f / (cone_ok ? 2.0f * ac : 1.0f);
+  const float tcf = (-bc - qc) * rc2a;
+  const float tcb = (-bc + qc) * rc2a;
+  const float ycf = ypc + tcf * dodp;
+  const float ycb = ypc + tcb * dodp;
+  const bool cf_ok = cone_ok && ycf > -kUlp1 && ycf <= gco;
+  const bool cb_ok = cone_ok && ycb > -kUlp1 && ycb <= gco;
+  // end spheres
+  float ts0f, ts0b, ts1f, ts1b;
+  bool s0ok, s1ok;
+  {
+    const float o1x = o2x - p0x, o1y = o2y - p0y, o1z = o2z - p0z;
+    const float o1do = o1x * dx + o1y * dy + o1z * dz;
+    const float h2 =
+        o1do * o1do - ddot * (o1x * o1x + o1y * o1y + o1z * o1z - r0 * r0);
+    const float rt = sqrtf(jmax(h2, 0.0f));
+    s0ok = h2 >= 0.0f;
+    ts0f = (-o1do - rt) * rcpdd;
+    ts0b = (-o1do + rt) * rcpdd;
+  }
+  {
+    const float o1x = o2x - p1x, o1y = o2y - p1y, o1z = o2z - p1z;
+    const float o1do = o1x * dx + o1y * dy + o1z * dz;
+    const float h2 =
+        o1do * o1do - ddot * (o1x * o1x + o1y * o1y + o1z * o1z - r1 * r1);
+    const float rt = sqrtf(jmax(h2, 0.0f));
+    s1ok = h2 >= 0.0f;
+    ts1f = (-o1do - rt) * rcpdd;
+    ts1b = (-o1do + rt) * rcpdd;
+  }
+  s0ok = s0ok && q.f8 < 0.5f;
+  const bool s0f = s0ok && ypc + ts0f * dodp < 0.0f;
+  const bool s0b = s0ok && ypc + ts0b * dodp < 0.0f;
+  const bool s1f = s1ok && ypc + ts1f * dodp > gco;
+  const bool s1b = s1ok && ypc + ts1b * dodp > gco;
+  const float t_lo = jmin(cf_ok ? tcf : kBig,
+                          jmin(s0f ? ts0f : kBig, s1f ? ts1f : kBig));
+  const float t_up = jmax(cb_ok ? tcb : -kBig,
+                          jmax(s0b ? ts0b : -kBig, s1b ? ts1b : -kBig));
+  const bool lo_ok =
+      r.tnear <= dtl + t_lo && dtl + t_lo <= tf && t_lo < kBig;
+  const bool up_ok =
+      r.tnear <= dtl + t_up && dtl + t_up <= tf && t_up > -kBig;
+  tt = dtl + (lo_ok ? t_lo : t_up);
+  return lo_ok || up_ok;
+}
+
+// ---- class 6, B5: flat ray-facing line (:693-717) ----
+TRAV_HD bool leaf_flat_line(const Slot& q, const Ray& r, float tf,
+                            float& tt) {
+  const float p0x = q.f0, p0y = q.f1, p0z = q.f2, r0 = q.f3;
+  const float p1x = q.f4, p1y = q.f5, p1z = q.f6, r1 = q.f7;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  const float vx = p1x - p0x, vy = p1y - p0y, vz = p1z - p0z;
+  const float wx = p0x - r.ox, wy = p0y - r.oy, wz = p0z - r.oz;
+  const float dd = jmax(r.ddot, 1e-30f);
+  const float invdd = 1.0f / dd;
+  const float wd = wx * dx + wy * dy + wz * dz;
+  const float vd = vx * dx + vy * dy + vz * dz;
+  const float wv = (wx * vx + wy * vy + wz * vz) - wd * vd * invdd;
+  const float vv2 = (vx * vx + vy * vy + vz * vz) - vd * vd * invdd;
+  const bool okf = vv2 > 1e-20f;
+  const float sf =
+      jmin(1.0f, jmax(0.0f, okf ? -wv / (okf ? vv2 : 1.0f) : 0.0f));
+  const float mx = wx + sf * vx, my = wy + sf * vy, mz = wz + sf * vz;
+  const float md = mx * dx + my * dy + mz * dz;
+  tt = md * invdd;
+  const float d2f = mx * mx + my * my + mz * mz - md * md * invdd;
+  const float rr = r0 + sf * (r1 - r0);
+  return d2f <= rr * rr && tt >= r.tnear && tt <= tf &&
+         tt > 2.0f * rr * (1.0f / sqrtf(dd)) &&
+         (vx != 0.0f || vy != 0.0f || vz != 0.0f);
+}
+
+// Slot test of one class by its tag (the mixed-class kernel). Tags outside
+// the scene's classes stay invalid, as an unmatched tag does in Pallas.
+template <bool ROBUST>
+TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
+                         const Ray& r, float tf, float& tt) {
+  tt = 0.0f;
+  if (tag < 0 || tag > 6 || !((classes >> tag) & 1)) return false;
+  float uu, vv;
+  switch (tag) {
+    case 0:
+      return ROBUST ? leaf_pluecker(q, r, tf, tt, uu, vv)
+                    : leaf_moeller(q, r, tf, tt, uu, vv);
+    case 2:
+      return leaf_sphere(q, r, tf, tt);
+    case 3:
+      return leaf_disc(q, r, tf, tt);
+    case 4:
+      return leaf_oriented_disc(q, r, tf, tt);
+    case 5:
+      return leaf_round_line(q, r, tf, tt);
+    case 6:
+      return leaf_flat_line(q, r, tf, tt);
+    default:
+      return false;
+  }
+}
+
 // Trace ray i. Returns true when its stack grew past kStack (must not
 // happen: the caller counts it).
-template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK>
+// ROBUST: B2 slabs and leaf. KINDS: per-slot kind tags after the mask words,
+// one class test per slot (B3-B5); without it every slot is a triangle.
+template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
+          bool KINDS>
 TRAV_HD bool trace_ray(const Params& p, int i) {
+  static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
   const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   const float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
   const float rdx = rcp_safe(dx), rdy = rcp_safe(dy), rdz = rcp_safe(dz);
   const float tnear = p.tnear[i];
+  const Ray ray{ox, oy, oz, dx, dy, dz, tnear, dx * dx + dy * dy + dz * dz};
   const int32_t rmask = p.mask[i];
   float tf = p.tfar[i];
   int32_t best = -1;
@@ -203,10 +476,21 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
         const float ty1 = (bf16_hi(w[16 + c]) - oy) * rdy;
         const float tz0 = (bf16_lo(w[24 + c]) - oz) * rdz;
         const float tz1 = (bf16_hi(w[24 + c]) - oz) * rdz;
-        const float tent = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
-                                jmax(jmin(tz0, tz1), tnear));
-        const float tex = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
-                               jmin(jmax(tz0, tz1), tf));
+        float tent, tex;
+        if (ROBUST) {
+          // +-3-ulp widened slabs; tnear and tf stay unscaled
+          tent = jmax(jmax(jmin(tx0, tx1) * kRobustDown,
+                           jmin(ty0, ty1) * kRobustDown),
+                      jmax(jmin(tz0, tz1) * kRobustDown, tnear));
+          tex = jmin(jmin(jmax(tx0, tx1) * kRobustUp,
+                          jmax(ty0, ty1) * kRobustUp),
+                     jmin(jmax(tz0, tz1) * kRobustUp, tf));
+        } else {
+          tent = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
+                      jmax(jmin(tz0, tz1), tnear));
+          tex = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
+                     jmin(jmax(tz0, tz1), tf));
+        }
         const bool hit = tent <= tex && w[c] != kInvalidRec;
         const int32_t kd = as_int(jmax(tent, 0.0f));
         key[c] = hit ? ((kd & ~7) | c) : (kInfBits | c);
@@ -229,7 +513,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
         continue;
       }
     } else {
-      // ---- leaf: Moller-Trumbore over the 8 triangle slots ----
+      // ---- leaf: the 8 slots' tests, best slot key ----
       ++n_leaf;
       const int32_t lid = -cur - 1;
       const int32_t* rec =
@@ -250,28 +534,61 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
         smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
         smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
       }
+      int32_t ktag[8];
+      if (KINDS) {
+        const int32_t* kw = rec + kLeafFields + (HAS_MASK ? 8 : 0);
+        I4 k0 = load4(kw), k1 = load4(kw + 4);
+        ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
+        ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
+      }
       int32_t best_key = 0x7FFFFFFF, best_tb = 0;
       float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
 #pragma unroll
       for (int s = 0; s < 8; ++s) {
-        const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
-        const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
-        const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const bool det_ok = fabsf(det) > 1e-24f;
-        const float inv_det = det_ok ? 1.0f / det : 0.0f;
-        const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-        const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-        const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        bool valid = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                     tt >= tnear && tt <= tf;
+        if (!KINDS && !ROBUST) {
+          // B1's slot body, kept as it was: written through leaf_moeller
+          // and Slot it computes the same bits but ptxas allocates up to
+          // 2 more registers, and the triangle variants must compile as
+          // before
+          const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
+          const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
+          const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
+          const float pvx = dy * e2z - dz * e2y;
+          const float pvy = dz * e2x - dx * e2z;
+          const float pvz = dx * e2y - dy * e2x;
+          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+          const bool det_ok = fabsf(det) > 1e-24f;
+          const float inv_det = det_ok ? 1.0f / det : 0.0f;
+          const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+          const float qvx = tvy * e1z - tvz * e1y;
+          const float qvy = tvz * e1x - tvx * e1z;
+          const float qvz = tvx * e1y - tvy * e1x;
+          const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+          const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+          bool valid = det_ok && uu >= 0.0f && vv >= 0.0f &&
+                       uu + vv <= 1.0f && tt >= tnear && tt <= tf;
+          if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
+          const int32_t tb = as_int(jmax(tt, 0.0f));
+          const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
+          if (k < best_key) {
+            best_key = k;
+            best_tb = tb;
+            if (WANT_ATTRS) {
+              b_u = uu;
+              b_v = vv;
+              b_nx = e1y * e2z - e1z * e2y;
+              b_ny = e1z * e2x - e1x * e2z;
+              b_nz = e1x * e2y - e1y * e2x;
+            }
+          }
+          continue;
+        }
+        const Slot q = slot_fields(f, s);
+        float tt, uu = 0.0f, vv = 0.0f;
+        bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
+                                                 ray, tf, tt)
+                           : leaf_pluecker(q, ray, tf, tt, uu, vv);
         if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
         const int32_t tb = as_int(jmax(tt, 0.0f));
         const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
@@ -281,9 +598,9 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
           if (WANT_ATTRS) {
             b_u = uu;
             b_v = vv;
-            b_nx = e1y * e2z - e1z * e2y;
-            b_ny = e1z * e2x - e1x * e2z;
-            b_nz = e1x * e2y - e1y * e2x;
+            b_nx = q.f4 * q.f8 - q.f5 * q.f7;
+            b_ny = q.f5 * q.f6 - q.f3 * q.f8;
+            b_nz = q.f3 * q.f7 - q.f4 * q.f6;
           }
         }
       }

@@ -11,25 +11,33 @@
 
 namespace {
 
-template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK>
+template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
+          bool KINDS>
 int run(const trav::Params& p) {
   int overflow = 0;
   for (int i = 0; i < p.n_rays; ++i) {
-    overflow += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK>(p, i) ? 1 : 0;
+    overflow +=
+        trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(p, i)
+            ? 1
+            : 0;
   }
   return overflow;
 }
 
-template <bool OCCLUSION, bool WANT_ATTRS>
-int run_mask(const trav::Params& p, int has_mask) {
-  return has_mask ? run<OCCLUSION, WANT_ATTRS, true>(p)
-                  : run<OCCLUSION, WANT_ATTRS, false>(p);
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS>
+int run_flags(const trav::Params& p, int has_mask, int robust) {
+  if (has_mask) {
+    return robust ? run<OCCLUSION, WANT_ATTRS, true, true, KINDS>(p)
+                  : run<OCCLUSION, WANT_ATTRS, true, false, KINDS>(p);
+  }
+  return robust ? run<OCCLUSION, WANT_ATTRS, false, true, KINDS>(p)
+                : run<OCCLUSION, WANT_ATTRS, false, false, KINDS>(p);
 }
 
 }  // namespace
 
 // Same arguments as traverse_launch (traverse.cu) without the stream; host
-// pointers. Returns 0.
+// pointers. Returns 0, or 1 for a variant that does not exist.
 extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              const int32_t* leaves, int n_leaves,
                              int leaf_stride, const float* org,
@@ -38,17 +46,23 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              int n_rays, float* out_t, int32_t* out_best,
                              int32_t* out_visits, float* out_attr,
                              int32_t* out_overflow, int occlusion,
-                             int want_attrs, int has_mask) {
+                             int want_attrs, int has_mask, int robust,
+                             int has_kinds, int kind_classes) {
+  if (has_kinds && want_attrs && !occlusion) return 1;
   const trav::Params p{nodes, n_nodes, leaves, n_leaves, leaf_stride,
                        org,   dir,     tnear,  tfar,     mask,
-                       n_rays, out_t,  out_best, out_visits, out_attr};
+                       n_rays, out_t,  out_best, out_visits, out_attr,
+                       kind_classes};
   int ovf;
-  if (occlusion) {
-    ovf = run_mask<true, false>(p, has_mask);
+  if (has_kinds) {
+    ovf = occlusion ? run_flags<true, false, true>(p, has_mask, robust)
+                    : run_flags<false, false, true>(p, has_mask, robust);
+  } else if (occlusion) {
+    ovf = run_flags<true, false, false>(p, has_mask, robust);
   } else if (want_attrs) {
-    ovf = run_mask<false, true>(p, has_mask);
+    ovf = run_flags<false, true, false>(p, has_mask, robust);
   } else {
-    ovf = run_mask<false, false>(p, has_mask);
+    ovf = run_flags<false, false, false>(p, has_mask, robust);
   }
   out_overflow[0] += ovf;
   return 0;

@@ -42,3 +42,35 @@ def intersect_moeller(org, dir, v0, v1, v2, tnear, tfar):
     hit = (det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t >= tnear) & (t <= tfar))
     return hit, t, u, v, ng
+
+
+def intersect_pluecker(org, dir, v0, v1, v2, tnear, tfar):
+    """Watertight Plücker test (robust scenes): signed volumes U, V, W of the
+    ray against the three edges; a hit needs all three of one sign.
+
+    Port of embree_tpu/ops/triangle.py:58-98
+    (kernels/geometry/triangle_intersector_pluecker.h). u/v follow the
+    Möller convention p = (1-u-v) v0 + u v1 + v v2: u from V, v from W.
+    """
+    a = v0 - org
+    b = v1 - org
+    c = v2 - org
+    U = dot(cross(c, b), dir)
+    V = dot(cross(a, c), dir)
+    W = dot(cross(b, a), dir)
+    min_uvw = torch.minimum(torch.minimum(U, V), W)
+    max_uvw = torch.maximum(torch.maximum(U, V), W)
+    valid_side = (min_uvw >= 0.0) | (max_uvw <= 0.0)
+
+    ng = cross(v1 - v0, v2 - v0)
+    den = dot(ng, dir)
+    den_ok = den.abs() > 1e-30
+    t = dot(ng, a) * torch.where(den_ok, 1.0 / torch.where(den_ok, den, 1.0),
+                                 0.0)
+    uvw = U + V + W
+    uvw_ok = uvw.abs() > 1e-30
+    inv_uvw = torch.where(uvw_ok, 1.0 / torch.where(uvw_ok, uvw, 1.0), 0.0)
+    u = torch.clamp(V * inv_uvw, 0.0, 1.0)
+    v = torch.clamp(W * inv_uvw, 0.0, 1.0)
+    hit = valid_side & den_ok & (t >= tnear) & (t <= tfar)
+    return hit, t, u, v, ng

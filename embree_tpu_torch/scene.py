@@ -1,23 +1,25 @@
 """Scene: geometry container + commit (BVH build) + intersect/occluded queries.
 
-Port of embree_tpu/scene.py (:68-308 Scene, :878-1170 finalize, :1190-1286
-packing and the native build route, :1578-1720 queries), triangle slice.
-Role parity with the reference runtime core (kernels/common/scene.{h,cpp},
-query dispatch kernels/common/rtcore.cpp:599 rtcIntersect1):
+Port of embree_tpu/scene.py (:194-308 Scene, :323-579 merging, :878-1170
+finalize, :1190-1286 packing and the native build route, :1310-1720
+queries), for static scenes of the packed kinds. Role parity with the
+reference runtime core (kernels/common/scene.{h,cpp}, query dispatch
+kernels/common/rtcore.cpp:599 rtcIntersect1):
 
 - ``Scene`` is the mutable host-side container of geometries.
-- ``Scene.commit(device=...)`` merges the triangles, builds a BVH8 with the
-  native builder (the JAX package's ``EMBREE_TPU_NATIVE_BUILD=1`` route, at
-  every prim count), packs the records and returns a ``CommittedScene``: a
-  dataclass of tensors on one device, CUDA unless the caller asks for the
-  CPU.
+- ``Scene.commit(device=...)`` merges triangles, quads, points and line
+  segments, builds a BVH8 with the native builder (the JAX package's
+  ``EMBREE_TPU_NATIVE_BUILD=1`` route, at every prim count), packs the
+  records and returns a ``CommittedScene``: a dataclass of tensors on one
+  device, CUDA unless the caller asks for the CPU.
 - ``intersect``/``occluded`` are plain functions over (CommittedScene,
   RayBatch). On CUDA they launch the Hopper traversal kernel; on the CPU they
   run its plain PyTorch version.
 
-What the slice does not cover, commit refuses with NotImplementedError:
-other geometry kinds (instances included), motion, filters, robust and
-compact scenes, two-level commits, HIGH and REFIT quality.
+What the port does not cover yet, commit refuses with NotImplementedError:
+curves, grids, subdivision, user geometry, instances and two-level scenes,
+motion, filters, min-width (``min_width_factor != 0``), fat round-line
+joints, compact scenes, HIGH and REFIT quality.
 """
 from __future__ import annotations
 
@@ -33,12 +35,30 @@ from .accel.bvh import BVH
 from .accel.traverse import traverse_packed
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, resolve_device, select_hits)
-from .geometry import KIND_TRIANGLE, TriangleGeometry
+from .geometry import (KIND_DISC, KIND_FLAT_LINE, KIND_ORIENTED_DISC,
+                       KIND_QUAD, KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE,
+                       LineSegmentsGeometry, PointGeometry, QuadGeometry,
+                       TriangleGeometry)
 from .native import build_bvh8_native
-from .ops.triangle import intersect_moeller
+from .ops import line as line_ops
+from .ops import point as point_ops
+from .ops.quad import intersect_quad
+from .ops.triangle import intersect_moeller, intersect_pluecker
 
 # Static leaf block size for scene BVHs (TriangleM M=4 analog, triangle.h:14).
 LEAF_SIZE = 8
+# the kinds the packed kernel serves (scene.py:1172-1174 without curves)
+PACKED_KINDS = (KIND_TRIANGLE, KIND_QUAD, KIND_SPHERE, KIND_DISC,
+                KIND_ORIENTED_DISC, KIND_ROUND_LINE, KIND_FLAT_LINE)
+_POINT_KINDS = {"sphere": KIND_SPHERE, "disc": KIND_DISC,
+                "oriented_disc": KIND_ORIENTED_DISC}
+# per-kind tables of the merged scene: name -> trailing shape
+_TABLES = {"tri_v0": (3,), "tri_v1": (3,), "tri_v2": (3,),
+           "quad_v": (4, 3), "quad_uvm": (6,),
+           "pnt_c": (3,), "pnt_r": (), "pnt_n": (3,),
+           "line_p0": (3,), "line_r0": (), "line_p1": (3,), "line_r1": (),
+           "line_fl": (),
+           "line_pL": (3,), "line_rL": (), "line_pR": (3,), "line_rR": ()}
 
 
 class BuildQuality:
@@ -51,18 +71,34 @@ class BuildQuality:
 
 @dataclasses.dataclass
 class CommittedScene:
-    """Device-resident traversable: merged triangle table + BVH + records."""
+    """Device-resident traversable: merged prim tables + BVH + records."""
     bvh: BVH
     prim_kind: torch.Tensor    # (T,) int32
     prim_geom: torch.Tensor    # (T,) int64 geometry id
     prim_local: torch.Tensor   # (T,) int64 prim id within its geometry
     prim_inst: torch.Tensor    # (T, 2) int64 instance ids (INVALID_ID)
-    prim_data: torch.Tensor    # (T,) int64 index into the triangle table
+    prim_data: torch.Tensor    # (T,) int64 index into its kind's table
     prim_mask: torch.Tensor    # (T,) int64 geometry mask (uint32 value)
     tri_v0: torch.Tensor       # (Tt, 3) float32
     tri_v1: torch.Tensor
     tri_v2: torch.Tensor
+    quad_v: torch.Tensor       # (Tq, 4, 3) float32
+    quad_uvm: torch.Tensor     # (Tq, 6) affine uv frame (identity)
+    pnt_c: torch.Tensor        # (Tp, 3) point centers
+    pnt_r: torch.Tensor        # (Tp,) radii
+    pnt_n: torch.Tensor        # (Tp, 3) normals (oriented discs)
+    line_p0: torch.Tensor      # (Tl, 3) segment start
+    line_r0: torch.Tensor      # (Tl,)
+    line_p1: torch.Tensor      # (Tl, 3) segment end
+    line_r1: torch.Tensor      # (Tl,)
+    line_fl: torch.Tensor      # (Tl,) 1 where a segment ends at our start
+    line_pL: torch.Tensor      # (Tl, 3) left neighbor's start point
+    line_rL: torch.Tensor      # (Tl,) its radius, < 0 when absent
+    line_pR: torch.Tensor      # (Tl, 3) right neighbor's end point
+    line_rR: torch.Tensor      # (Tl,) its radius, < 0 when absent
     packed: pack_mod.PackedScene
+    kinds_present: tuple = (KIND_TRIANGLE,)
+    robust: bool = False       # RTC_SCENE_FLAG_ROBUST analog (B2)
 
     @property
     def num_prims(self):
@@ -70,13 +106,104 @@ class CommittedScene:
 
     @property
     def device(self):
-        return self.tri_v0.device
+        return self.prim_kind.device
 
 
 def _refuse(what: str):
     raise NotImplementedError(
-        f"embree_tpu_torch does not cover {what} yet (triangle slice of the "
-        "port; see ROADMAP.md)")
+        f"embree_tpu_torch does not cover {what} yet (see ROADMAP.md)")
+
+
+def _static(buf, what):
+    a = np.asarray(buf, np.float32)
+    if a.ndim != 2:
+        _refuse(f"motion blur ({what} with a time axis)")
+    return a
+
+
+class _Merger:
+    """The merged prim table (scene.py:323-579, static geometry only)."""
+
+    def __init__(self):
+        self.rows = []          # (n, 5): kind, gid, local id, data, mask
+        self.tab = {k: [] for k in _TABLES}
+        self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0}
+
+    def _emit(self, kind, gid, n, group, mask):
+        r = np.empty((n, 5), np.int64)
+        r[:, 0] = kind
+        r[:, 1] = gid
+        r[:, 2] = np.arange(n)
+        r[:, 3] = self.count[group] + np.arange(n)
+        r[:, 4] = int(mask) & 0xFFFFFFFF
+        self.rows.append(r)
+        self.count[group] += n
+
+    def _put(self, **cols):
+        for k, v in cols.items():
+            self.tab[k].append(np.asarray(v, np.float32))
+
+    def add(self, g, gid):
+        if g.filter is not None:
+            _refuse("intersection filters")
+        if isinstance(g, TriangleGeometry):
+            v = _static(g.vertices, "vertices")
+            t = v[np.asarray(g.indices, np.int64)]            # (n, 3, 3)
+            self._emit(KIND_TRIANGLE, gid, t.shape[0], "tri", g.mask)
+            self._put(tri_v0=t[:, 0], tri_v1=t[:, 1], tri_v2=t[:, 2])
+        elif isinstance(g, QuadGeometry):
+            v = _static(g.vertices, "vertices")
+            q = v[np.asarray(g.indices, np.int64)]            # (n, 4, 3)
+            n = q.shape[0]
+            uvm = np.zeros((n, 6), np.float32)                # :1289-1295
+            uvm[:, 2] = uvm[:, 5] = 1.0
+            self._emit(KIND_QUAD, gid, n, "quad", g.mask)
+            self._put(quad_v=q, quad_uvm=uvm)
+        elif isinstance(g, PointGeometry):
+            pa = _static(g.points, "points")
+            n = pa.shape[0]
+            if g.normals is not None:
+                nrm = _static(g.normals, "normals")
+            else:
+                nrm = np.tile(np.array([[0, 0, 1]], np.float32), (n, 1))
+            self._emit(_POINT_KINDS[g.kind], gid, n, "pnt", g.mask)
+            self._put(pnt_c=pa[:, :3], pnt_r=pa[:, 3], pnt_n=nrm)
+        elif isinstance(g, LineSegmentsGeometry):
+            va = _static(g.vertices, "vertices")
+            idx = np.asarray(g.indices, np.int64)
+            n = idx.shape[0]
+            kind = KIND_ROUND_LINE if g.kind == "round" else KIND_FLAT_LINE
+            # a begin sphere exists only where no segment ends at our start
+            # (roundline_intersector.h isBeginPoint); neighbor far endpoints
+            # with radius < 0 marking absent (scene.py:534-544)
+            has_left = np.isin(idx - 1, idx)
+            has_right = np.isin(idx + 1, idx)
+            il = np.clip(idx - 1, 0, va.shape[0] - 1)
+            ir = np.clip(idx + 2, 0, va.shape[0] - 1)
+            if kind == KIND_ROUND_LINE and n > 0:
+                # fat joints need the generic engine's neighbor-cone
+                # clipping, which the packed record lacks (scene.py:545-557)
+                seg_len = np.linalg.norm(va[idx + 1, :3] - va[idx, :3],
+                                         axis=-1)
+                rj = np.maximum(va[idx, 3], va[idx + 1, 3])
+                if ((has_left | has_right) & (rj > 0.5 * seg_len)).any():
+                    _refuse("fat round-line joints (joint radius above half "
+                            "the segment length)")
+            self._emit(kind, gid, n, "line", g.mask)
+            self._put(line_p0=va[idx, :3], line_r0=va[idx, 3],
+                      line_p1=va[idx + 1, :3], line_r1=va[idx + 1, 3],
+                      line_fl=has_left.astype(np.float32),
+                      line_pL=va[il, :3],
+                      line_rL=np.where(has_left, va[il, 3], -1.0),
+                      line_pR=va[ir, :3],
+                      line_rR=np.where(has_right, va[ir, 3], -1.0))
+        else:
+            _refuse(type(g).__name__)
+
+    def tables(self):
+        return {k: (np.concatenate(v).reshape((-1,) + _TABLES[k]) if v else
+                    np.zeros((0,) + _TABLES[k], np.float32))
+                for k, v in self.tab.items()}
 
 
 class Scene:
@@ -84,10 +211,15 @@ class Scene:
 
     def __init__(self, quality: int = BuildQuality.MEDIUM,
                  robust: bool = False, threads: int = 0,
+                 min_width_factor: float = 0.0,
+                 max_radius_scale: float = 1.0,
                  compact: bool = False):
         self.quality = quality
         self.threads = threads     # native-builder OpenMP team size (0 = all)
-        self.robust = robust
+        self.robust = robust       # RTC_SCENE_FLAG_ROBUST analog
+        # min-width (rtcSetGeometryMaxRadiusScale + minWidthDistanceFactor)
+        self.min_width_factor = min_width_factor
+        self.max_radius_scale = max_radius_scale
         self.compact = compact
         self._geoms: Dict[int, object] = {}
         self._next_id = 0
@@ -110,79 +242,139 @@ class Scene:
         dev = resolve_device(device)
         if two_level:
             _refuse("two-level (instanced) scenes")
-        if self.robust:
-            _refuse("robust=True scenes")
         if self.compact:
             _refuse("compact scenes")
         if self.quality not in (BuildQuality.LOW, BuildQuality.MEDIUM):
             _refuse(f"build quality {self.quality}")
-        rows, v0, v1, v2 = [], [], [], []
-        n_tri = 0
+        if float(self.min_width_factor) != 0.0:
+            # the packed kernel cannot enlarge radii per ray (scene.py:982)
+            _refuse("min-width scenes (min_width_factor != 0)")
+        m = _Merger()
         for gid, g in sorted(self._geoms.items()):
-            if not isinstance(g, TriangleGeometry):
-                _refuse(f"{type(g).__name__}")
-            if not getattr(g, "enabled", True):
-                continue
-            if g.filter is not None:
-                _refuse("intersection filters")
-            verts = np.asarray(g.vertices, np.float32)
-            if verts.ndim != 2:
-                _refuse("motion blur (multi-step vertex buffers)")
-            idx = np.asarray(g.indices, np.int64)
-            tri = verts[idx]                                  # (n, 3, 3)
-            n = idx.shape[0]
-            r = np.empty((n, 6), np.int64)
-            r[:, 0] = KIND_TRIANGLE
-            r[:, 1] = gid
-            r[:, 2] = np.arange(n)
-            r[:, 3] = n_tri + np.arange(n)
-            r[:, 4] = int(g.mask) & 0xFFFFFFFF
-            r[:, 5] = 0
-            rows.append(r)
-            v0.append(tri[:, 0])
-            v1.append(tri[:, 1])
-            v2.append(tri[:, 2])
-            n_tri += n
-        if n_tri == 0:
+            if getattr(g, "enabled", True):
+                m.add(g, gid)
+        if not m.rows:
             raise ValueError("commit() on empty scene")
-        self.committed = _finalize(np.concatenate(rows), np.concatenate(v0),
-                                   np.concatenate(v1), np.concatenate(v2),
-                                   self.threads, dev)
+        self.committed = _finalize(np.concatenate(m.rows), m.tables(),
+                                   self.threads, self.robust,
+                                   self.max_radius_scale, dev)
         return self.committed
 
 
-def _finalize(rows, v0, v1, v2, threads, device) -> CommittedScene:
-    """Bounds, native BVH8 build and packing (scene.py:878-1066)."""
-    T = rows.shape[0]
-    lo = np.minimum.reduce([v0, v1, v2])
-    up = np.maximum.reduce([v0, v1, v2])
-    # invalid primitive bounds (NaN/Inf/huge) become zero-volume boxes at the
-    # origin that can never produce hits (GarbageGeometryTest parity)
+def _bounds(kind, data, tab, mrs):
+    """Per-prim bounds by kind (scene.py:918-955), sanitized: NaN, Inf or
+    huge bounds become zero-volume boxes at the origin that never produce
+    hits (GarbageGeometryTest parity, :961-965)."""
+    T = kind.shape[0]
+    lo = np.empty((T, 3), np.float32)
+    up = np.empty((T, 3), np.float32)
+    for k in np.unique(kind):
+        sel = kind == k
+        d = data[sel]
+        if k == KIND_TRIANGLE:
+            pts = [tab["tri_v0"][d], tab["tri_v1"][d], tab["tri_v2"][d]]
+            a, b = np.minimum.reduce(pts), np.maximum.reduce(pts)
+        elif k == KIND_QUAD:
+            a, b = tab["quad_v"][d].min(1), tab["quad_v"][d].max(1)
+        elif k in (KIND_SPHERE, KIND_DISC, KIND_ORIENTED_DISC):
+            r = mrs * tab["pnt_r"][d][:, None]
+            a, b = tab["pnt_c"][d] - r, tab["pnt_c"][d] + r
+        else:
+            e0 = mrs * tab["line_r0"][d][:, None]
+            e1 = mrs * tab["line_r1"][d][:, None]
+            p0, p1 = tab["line_p0"][d], tab["line_p1"][d]
+            a, b = np.minimum(p0 - e0, p1 - e1), np.maximum(p0 + e0, p1 + e1)
+        lo[sel] = a
+        up[sel] = b
     bad = (~np.isfinite(lo).all(axis=1) | ~np.isfinite(up).all(axis=1)
            | (np.abs(lo) > 1e18).any(axis=1) | (np.abs(up) > 1e18).any(axis=1))
     if bad.any():
         lo[bad] = 0.0
         up[bad] = 0.0
-    nl, nu, nc, order, n_wide = build_bvh8_native(lo, up, leaf_size=LEAF_SIZE,
-                                                  threads=threads)
+    return lo, up
+
+
+def _slot_encoding(rows, tab, factor):
+    """Per-slot generic fields, kind tags and prim ids (scene.py:1190-1258):
+    prim p owns slots factor*p .. factor*p+factor-1; a quad fills two
+    triangle slots, every other prim the first."""
+    T = rows.shape[0]
+    kind = rows[:, 0]
+    data = rows[:, 3]
+    S = T * factor
+    fields = np.zeros((S, 9), np.float32)
+    skind = np.zeros(S, np.int32)
+    spid = np.full(S, -1, np.int32)
+    base = np.arange(T, dtype=np.int64) * factor
+
+    def put(sel, off, cols, tag):
+        idx = base[sel] + off
+        arr = np.concatenate([np.asarray(c, np.float32).reshape(len(idx), -1)
+                              for c in cols], axis=1)
+        fields[idx, :arr.shape[1]] = arr
+        skind[idx] = tag
+        spid[idx] = np.nonzero(sel)[0]
+
+    for k in np.unique(kind):
+        sel = kind == k
+        d = data[sel]
+        if k == KIND_TRIANGLE:
+            v0 = tab["tri_v0"][d]
+            put(sel, 0, (v0, tab["tri_v1"][d] - v0, tab["tri_v2"][d] - v0),
+                KIND_TRIANGLE)
+        elif k == KIND_QUAD:
+            q = tab["quad_v"][d]
+            put(sel, 0, (q[:, 0], q[:, 1] - q[:, 0], q[:, 3] - q[:, 0]),
+                KIND_TRIANGLE)
+            put(sel, 1, (q[:, 2], q[:, 3] - q[:, 2], q[:, 1] - q[:, 2]),
+                KIND_TRIANGLE)
+        elif k in (KIND_SPHERE, KIND_DISC):
+            put(sel, 0, (tab["pnt_c"][d], tab["pnt_r"][d]), k)
+        elif k == KIND_ORIENTED_DISC:
+            put(sel, 0, (tab["pnt_c"][d], tab["pnt_r"][d], tab["pnt_n"][d]),
+                k)
+        else:
+            put(sel, 0, (tab["line_p0"][d], tab["line_r0"][d],
+                         tab["line_p1"][d], tab["line_r1"][d],
+                         tab["line_fl"][d]), k)
+    return fields, skind, spid
+
+
+def _finalize(rows, tab, threads, robust, max_radius_scale, device):
+    """Bounds, native BVH8 build and packing (scene.py:878-1066). The JAX
+    package also builds strand-aligned leaf OBBs for hair scenes
+    (:1077-1117); only its generic engine reads them, never the packed
+    kernel, so the port does not build them."""
+    T = rows.shape[0]
+    kind = rows[:, 0]
+    kinds_present = tuple(sorted(int(k) for k in np.unique(kind)))
+    lo, up = _bounds(kind, rows[:, 3], tab, np.float32(max_radius_scale))
+    # quads expand to two triangle slots: leaves hold half the prims
+    factor = 2 if KIND_QUAD in kinds_present else 1
+    nl, nu, nc, order, n_wide = build_bvh8_native(
+        lo, up, leaf_size=LEAF_SIZE // factor, threads=threads)
     bvh_np = dict(node_lower=nl, node_upper=nu, node_child=nc,
                   prim_order=order)
-    data = rows[:, 3]
-    fields = np.concatenate([v0[data], v1[data] - v0[data],
-                             v2[data] - v0[data]], axis=1).astype(np.float32)
-    mask = rows[:, 4].astype(np.uint32)
-    has_mask = bool(np.any(mask != 0xFFFFFFFF))
+    fields, skind, spid = _slot_encoding(rows, tab, factor)
+    classes = tuple(sorted({int(t) for t in np.unique(skind[spid >= 0])}))
+    has_kinds = classes != (KIND_TRIANGLE,)
+    smask = np.repeat(rows[:, 4], factor).astype(np.uint32)
+    has_mask = bool(np.any(rows[:, 4] != 0xFFFFFFFF))
     nodes, leaves, pid_map = pack_mod.pack_arrays(
-        nc, nl, nu, order, n_wide, fields, mask,
-        np.arange(T, dtype=np.int32), has_mask)
+        nc, nl, nu, order, n_wide, fields, smask, spid, has_mask,
+        slot_kind=skind if has_kinds else None, slot_factor=factor)
     inst = np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64)
+    packed = dict(nodes=nodes, leaves=leaves, pid_map=pid_map,
+                  has_mask=has_mask, has_kinds=has_kinds,
+                  kind_classes=classes,
+                  tri_attrs=classes == (KIND_TRIANGLE,) and factor == 1)
     return _to_device(bvh_np, rows[:, 0], rows[:, 1], rows[:, 2], inst,
-                      data, rows[:, 4], v0, v1, v2, nodes, leaves, pid_map,
-                      has_mask, True, device)
+                      rows[:, 3], rows[:, 4], tab, packed, kinds_present,
+                      robust, device)
 
 
-def _to_device(bvh_np, kind, geom, local, inst, data, mask, v0, v1, v2,
-               nodes, leaves, pid_map, has_mask, tri_attrs, device):
+def _to_device(bvh_np, kind, geom, local, inst, data, mask, tab, packed,
+               kinds_present, robust, device):
     def t(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
@@ -190,11 +382,14 @@ def _to_device(bvh_np, kind, geom, local, inst, data, mask, v0, v1, v2,
               node_upper=t(bvh_np["node_upper"], torch.float32),
               node_child=t(bvh_np["node_child"], torch.int32),
               prim_order=t(bvh_np["prim_order"], torch.int32))
-    packed = pack_mod.PackedScene(nodes=t(nodes, torch.int32),
-                                  leaves=t(leaves, torch.int32),
-                                  pid_map=t(pid_map, torch.int64),
-                                  has_mask=bool(has_mask),
-                                  tri_attrs=bool(tri_attrs))
+    pk = pack_mod.PackedScene(
+        nodes=t(packed["nodes"], torch.int32),
+        leaves=t(packed["leaves"], torch.int32),
+        pid_map=t(packed["pid_map"], torch.int64),
+        has_mask=bool(packed["has_mask"]),
+        tri_attrs=bool(packed["tri_attrs"]),
+        has_kinds=bool(packed["has_kinds"]),
+        kind_classes=tuple(int(k) for k in packed["kind_classes"]))
     return CommittedScene(
         bvh=bvh,
         prim_kind=t(kind, torch.int32),
@@ -203,9 +398,9 @@ def _to_device(bvh_np, kind, geom, local, inst, data, mask, v0, v1, v2,
         prim_inst=t(inst, torch.int64),
         prim_data=t(data, torch.int64),
         prim_mask=t(mask, torch.int64),
-        tri_v0=t(v0, torch.float32), tri_v1=t(v1, torch.float32),
-        tri_v2=t(v2, torch.float32),
-        packed=packed)
+        packed=pk, kinds_present=tuple(int(k) for k in kinds_present),
+        robust=bool(robust),
+        **{k: t(v, torch.float32) for k, v in tab.items()})
 
 
 def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
@@ -215,38 +410,45 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
 
     arrays: ``bvh.node_lower``, ``bvh.node_upper``, ``bvh.node_child``,
     ``bvh.prim_order``, ``prim_kind``, ``prim_geom``, ``prim_local``,
-    ``prim_inst``, ``prim_data``, ``prim_mask``, ``tri_v0``, ``tri_v1``,
-    ``tri_v2``, ``packed.table`` (the unified tile table) and
-    ``packed.pid_map``. flags: ``gn``, ``gl``, ``has_mask``, ``tri_attrs``,
-    and the scene flags the slice refuses when set (``has_motion``,
-    ``has_kinds``, ``robust``, ``compact``, ``filters``, ``kinds_present``).
-    ``packed.table`` is re-laid into the port's records; the record contents
-    are unchanged, so both packages traverse the same records."""
+    ``prim_inst``, ``prim_data``, ``prim_mask``, ``packed.table`` (the
+    unified tile table), ``packed.pid_map``, and the kind tables the scene
+    has (``tri_v0`` .. ``line_rR``, the names of CommittedScene; missing
+    ones are empty). flags: ``gn``, ``has_mask``, ``tri_attrs``,
+    ``has_kinds``, ``kind_classes``, ``kinds_present``, ``robust``, and the
+    scene flags the port refuses when set (``has_motion``, ``compact``,
+    ``filters``). ``packed.table`` is re-laid into the port's records; the
+    record contents are unchanged, so both packages traverse the same
+    records."""
     dev = resolve_device(device)
-    if flags.get("has_motion") or flags.get("has_kinds"):
-        _refuse("motion or mixed-kind packed scenes")
-    if flags.get("robust"):
-        _refuse("robust=True scenes")
+    if flags.get("has_motion"):
+        _refuse("motion blur")
     if flags.get("compact"):
         _refuse("compact scenes")
     if flags.get("filters"):
         _refuse("intersection filters")
-    if tuple(flags.get("kinds_present", (KIND_TRIANGLE,))) != (KIND_TRIANGLE,):
-        _refuse("non-triangle kinds")
-    packed = pack_mod.from_table(arrays["packed.table"],
-                                 arrays["packed.pid_map"], int(flags["gn"]),
-                                 bool(flags["has_mask"]),
-                                 bool(flags["tri_attrs"]), dev)
+    kinds_present = tuple(flags.get("kinds_present", (KIND_TRIANGLE,)))
+    if not set(kinds_present) <= set(PACKED_KINDS):
+        _refuse(f"kinds {sorted(set(kinds_present) - set(PACKED_KINDS))}")
+    packed = pack_mod.from_table(
+        arrays["packed.table"], arrays["packed.pid_map"], int(flags["gn"]),
+        bool(flags["has_mask"]), bool(flags["tri_attrs"]), "cpu",
+        has_kinds=bool(flags.get("has_kinds", False)),
+        kind_classes=tuple(flags.get("kind_classes", (KIND_TRIANGLE,))))
     bvh_np = {k: arrays["bvh." + k] for k in
               ("node_lower", "node_upper", "node_child", "prim_order")}
+    tab = {k: (np.asarray(arrays[k], np.float32) if k in arrays else
+               np.zeros((0,) + shape, np.float32))
+           for k, shape in _TABLES.items()}
+    pk = dict(nodes=packed.nodes.numpy(), leaves=packed.leaves.numpy(),
+              pid_map=packed.pid_map.numpy(), has_mask=packed.has_mask,
+              tri_attrs=packed.tri_attrs, has_kinds=packed.has_kinds,
+              kind_classes=packed.kind_classes)
     return _to_device(
         bvh_np, arrays["prim_kind"], arrays["prim_geom"].astype(np.int64),
         arrays["prim_local"].astype(np.int64),
         arrays["prim_inst"].astype(np.int64), arrays["prim_data"],
-        arrays["prim_mask"].astype(np.int64), arrays["tri_v0"],
-        arrays["tri_v1"], arrays["tri_v2"],
-        packed.nodes.cpu().numpy(), packed.leaves.cpu().numpy(),
-        packed.pid_map.cpu().numpy(), packed.has_mask, packed.tri_attrs, dev)
+        arrays["prim_mask"].astype(np.int64), tab, pk, kinds_present,
+        bool(flags.get("robust", False)), dev)
 
 
 # =====================================================================
@@ -264,7 +466,8 @@ def _flat(scene: CommittedScene, rays: RayBatch):
 def _select(scene: CommittedScene, flat: RayBatch, occlusion: bool):
     """Run traversal, return best_prim (merged-table index, -1 = miss)."""
     _, best = traverse_packed(scene.packed, flat.org, flat.dir, flat.tnear,
-                              flat.tfar, flat.mask, occlusion=occlusion)
+                              flat.tfar, flat.mask, occlusion=occlusion,
+                              robust=scene.robust)
     return best
 
 
@@ -273,12 +476,13 @@ def intersect(scene: CommittedScene, rays: RayBatch,
     """Closest-hit query. Returns a HitBatch with the same leading shape as
     rays.
 
-    differentiable=True: traversal only *selects* the winning triangle (no
+    differentiable=True: traversal only *selects* the winning primitive (no
     gradient through the structure); t/u/v/Ng are then recomputed in
     differentiable torch ops by re-intersecting it.
 
-    differentiable=False: the kernel emits the exact t/u/v/Ng itself (the
-    fast path; no gradient flows through the returned hit).
+    differentiable=False: on pure-triangle scenes the kernel emits the exact
+    t/u/v/Ng itself (the fast path; no gradient flows through the returned
+    hit); other scenes re-intersect the winning primitive as above.
     """
     shape, flat = _flat(scene, rays)
     if not differentiable and scene.packed.tri_attrs:
@@ -288,7 +492,8 @@ def intersect(scene: CommittedScene, rays: RayBatch,
                 flat.mask, occlusion=False, want_attrs=True,
                 id_tables=(scene.prim_local, scene.prim_geom)
                 + tuple(scene.prim_inst[:, j]
-                        for j in range(scene.prim_inst.shape[1])))
+                        for j in range(scene.prim_inst.shape[1])),
+                robust=scene.robust)
             found = best >= 0
             inv = torch.tensor(INVALID_ID, dtype=torch.int64,
                                device=t_k.device)
@@ -315,23 +520,88 @@ def occluded(scene: CommittedScene, rays: RayBatch) -> torch.Tensor:
     return (best >= 0).reshape(shape)
 
 
+def _kind_test(scene: CommittedScene, k: int, didx, org, dir, tnear, tfar):
+    """Closed-form intersect of prims of kind k with table rows ``didx``
+    (scene.py:1310-1386). Returns (hit, t, u, v, ng)."""
+    def rows(*names):
+        n = getattr(scene, names[0]).shape[0]
+        i = didx.clamp(0, max(n - 1, 0))
+        return [getattr(scene, nm)[i] for nm in names]
+
+    if k == KIND_TRIANGLE:
+        # robust scenes use the watertight Plücker test
+        fn = intersect_pluecker if scene.robust else intersect_moeller
+        return fn(org, dir, *rows("tri_v0", "tri_v1", "tri_v2"), tnear, tfar)
+    if k == KIND_QUAD:
+        q, m = rows("quad_v", "quad_uvm")
+        hit, t, u, v, ng = intersect_quad(org, dir, q[..., 0, :],
+                                          q[..., 1, :], q[..., 2, :],
+                                          q[..., 3, :], tnear, tfar)
+        # affine uv frame: u_base = m0 + u*m2 + v*m4
+        return (hit, t, m[..., 0] + u * m[..., 2] + v * m[..., 4],
+                m[..., 1] + u * m[..., 3] + v * m[..., 5], ng)
+    if k in (KIND_SPHERE, KIND_DISC, KIND_ORIENTED_DISC):
+        c, r, n = rows("pnt_c", "pnt_r", "pnt_n")
+        if k == KIND_SPHERE:
+            return point_ops.intersect_sphere(org, dir, c, r, tnear, tfar)
+        if k == KIND_DISC:
+            return point_ops.intersect_disc(org, dir, c, r, tnear, tfar)
+        return point_ops.intersect_oriented_disc(org, dir, c, r, n, tnear,
+                                                 tfar)
+    # u is the segment parameter: each segment spans u 0..1 (the JAX
+    # package's curve-global u0/u1 differ only for linearized curves)
+    p0, r0, p1, r1 = rows("line_p0", "line_r0", "line_p1", "line_r1")
+    if k == KIND_ROUND_LINE:
+        # the kernel's round line: begin-cap flag, no neighbor clip (the
+        # packed record has no neighbor fields). The JAX package applies
+        # the clip here too, and can then reject the kernel's own hit and
+        # report a valid hit with t = inf; the port re-intersects with the
+        # test that selected the hit. The neighbor tables wait for the
+        # generic engine, which serves fat joints.
+        (fl,) = rows("line_fl")
+        return line_ops.intersect_round_line(
+            org, dir, p0, r0, p1, r1, tnear, tfar, begin_cap=fl < 0.5)
+    return line_ops.intersect_flat_line(org, dir, p0, r0, p1, r1, tnear,
+                                        tfar)
+
+
+def _kinds_select(scene, kind, didx, org, dir, tnear, tfar):
+    """Each ray's (hit, t, u, v, ng) from the test of its prim's kind."""
+    hit = torch.zeros(tnear.shape, dtype=torch.bool, device=tnear.device)
+    t = torch.full_like(tnear, math.inf)
+    u = torch.zeros_like(tnear)
+    v = torch.zeros_like(tnear)
+    ng = torch.zeros(tnear.shape + (3,), device=tnear.device)
+    for k in scene.kinds_present:
+        hk, tk, uk, vk, ngk = _kind_test(scene, k, didx, org, dir, tnear,
+                                         tfar)
+        sel = kind == k
+        hit = torch.where(sel, hk, hit)
+        t = torch.where(sel, tk, t)
+        u = torch.where(sel, uk, u)
+        v = torch.where(sel, vk, v)
+        ng = torch.where(sel[..., None], ngk, ng)
+    return hit, t, u, v, ng
+
+
 def _reconstruct_hits(scene: CommittedScene, rays: RayBatch,
                       best_prim) -> HitBatch:
-    """Re-intersect the winning triangle per ray to recover t, u, v, Ng, ids.
+    """Re-intersect the winning primitive per ray to recover t, u, v, Ng, ids.
 
-    This pass carries the gradient: d(hit)/d(vertices, org, dir) flows
-    through the closed-form solve, while the discrete selection is constant.
+    This pass carries the gradient: d(hit)/d(geometry, org, dir) flows
+    through the closed-form solves, while the discrete selection is constant.
     """
     found = best_prim >= 0
     prim = torch.clamp(best_prim, min=0)
-    didx = scene.prim_data[prim]
-    # near bound: the ray's tnear minus an fp-wobble margin; tfar stays wide
+    # near bound: the ray's tnear minus an fp-wobble margin, not -inf:
+    # multi-root prims (spheres, round lines) would otherwise report the
+    # root behind the origin for rays starting inside them; tfar stays wide
     # (the nearest root >= tnear is unique for the fixed winning prim)
     wide_near = rays.tnear - 1e-4 * rays.tnear.abs() - 1e-5
     wide_far = torch.full_like(rays.tfar, math.inf)
-    _, t, u, v, ng = intersect_moeller(
-        rays.org, rays.dir, scene.tri_v0[didx], scene.tri_v1[didx],
-        scene.tri_v2[didx], wide_near, wide_far)
+    _, t, u, v, ng = _kinds_select(scene, scene.prim_kind[prim],
+                                   scene.prim_data[prim], rays.org, rays.dir,
+                                   wide_near, wide_far)
     miss = make_miss_hits(rays.shape, device=rays.device)
     hit = HitBatch(t=t, u=u, v=v, ng=ng,
                    prim_id=scene.prim_local[prim],
@@ -354,11 +624,10 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
     with torch.no_grad():
         for p0 in range(0, T, chunk):
             prims = torch.arange(p0, min(p0 + chunk, T), device=dev)
-            d = scene.prim_data[prims]
-            hit, t, _, _, _ = intersect_moeller(
-                flat.org[:, None], flat.dir[:, None],
-                scene.tri_v0[d][None], scene.tri_v1[d][None],
-                scene.tri_v2[d][None], flat.tnear[:, None], t_far[:, None])
+            hit, t, _, _, _ = _kinds_select(
+                scene, scene.prim_kind[prims][None],
+                scene.prim_data[prims][None], flat.org[:, None],
+                flat.dir[:, None], flat.tnear[:, None], t_far[:, None])
             hit = hit & ((flat.mask[:, None] & scene.prim_mask[prims][None])
                          != 0)
             tm = torch.where(hit, t, math.inf)

@@ -2,7 +2,7 @@
 
 Port of embree_tpu/tools/viewer.py::build_scene (:21-58): the cube + ground
 plane and the UV sphere, built with vectorized numpy. The ``mixed`` scene
-needs quads, points and curves, which the port does not cover yet.
+holds a round curve, which the port does not cover yet.
 """
 from __future__ import annotations
 

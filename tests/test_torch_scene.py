@@ -223,22 +223,31 @@ def _tri():
             np.array([[0, 1, 2]], np.int32))
 
 
-@pytest.mark.parametrize("case", ["quad", "motion", "filter", "robust",
-                                  "compact", "high", "refit", "two_level",
-                                  "from_arrays_motion"])
+@pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width", "motion",
+                                  "filter", "compact", "high", "refit",
+                                  "two_level", "from_arrays_motion"])
 def test_refused_scenes(case):
     v, i = _tri()
     kw = {}
-    if case in ("robust", "compact"):
+    if case == "compact":
         kw = {case: True}
+    if case == "min_width":
+        kw = {"min_width_factor": 1.0}
     if case == "high":
         kw = {"quality": BuildQuality.HIGH}
     if case == "refit":
         kw = {"quality": BuildQuality.REFIT}
     s = pt.Scene(**kw)
-    if case == "quad":
-        s.attach(et.QuadGeometry(np.zeros((4, 3), np.float32),
-                                 np.array([[0, 1, 2, 3]], np.int32)))
+    if case == "curve":
+        s.attach(et.CurveGeometry(
+            np.array([[0, 0, 0, 0.1], [1, 0, 0, 0.1], [2, 0, 0, 0.1],
+                      [3, 0, 0, 0.1]], np.float32),
+            np.array([0], np.int32), basis="bezier", kind="flat"))
+    elif case == "fat_joint":
+        # tests/test_geometries.py:414-421: joint radius 1 on unit segments
+        s.attach(pt.LineSegmentsGeometry(
+            np.array([[0, 1, 0, 1.0], [0, 2, 0, 1.0], [0, 2.8, 0, 0.1]],
+                     np.float32), np.array([0, 1], np.int32), kind="round"))
     elif case == "motion":
         s.attach(pt.TriangleGeometry(np.stack([v, v + 1]), i))
     elif case == "filter":
