@@ -21,8 +21,8 @@ Hopper traversal kernel against its plain PyTorch version:
    tests/golden/*.pfm;
 6. kernel vs plain version for kind tags, points and lines (B3-B5): the
    scene of tests/test_pallas_kernel.py:69-93 with 65,536 rays, as is, with
-   half its geometries masked, and in robust mode; closest and occluded
-   bit-equal with their step counts, no stack overflow;
+   half its geometries masked, in robust mode, and both; closest and
+   occluded bit-equal with their step counts, no stack overflow;
 7. robust mode (B2) at full size: the 2,097,152-triangle sphere committed
    with robust=True, 16,777,216 rays through both intersect modes and
    occluded; 1,048,576 rays from the center must all hit (watertight);
@@ -30,9 +30,22 @@ Hopper traversal kernel against its plain PyTorch version:
    Embree's tutorial generators (a quad sphere, three point spheres) plus
    655,360 round and flat hair segments, 16,777,216 rays through both
    intersect modes and occluded; every kind class must get hits;
-9. the kernels line, then the result line.
+9. motion blur (B6), every instantiation against the plain version at
+   65,536 rays with times U[0,1): the kind check scene with every kind
+   moving (as is, masked, robust, robust + masked, and over 3 steps, which
+   gives windows), a moving 16K-tri sphere (masked, robust, robust +
+   masked) and the static robust + masked triangle variants;
+10. 2-step motion at full size: the 2,097,152-triangle sphere moving a
+   quarter of its radius along x (Embree's motion_blur_geometry tutorial
+   at bench.py:56's size), 16,777,216 rays with times through both
+   intersect modes and occluded, held against the exact moving sphere and
+   brute force; kernel vs plain version on 1,048,576 rays;
+11. time-sliced motion at full size: sphere_mesh(512, 1024) over 4 time
+   steps, accelerating along x by 0.25 in all, 3,145,728 windowed prims,
+   the same rays and checks;
+12. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-8) and read just
+Launch counts are zeroed just before each driven path (4-11) and read just
 after; a variant the path uses that was never launched fails the run. Any
 failed check raises, and the script then exits non-zero without a result
 line. It refuses to run without a CUDA device.
@@ -71,7 +84,13 @@ ROBUST_NODE_OPS = NODE_OPS + 8 * 6   # the six slab scalings
 # 28, oriented disc 33, round line 192, flat line 88; tag 1 never occurs
 SLOT_OPS = {0: 55, 2: 37, 3: 28, 4: 33, 5: 192, 6: 88}
 PLUECKER_OPS = 92
+# B6, per leaf visit: the lerp a + w * (b - a) of 72 fields (3 each), and
+# with windows each slot's weight and window test (2 sub, max, div, max,
+# min, 2 compares, and: 9)
+MOTION_LEAF_OPS = 72 * 3
+WINDOW_LEAF_OPS = 8 * 9
 RAY_IN_BYTES = 36            # org, dir (24), tnear, tfar, mask (12)
+TIME_BYTES = 4               # the ray time, read by moving scenes
 VARIANTS = (("closest_attrs", False, True), ("closest", False, False),
             ("occluded", True, False))
 KIND_VARIANTS = (("closest", False, False), ("occluded", True, False))
@@ -92,7 +111,14 @@ PLAIN_CHUNK = 1 << 21        # rays per plain-version call of the mixed cell
 PALLAS = "embree_tpu/accel/traverse_pallas.py"
 # the Pallas source each variant family replaces
 REPLACES = {"": f"{PALLAS}:108", "robust": f"{PALLAS}:469",
-            "kinds": f"{PALLAS}:1048", "masked": f"{PALLAS}:1061"}
+            "kinds": f"{PALLAS}:1048", "masked": f"{PALLAS}:1061",
+            "motion": f"{PALLAS}:502", "motion_win": f"{PALLAS}:1059"}
+MOTION_RAYS = 1 << 24
+MOTION_COMPARE = 1 << 20
+MOTION_SHIFT = 0.25          # a quarter of the unit sphere's radius, along x
+MSTEP_MESH = (512, 1024)     # 1,048,576 tris
+MSTEP_STEPS = 4              # Embree's msmblur scenes carry 3-4 steps
+MSTEP_PRIMS = 3 * 2 * MSTEP_MESH[0] * MSTEP_MESH[1]
 
 
 def say(*a):
@@ -120,10 +146,20 @@ def incoherent_rays(n, seed):
 
 
 def sorted_inputs(tr, rays):
-    """The kernel's inputs as the wrapper hands them over (sorted)."""
+    """The kernel's inputs as the wrapper hands them over (sorted): org,
+    dir, tnear, tfar, mask and time."""
     _, s = tr.sort_rays_by_coherence(
-        rays.org, rays.dir, rays.tnear, rays.tfar, rays.mask.to(torch.int32))
+        rays.org, rays.dir, rays.tnear, rays.tfar, rays.mask.to(torch.int32),
+        rays.time)
     return s
+
+
+def run_kernel(tr, packed, x, **kw):
+    return tr.traverse_kernel(packed, *x[:5], time=x[5], **kw)
+
+
+def run_plain(tr, packed, x, **kw):
+    return tr.traverse_packed_reference(packed, *x[:5], time=x[5], **kw)
 
 
 def events_ms(fn, reps=5):
@@ -142,15 +178,25 @@ def events_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def compare(tr, packed, inputs, n, occ, attrs, label, robust=False):
+def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
+            plain_ms=None):
     """Kernel vs plain version on the first n rays: every output bit-equal.
-    Returns the max |difference| over t and attributes (0.0 when equal)."""
+    Returns the max |difference| over t and attributes (0.0 when equal).
+    ``plain_ms``: a dict that gets the plain run's time (CUDA events) under
+    the variant's name."""
     x = [t[:n].contiguous() for t in inputs]
-    k = tr.traverse_kernel(packed, *x, occlusion=occ, want_attrs=attrs,
-                           robust=robust)
-    p = tr.traverse_packed_reference(packed, *x, occlusion=occ,
-                                     want_attrs=attrs, robust=robust)
+    k = run_kernel(tr, packed, x, occlusion=occ, want_attrs=attrs,
+                   robust=robust)
+    a0 = torch.cuda.Event(enable_timing=True)
+    a1 = torch.cuda.Event(enable_timing=True)
+    a0.record()
+    p = run_plain(tr, packed, x, occlusion=occ, want_attrs=attrs,
+                  robust=robust)
+    a1.record()
     torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms[tr.packed_variant(packed, occ, attrs, robust)] = (
+            a0.elapsed_time(a1))
     check(int(k.overflow) == 0 and int(p.overflow) == 0,
           f"{label}: stack overflow")
     check(torch.equal(k.best, p.best), f"{label}: prim ids differ")
@@ -168,12 +214,15 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False):
     return err
 
 
-def analytic_sphere_check(rays, hit, n, mesh):
+def analytic_sphere_check(rays, hit, n, mesh, center=None):
     """The tessellated unit sphere against the exact one on the first n
     rays (float64): hit masks agree except at grazing rays, and hit
     distances agree to the order of the tessellation's sagitta,
-    (pi / n_theta)^2 / 8 of the radius."""
+    (pi / n_theta)^2 / 8 of the radius. ``center``: (n, 3) the sphere's
+    center at each ray's time (moving spheres), else the origin."""
     o = rays.org[:n].double()
+    if center is not None:
+        o = o - center.double()
     d = rays.dir[:n].double()
     a = (d * d).sum(1)
     b = (o * d).sum(1)
@@ -210,8 +259,8 @@ def phase_kernel_check(pt, tr, sphere_mesh, errs):
         rays = pt.make_rays(org, d, mask=rmask, device=DEV)
         inputs = sorted_inputs(tr, rays)
         for name, occ, attrs in VARIANTS:
-            full = tr.traverse_kernel(cs.packed, *inputs, occlusion=occ,
-                                      want_attrs=attrs)
+            full = run_kernel(tr, cs.packed, inputs, occlusion=occ,
+                              want_attrs=attrs)
             torch.cuda.synchronize()
             check(int(full.overflow) == 0, "stack overflow on 1M rays")
             label = f"{name}{' masked' if cs.packed.has_mask else ''}"
@@ -229,9 +278,8 @@ def plain_run(tr, packed, inputs, occ, attrs, robust, chunk=None):
     a1 = torch.cuda.Event(enable_timing=True)
     a0.record()
     for i in range(0, n, chunk):
-        p = tr.traverse_packed_reference(
-            packed, *(x[i:i + chunk] for x in inputs), occlusion=occ,
-            want_attrs=attrs, robust=robust)
+        p = run_plain(tr, packed, [x[i:i + chunk] for x in inputs],
+                      occlusion=occ, want_attrs=attrs, robust=robust)
         slots += p.class_slots
         del p
     a1.record()
@@ -241,31 +289,44 @@ def plain_run(tr, packed, inputs, occ, attrs, robust, chunk=None):
 
 
 def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
-                  robust=False, suffix="", total_ms=None, chunk=None):
+                  robust=False, suffix="", total_ms=None, chunk=None,
+                  plain_prefix=None):
     """Kernel time (CUDA events, median of 5 after a warm-up), step counts,
     bound and plain-version time of each variant at the inputs' shape; the
-    records go into ``record`` under the variant's launch-count name."""
+    records go into ``record`` under the variant's launch-count name.
+    ``plain_prefix``: (n_rays, {name: ms}) plain times already taken on
+    the first n_rays (scenes whose plain run is too long for all rays);
+    the kernel's bound then needs no slot counts by class."""
     n_rays = inputs[0].shape[0]
     total_ms = total_ms or {}
     for base, o, a in variants:
-        name = tr.variant_name(o, a, robust, packed.has_kinds,
-                               packed.has_mask)
+        name = tr.packed_variant(packed, o, a, robust)
         res = {}
 
         def run():
-            res["r"] = tr.traverse_kernel(packed, *inputs, occlusion=o,
-                                          want_attrs=a, robust=robust)
+            res["r"] = run_kernel(tr, packed, inputs, occlusion=o,
+                                  want_attrs=a, robust=robust)
         ms = events_ms(run)
         r = res["r"]
         node_v = int(r.visits[0].sum(dtype=torch.int64))
         leaf_v = int(r.visits[1].sum(dtype=torch.int64))
+        max_steps = int((r.visits[0] + r.visits[1]).max())
         torch.cuda.synchronize()
         check(int(r.overflow) == 0, f"{name}: stack overflow")
         del res, r
         torch.cuda.empty_cache()
-        plain_ms, slots = plain_run(tr, packed, inputs, o, a, robust, chunk)
+        if plain_prefix is None:
+            plain_rays = n_rays
+            plain_ms, slots = plain_run(tr, packed, inputs, o, a, robust,
+                                        chunk)
+        else:
+            check(not packed.has_kinds, "a prefix plain time needs no "
+                  "slot counts by class")
+            plain_rays, plain_ms = plain_prefix[0], plain_prefix[1][name]
+            slots = torch.zeros(8, dtype=torch.int64)
         out_bytes = 4 + 4 + 8 + (20 if a else 0)
-        nbytes = table_bytes + n_rays * (RAY_IN_BYTES + out_bytes)
+        in_bytes = RAY_IN_BYTES + (TIME_BYTES if packed.has_motion else 0)
+        nbytes = table_bytes + n_rays * (in_bytes + out_bytes)
         slot_ops = dict(SLOT_OPS)
         if robust:
             slot_ops[0] = PLUECKER_OPS
@@ -273,6 +334,9 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
             leaf_ops = sum(int(slots[k]) * slot_ops[k] for k in slot_ops)
         else:
             leaf_ops = leaf_v * 8 * slot_ops[0]
+        if packed.has_motion:
+            leaf_ops += leaf_v * (MOTION_LEAF_OPS + (WINDOW_LEAF_OPS
+                                                     if packed.has_win else 0))
         ops = node_v * (ROBUST_NODE_OPS if robust else NODE_OPS) + leaf_ops
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FP32_PER_S * 1e3
@@ -284,7 +348,9 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    node_visits=node_v, leaf_visits=leaf_v,
                    slot_tests={k: int(slots[k]) for k in slot_ops},
-                   n_rays=n_rays, steps_per_ray=(node_v + leaf_v) / n_rays,
+                   n_rays=n_rays, plain_rays=plain_rays,
+                   steps_per_ray=(node_v + leaf_v) / n_rays,
+                   max_steps=max_steps,
                    mrays_per_s=n_rays / ms / 1e3, card=card)
         if base in total_ms:
             rec["entry_point_ms"] = total_ms[base]
@@ -292,9 +358,11 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         record[name] = rec
         say(f"  {name}: kernel {ms:.3f} ms ({rec['mrays_per_s']:.1f} "
             f"Mrays/s), {rec['steps_per_ray']:.2f} steps/ray "
-            f"({node_v / n_rays:.2f} nodes, {leaf_v / n_rays:.2f} leaves), "
+            f"({node_v / n_rays:.2f} nodes, {leaf_v / n_rays:.2f} leaves; "
+            f"max {max_steps}), "
             f"bound {bound_ms:.3f} ms ({rec['bound_by']}), plain "
             f"{plain_ms:.1f} ms"
+            + (f" on {plain_rays} rays" if plain_rays != n_rays else "")
             + (f", entry point {total_ms[base]:.3f} ms, wrapper "
                f"{rec['wrapper_ms']:.3f} ms" if base in total_ms else "")
             + f" [{card}]")
@@ -458,10 +526,25 @@ def phase_viewer(pt, tr):
     return launches
 
 
-def mixed_check_scene(pt, masked=False, robust=False):
+def moving(a, shift, steps):
+    """``steps`` time steps of buffer ``a`` (as is for 1): its xyz moved by
+    shift * (k / (steps - 1))^2 at step k, so 3 or more steps bend the path
+    and the merger splits it into windows."""
+    a = np.asarray(a, np.float32)
+    if steps == 1:
+        return a
+    out = np.stack([a] * steps)
+    for k in range(steps):
+        out[k, :, :3] += (np.asarray(shift, np.float32)
+                          * np.float32((k / (steps - 1)) ** 2))
+    return out
+
+
+def mixed_check_scene(pt, masked=False, robust=False, steps=1):
     """The scene of tests/test_pallas_kernel.py:69-93 (numpy seed 7):
     triangles, a quad, two of each point kind, two round and two flat
-    segments; ``masked``: every second geometry has mask 0x2."""
+    segments; ``masked``: every second geometry has mask 0x2; ``steps`` > 1:
+    every kind moves (oriented-disc normals turn), over that many steps."""
     from embree_tpu_torch.tools.viewer import sphere_mesh
     rng = np.random.default_rng(7)
     verts, idx = sphere_mesh(6, 8)
@@ -472,15 +555,23 @@ def mixed_check_scene(pt, masked=False, robust=False):
     lv = np.concatenate([rng.uniform(-1.5, 1.5, (4, 3)),
                          rng.uniform(0.1, 0.3, (4, 1))], 1).astype(np.float32)
     two = np.array([0, 2], np.int32)
+    nrm = np.eye(3, dtype=np.float32)[:2]
+    if steps > 1:
+        nrm = np.stack([nrm if k % 2 == 0 else nrm[::-1]
+                        for k in range(steps)])
     geoms = [
-        pt.TriangleGeometry(verts, idx),
-        pt.QuadGeometry(qv, np.array([[0, 1, 2, 3]], np.int32)),
-        pt.PointGeometry(pts[:2], kind="sphere"),
-        pt.PointGeometry(pts[2:4], kind="disc"),
-        pt.PointGeometry(pts[4:6], kind="oriented_disc",
-                         normals=np.eye(3, dtype=np.float32)[:2]),
-        pt.LineSegmentsGeometry(lv, two, kind="round"),
-        pt.LineSegmentsGeometry(lv + 0.5, two, kind="flat"),
+        pt.TriangleGeometry(moving(verts, (0.1, 0, 0), steps), idx),
+        pt.QuadGeometry(moving(qv, (0, 0, 0.5), steps),
+                        np.array([[0, 1, 2, 3]], np.int32)),
+        pt.PointGeometry(moving(pts[:2], (0, 0.3, 0), steps), kind="sphere"),
+        pt.PointGeometry(moving(pts[2:4], (-0.2, 0, 0.1), steps),
+                         kind="disc"),
+        pt.PointGeometry(moving(pts[4:6], (0, 0, 0.3), steps),
+                         kind="oriented_disc", normals=nrm),
+        pt.LineSegmentsGeometry(moving(lv, (0, 0.2, 0), steps), two,
+                                kind="round"),
+        pt.LineSegmentsGeometry(moving(lv + 0.5, (0.2, 0, -0.2), steps), two,
+                                kind="flat"),
     ]
     s = pt.Scene(robust=robust)
     for k, g in enumerate(geoms):
@@ -496,7 +587,8 @@ def phase_kinds_check(pt, tr, errs, record):
     org, d = incoherent_rays(KINDS_RAYS, 0)
     card = card_line()
     launches = {}
-    for masked, robust in ((False, False), (True, False), (False, True)):
+    for masked, robust in ((False, False), (True, False), (False, True),
+                           (True, True)):
         cs = mixed_check_scene(pt, masked, robust).commit(device=DEV)
         check(cs.packed.has_kinds and cs.packed.has_mask == masked,
               "the check scene is not a kind-tagged scene")
@@ -755,6 +847,209 @@ def phase_mixed(pt, tr, errs, record):
     return launches
 
 
+def ray_times(n, seed=2):
+    """Ray times U[0, 1) from numpy seed ``seed``."""
+    return np.random.default_rng(seed).uniform(0, 1, n).astype(np.float32)
+
+
+def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
+    """A full-size moving sphere: commit, the three entry points at
+    16,777,216 rays with times U[0, 1), checks (entry points agree, the
+    exact moving sphere, brute force), kernel vs plain version on a
+    1,048,576-ray prefix, times. ``center(time)``: the sphere's exact
+    center at each time."""
+    cs, commit_s = commit_timed(scene, label)
+    check(cs.num_prims == n_prims, "wrong prim count")
+    check(cs.has_motion and cs.packed.tri_attrs, "not a moving tri scene")
+    org, d = incoherent_rays(MOTION_RAYS, 0)
+    time = ray_times(MOTION_RAYS)
+    rays = pt.make_rays(org, d, time=time, device=DEV)
+    del org, d
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  launches on the {label} path: {launches}")
+    for base, o, a in VARIANTS:
+        name = tr.packed_variant(cs.packed, o, a, False)
+        check(launches.get(name, 0) > 0, f"{label}: {name} was not launched")
+    valid = hit.valid
+    frac = valid.double().mean().item()
+    check(torch.equal(occ, valid) and torch.equal(hd.valid, valid),
+          f"{label}: the entry points disagree")
+    check(bool(torch.isfinite(hit.t[valid]).all())
+          and bool(torch.isfinite(hit.ng[valid]).all()),
+          f"{label}: non-finite")
+    check(bool((hit.t[~valid] == math.inf).all()), "miss t is not inf")
+    # the re-intersection lerps vertices, the kernel v0/e1/e2 (ROADMAP C):
+    # t agrees to 1e-5 of the larger of t and the sphere's radius
+    rel = ((hd.t[valid] - hit.t[valid]).abs()
+           / hit.t[valid].clamp(min=1.0))
+    close = (rel <= 1e-5).double().mean().item()
+    check(close >= 0.9999, f"{label}: re-intersected t differs")
+    say(f"  intersect: {int(valid.sum())} of {MOTION_RAYS} rays hit "
+        f"({frac:.4f}); both intersect modes and occluded agree on the hit "
+        f"set; re-intersected t within 1e-5 of the kernel's on {close:.6f} "
+        f"of hits (max {rel.max().item():.3e})")
+    analytic_sphere_check(rays, hit, CHECK_RAYS, mesh,
+                          center(rays.time[:CHECK_RAYS]))
+    sub = pt.RayBatch(*(getattr(rays, f)[:256] for f in
+                        ("org", "dir", "tnear", "tfar", "time", "mask")))
+    hb = pt.intersect_brute(cs, sub, chunk=1 << 16)
+    check(torch.equal(hb.valid, hit.valid[:256]), "brute force: masks differ")
+    m = hb.valid
+    check(torch.allclose(hb.t[m], hit.t[:256][m], rtol=1e-5),
+          "brute force: t differs")
+    say(f"  brute force on 256 rays: masks equal ({int(m.sum())} hits), t "
+        "within 1e-5")
+    del hit, hd, occ, valid, hb
+    inputs = sorted_inputs(tr, rays)
+    plain_ms = {}
+    for base, o, a in VARIANTS:
+        name = tr.packed_variant(cs.packed, o, a, False)
+        errs[name] = max(errs.get(name, 0.0), compare(
+            tr, cs.packed, inputs, MOTION_COMPARE, o, a, name,
+            plain_ms=plain_ms))
+    card = card_line()
+    total_ms = {
+        "closest_attrs": events_ms(
+            lambda: pt.intersect(cs, rays, differentiable=False)),
+        "closest": events_ms(lambda: pt.intersect(cs, rays)),
+        "occluded": events_ms(lambda: pt.occluded(cs, rays)),
+    }
+    # the plain version runs until its slowest ray is done, and a few rays
+    # walk thousands of overlapping boxes: it is timed on the compare
+    # prefix only
+    time_variants(tr, cs.packed, inputs, VARIANTS, record,
+                  table_mb(cs.packed), card, total_ms=total_ms,
+                  plain_prefix=(MOTION_COMPARE, plain_ms))
+    for base, o, a in VARIANTS:
+        record[tr.packed_variant(cs.packed, o, a, False)].update(
+            commit_s=commit_s, table_mb=table_mb(cs.packed) / 1e6,
+            hit_fraction=frac)
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        " GB")
+    return launches
+
+
+def phase_motion(pt, tr, sphere_mesh, errs, record):
+    say("phase 10: 2-step motion, sphere_mesh(1024, 1024) moving "
+        f"{MOTION_SHIFT} along x, 16,777,216 rays with times")
+    verts, idx = sphere_mesh(*MAIN_MESH)
+    s = pt.Scene()
+    s.attach(pt.TriangleGeometry(moving(verts, (MOTION_SHIFT, 0, 0), 2), idx))
+    del verts
+
+    def center(t):
+        c = torch.zeros(t.shape + (3,), dtype=torch.float64, device=t.device)
+        c[:, 0] = MOTION_SHIFT * t.double()
+        return c
+    return motion_cell(pt, tr, "2-step motion", s, 2 * MAIN_MESH[0]
+                       * MAIN_MESH[1], MAIN_MESH, center, errs, record)
+
+
+def phase_multistep(pt, tr, sphere_mesh, errs, record):
+    say(f"phase 11: {MSTEP_STEPS}-step motion, sphere_mesh(512, 1024) "
+        f"accelerating {MOTION_SHIFT} along x, split into {MSTEP_PRIMS} "
+        "windowed prims, 16,777,216 rays with times")
+    verts, idx = sphere_mesh(*MSTEP_MESH)
+    # accelerating along x, 0.25 in all: a speed two steps cannot hold
+    steps = moving(verts, (MOTION_SHIFT, 0, 0), MSTEP_STEPS)
+    off = torch.as_tensor(steps[:, 0] - verts[0], dtype=torch.float64,
+                          device=DEV)
+    s = pt.Scene()
+    s.attach(pt.TriangleGeometry(steps, idx))
+    del verts, steps
+
+    def center(t):
+        x = t.double() * (MSTEP_STEPS - 1)
+        k = x.floor().clamp(0, MSTEP_STEPS - 2)
+        w = (x - k)[:, None]
+        return (1 - w) * off[k.long()] + w * off[k.long() + 1]
+    launches = motion_cell(pt, tr, "multi-step motion", s, MSTEP_PRIMS,
+                           MSTEP_MESH, center, errs, record)
+    return launches
+
+
+def phase_motion_check(pt, tr, sphere_mesh, errs, record):
+    """Every motion instantiation, and the static robust + masked triangle
+    variants, against the plain version at 65,536 rays."""
+    say("phase 9: kernel vs plain version, motion variants: the kind check "
+        "scene with every kind moving (as is, masked, robust, robust + "
+        "masked, 3 steps windowed) and a moving 16K-tri sphere (masked, "
+        "robust, robust + masked; static robust + masked), 65,536 rays")
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    time = ray_times(KINDS_RAYS)
+    rmask = np.random.default_rng(1).choice(np.array([1, 2, 3], np.uint32),
+                                            KINDS_RAYS)
+    card = card_line()
+    verts, idx = sphere_mesh(*CHECK_MESH)
+    configs = [("kinds", m, r, st) for m, r, st in
+               ((False, False, 2), (True, False, 2), (False, True, 2),
+                (True, True, 2), (False, False, 3))]
+    configs += [("tris", m, r, st) for m, r, st in
+                ((True, False, 2), (False, True, 2), (True, True, 2),
+                 (True, True, 1))]
+    launches = {}
+    for what, masked, robust, steps in configs:
+        if what == "kinds":
+            s = mixed_check_scene(pt, masked, robust, steps)
+            variants = KIND_VARIANTS
+        else:
+            s = pt.Scene(robust=robust)
+            s.attach(pt.TriangleGeometry(
+                moving(verts, (MOTION_SHIFT, 0, 0), steps), idx,
+                mask=0x2 if masked else 0xFFFFFFFF))
+            variants = VARIANTS
+        cs = s.commit(device=DEV)
+        check(cs.has_motion == (steps > 1)
+              and cs.packed.has_win == (steps > 2)
+              and cs.packed.has_mask == masked, "wrong check scene flags")
+        rays = pt.make_rays(org, d, time=time,
+                            mask=rmask if masked else 0xFFFFFFFF, device=DEV)
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays)
+        occ = pt.occluded(cs, rays)
+        if what == "tris":
+            hk = pt.intersect(cs, rays, differentiable=False)
+            check(torch.equal(hk.valid, hit.valid), "intersect modes differ")
+        torch.cuda.synchronize()
+        got = dict(tr.LAUNCHES)
+        launches.update(got)
+        check(torch.equal(occ, hit.valid), "occluded disagrees with intersect")
+        inputs = sorted_inputs(tr, rays)
+        for base, o, a in variants:
+            name = tr.packed_variant(cs.packed, o, a, robust)
+            check(got.get(name, 0) > 0, f"{name} was not launched")
+            errs[name] = max(errs.get(name, 0.0), compare(
+                tr, cs.packed, inputs, KINDS_RAYS, o, a, name, robust))
+        time_variants(tr, cs.packed, inputs, variants, record,
+                      table_mb(cs.packed), card, robust=robust)
+    say(f"  launches on the motion check paths: {launches}")
+    return launches
+
+
+def kernel_entries(record, launches, errs):
+    """One entry of the kernels line per timed variant."""
+    kernels = []
+    for name, rec in record.items():
+        family = ("motion_win" if "motion_win" in name else
+                  "motion" if "motion" in name else
+                  "kinds" if "kinds" in name else
+                  "robust" if "robust" in name else
+                  "masked" if "masked" in name else "")
+        check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
+        kernels.append({
+            "name": f"traverse_{name}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[family], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    return kernels
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -787,19 +1082,11 @@ def main():
     launches.update(phase_kinds_check(pt, tr, errs, record))
     launches.update(phase_robust(pt, tr, sphere_mesh, errs, record))
     launches.update(phase_mixed(pt, tr, errs, record))
+    launches.update(phase_motion_check(pt, tr, sphere_mesh, errs, record))
+    launches.update(phase_motion(pt, tr, sphere_mesh, errs, record))
+    launches.update(phase_multistep(pt, tr, sphere_mesh, errs, record))
 
-    kernels = []
-    for name, rec in record.items():
-        family = ("kinds" if "kinds" in name else
-                  "robust" if "robust" in name else
-                  "masked" if "masked" in name else "")
-        check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
-        kernels.append({
-            "name": f"traverse_{name}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[family], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+    kernels = kernel_entries(record, launches, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,

@@ -1,12 +1,12 @@
 """Pack a BVH8 + the merged primitive table into the records the traversal
 kernel reads.
 
-Port of embree_tpu/accel/pack.py:59-311 for static scenes. The record
-contents are the JAX package's, bit for bit; only their arrangement
-differs. The TPU keeps records along the 128 lanes of one unified tile
-table, because its kernel gathers one record per lane per step. A Hopper
-thread instead reads its own record with 16-byte loads, so each record is
-contiguous, and nodes and leaves live in two arrays:
+Port of embree_tpu/accel/pack.py:59-311. The record contents are the JAX
+package's, bit for bit; only their arrangement differs. The TPU keeps
+records along the 128 lanes of one unified tile table, because its kernel
+gathers one record per lane per step. A Hopper thread instead reads its own
+record with 16-byte loads, so each record is contiguous, and nodes and
+leaves live in two arrays:
 
 Node record (int32 x 32 = 128 B):
   word 0..7    : child refs (>=0: node record id; <0: leaf ref
@@ -16,16 +16,20 @@ Node record (int32 x 32 = 128 B):
                  (decode = bits & 0xFFFF0000); lo rounded toward -inf, hi
                  toward +inf (boxes only grow).
 
-Leaf record (int32 x 72 = 288 B, + 8 words per optional chunk), in the
-Pallas kernel's chunk order (traverse_pallas.py:123-126):
-  word 8*k+s   : field k of slot s as float32 bits; 9 generic fields:
-                 triangle / quad half : v0(3) e1(3) e2(3)
-                 sphere / disc        : center(3) radius
-                 oriented disc        : center(3) radius normal(3)
-                 round / flat line    : p0(3) r0 p1(3) r1 begin-flag
-  word 72+s    : geometry mask of slot s (scenes with a non-default mask)
-  word 72|80+s : kind tag of slot s (scenes with another class than
-                 triangles; quads are two triangle slots tagged 0)
+Leaf record (int32 words), in the Pallas kernel's chunk order
+(traverse_pallas.py:123-127), each chunk 8 words (one per slot):
+  fields A (72) : word 8*k+s is field k of slot s as float32 bits; 9
+                  generic fields:
+                  triangle / quad half : v0(3) e1(3) e2(3)
+                  sphere / disc        : center(3) radius
+                  oriented disc        : center(3) radius normal(3)
+                  round / flat line    : p0(3) r0 p1(3) r1 begin-flag
+  fields B (72) : the same fields at the second time step (motion scenes)
+  mask (8)      : geometry mask of each slot (scenes with a non-default mask)
+  kind (8)      : kind tag of each slot (scenes with another class than
+                  triangles; quads are two triangle slots tagged 0)
+  t0, t1 (8+8)  : each slot's time window (time-sliced motion scenes);
+                  padding slots get [0, 1]
 Padding slots are zero with tag 0: Möller's det == 0 there, so they never
 hit. Slot identity is implicit (8*leaf+slot), mapped back to the merged
 prim table through ``pid_map`` (-1 for padding).
@@ -52,21 +56,37 @@ LEAF_WORDS = N_FIELDS * LEAF_WIDTH
 class PackedScene:
     """Device-resident packed traversable for the traversal kernel."""
     nodes: torch.Tensor      # (n_nodes, 32) int32
-    leaves: torch.Tensor     # (n_leaves, 72 or 80) int32
+    leaves: torch.Tensor     # (n_leaves, leaf_words) int32
     pid_map: torch.Tensor    # (n_leaves * 8,) int64: slot -> merged prim
     has_mask: bool = False   # leaf records carry per-slot geometry masks
     tri_attrs: bool = True   # pure-triangle scene: the kernel emits u/v/Ng
     has_kinds: bool = False  # leaf records carry per-slot kind tags
     kind_classes: tuple = (0,)   # the kind tags that occur
+    has_motion: bool = False  # leaf records carry the B-step fields
+    has_win: bool = False    # leaf records carry per-slot [t0, t1] windows
 
     @property
     def leaf_words(self) -> int:
-        return leaf_words(self.has_mask, self.has_kinds)
+        return leaf_words(self.has_mask, self.has_kinds, self.has_motion,
+                          self.has_win)
+
+    def chunk_at(self, chunk: str) -> int:
+        """First word of a leaf chunk: "mask", "kind" or "t0" (t1 follows
+        it), in the chunk order of the module docstring."""
+        at = LEAF_WORDS * (2 if self.has_motion else 1)
+        for name, present in (("mask", self.has_mask),
+                              ("kind", self.has_kinds)):
+            if name == chunk:
+                return at
+            at += LEAF_WIDTH * int(present)
+        return at
 
 
-def leaf_words(has_mask: bool, has_kinds: bool) -> int:
+def leaf_words(has_mask: bool, has_kinds: bool, has_motion: bool = False,
+               has_win: bool = False) -> int:
     """Words of one leaf record: the fields, then the optional chunks."""
-    return LEAF_WORDS + LEAF_WIDTH * (int(has_mask) + int(has_kinds))
+    return (LEAF_WORDS * (2 if has_motion else 1) + LEAF_WIDTH
+            * (int(has_mask) + int(has_kinds) + 2 * int(has_win)))
 
 
 def _dfs_positions(child, n_wide):
@@ -123,7 +143,7 @@ def _bf16_bits_dir(x, toward_pos: bool):
 
 def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
                 slot_fields, slot_mask, slot_pid, has_mask, slot_kind=None,
-                slot_factor=1):
+                slot_factor=1, slot_fields_b=None, slot_t01=None):
     """Host numpy packing. Returns (nodes (n_wide, 32) int32, leaves
     (n_leaf, leaf_words) int32, pid_map (n_leaf*8,) int32).
 
@@ -131,7 +151,8 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
     p*slot_factor+slot_factor-1 (factor 2 when quads are present, each quad
     being two triangle slots); slot_pid < 0 marks an unused slot.
     slot_fields (S, 9) float32, slot_mask (S,) uint32, slot_pid (S,) int32,
-    slot_kind (S,) int32 or None (no kind chunk).
+    slot_kind (S,) int32 or None (no kind chunk), slot_fields_b (S, 9) or
+    None (no B-step chunk), slot_t01 (S, 2) or None (no window chunks).
     """
     W = 8
     leaf_prims = LEAF_WIDTH // slot_factor
@@ -188,15 +209,25 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
     pid = np.asarray(slot_pid)[slots]
     valid = valid & (pid >= 0)
 
-    fa = np.where(valid[..., None], slot_fields[slots], 0.0)    # (n_leaf,8,9)
-    cols = [fa.transpose(0, 2, 1).reshape(-1, LEAF_WORDS)
-            .astype(np.float32).view(np.int32)]
+    def field_words(sf):
+        f = np.where(valid[..., None], np.asarray(sf, np.float32)[slots], 0.0)
+        return (f.transpose(0, 2, 1).reshape(-1, LEAF_WORDS)
+                .astype(np.float32).view(np.int32))
+
+    cols = [field_words(slot_fields)]
+    if slot_fields_b is not None:
+        cols.append(field_words(slot_fields_b))
     if has_mask:
         cols.append(np.where(valid, np.asarray(slot_mask, np.int64)[slots],
                              0).astype(np.uint32).view(np.int32))
     if slot_kind is not None:
         cols.append(np.where(valid, np.asarray(slot_kind, np.int32)[slots],
                              0).astype(np.int32))
+    if slot_t01 is not None:
+        t01 = np.asarray(slot_t01, np.float32)[slots]           # (n_leaf,8,2)
+        for j, pad in ((0, 0.0), (1, 1.0)):
+            cols.append(np.where(valid, t01[..., j], pad)
+                        .astype(np.float32).view(np.int32))
     leaves = np.concatenate(cols, axis=1)
     if n_leaf == 0:
         leaves = np.zeros((1, leaves.shape[1]), np.int32)
@@ -208,7 +239,8 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
 
 
 def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
-               has_kinds=False, kind_classes=(0,)) -> PackedScene:
+               has_kinds=False, kind_classes=(0,), has_motion=False,
+               has_win=False) -> PackedScene:
     """Re-lay the JAX package's unified tile table (GN+GL, rows, 128) int32
     into the port's records: record r of tile g is column r of that tile.
     Node tiles come first (their first 32 rows), then leaf tiles, whose
@@ -218,11 +250,13 @@ def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
     recs = table.transpose(0, 2, 1).reshape(-1, rows)
     nodes = np.ascontiguousarray(recs[:gn * 128, :NODE_WORDS])
     leaves = np.ascontiguousarray(
-        recs[gn * 128:, :leaf_words(has_mask, has_kinds)])
+        recs[gn * 128:, :leaf_words(has_mask, has_kinds, has_motion,
+                                    has_win)])
     pid = np.asarray(pid_map, np.int64)
     return PackedScene(nodes=torch.from_numpy(nodes).to(device),
                        leaves=torch.from_numpy(leaves).to(device),
                        pid_map=torch.from_numpy(pid).to(device),
                        has_mask=bool(has_mask), tri_attrs=bool(tri_attrs),
                        has_kinds=bool(has_kinds),
-                       kind_classes=tuple(int(k) for k in kind_classes))
+                       kind_classes=tuple(int(k) for k in kind_classes),
+                       has_motion=bool(has_motion), has_win=bool(has_win))

@@ -6,9 +6,10 @@ keeps the JAX wrapper's contract (coherence sort, launch, ``pid_map`` and
 id-table gathers, unsort) and returns the same values. Beneath it:
 
 - ``traverse_kernel`` launches ``csrc/traverse.cu`` on CUDA tensors. It is
-  the port of ``_kernel`` (traverse_pallas.py:108) for static scenes: the
-  triangle specialization (B1), robust mode (B2), per-slot kind tags (B3),
-  points (B4) and lines (B5); ``LAUNCHES`` counts its launches per variant.
+  the port of ``_kernel`` (traverse_pallas.py:108): the triangle
+  specialization (B1), robust mode (B2), per-slot kind tags (B3), points
+  (B4), lines (B5) and motion blur (B6: fields lerped by the ray time,
+  per-slot time windows); ``LAUNCHES`` counts its launches per variant.
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
@@ -61,13 +62,24 @@ def reset_launch_counts() -> None:
 
 
 def variant_name(occlusion: bool, want_attrs: bool, robust: bool = False,
-                 kinds: bool = False, masked: bool = False) -> str:
+                 kinds: bool = False, masked: bool = False,
+                 motion: bool = False, windows: bool = False) -> str:
     """closest | closest_attrs | occluded, then _robust (B2), _kinds (the
-    mixed-class kernel, B3-B5) and _masked (per-slot mask chunk)."""
+    mixed-class kernel, B3-B5), _motion (B6, fields lerped by ray time) or
+    _motion_win (B6 with per-slot time windows, a uniform branch of the
+    same instantiation), and _masked (per-slot mask chunk)."""
     name = ("occluded" if occlusion else
             "closest_attrs" if want_attrs else "closest")
     return (name + ("_robust" if robust else "") + ("_kinds" if kinds else "")
+            + ("_motion_win" if windows else "_motion" if motion else "")
             + ("_masked" if masked else ""))
+
+
+def packed_variant(packed: PackedScene, occlusion: bool, want_attrs: bool,
+                   robust: bool) -> str:
+    """The variant name of a launch on ``packed``."""
+    return variant_name(occlusion, want_attrs, robust, packed.has_kinds,
+                        packed.has_mask, packed.has_motion, packed.has_win)
 
 
 @dataclasses.dataclass
@@ -105,17 +117,33 @@ def _coherence_key(org, dir, tnear=None, tfar=None):
 # input checks shared by the kernel, its twin and the plain version
 # ---------------------------------------------------------------------------
 
-def _check(packed: PackedScene, org, dir, tnear, tfar, mask):
+def _time(packed: PackedScene, org, time):
+    """The rays' times for a moving scene (zeros when not given, as in the
+    JAX wrapper), None for a static one, whose kernel never reads them."""
+    if not packed.has_motion:
+        return None
+    if time is None:
+        return torch.zeros(org.shape[0], dtype=torch.float32,
+                           device=org.device)
+    return time
+
+
+def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
     R = org.shape[0]
     dev = org.device
+    if packed.has_win and not packed.has_motion:
+        raise ValueError("time windows need the B-step fields (has_motion)")
     for name, x, dtype, shape in (
             ("org", org, torch.float32, (R, 3)),
             ("dir", dir, torch.float32, (R, 3)),
             ("tnear", tnear, torch.float32, (R,)),
             ("tfar", tfar, torch.float32, (R,)),
             ("mask", mask, torch.int32, (R,)),
+            ("time", time, torch.float32, (R,)),
             ("nodes", packed.nodes, torch.int32, None),
             ("leaves", packed.leaves, torch.int32, None)):
+        if x is None:
+            continue
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
         if x.dtype != dtype:
@@ -130,7 +158,9 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask):
         raise ValueError(f"nodes must be (n, {NODE_WORDS})")
     if packed.leaves.ndim != 2 or packed.leaves.shape[1] != lw:
         raise ValueError(f"leaves must be (n, {lw}) for has_mask="
-                         f"{packed.has_mask}, has_kinds={packed.has_kinds}")
+                         f"{packed.has_mask}, has_kinds={packed.has_kinds}, "
+                         f"has_motion={packed.has_motion}, has_win="
+                         f"{packed.has_win}")
     if packed.has_kinds:
         if not set(packed.kind_classes) <= set(KERNEL_CLASSES):
             raise ValueError(f"kind classes {packed.kind_classes} are not "
@@ -155,8 +185,8 @@ def _ptr(x):
 
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-          ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
+          ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
@@ -172,18 +202,19 @@ def _load(target: str, fn: str, extra_args=()):
         return getattr(_libs[target], fn)
 
 
-def _call_args(packed, org, dir, tnear, tfar, mask, outs, occlusion,
+def _call_args(packed, org, dir, tnear, tfar, mask, time, outs, occlusion,
                want_attrs, robust):
     out_t, out_best, out_visits, out_attr, out_ovf = outs
     return [_ptr(packed.nodes), packed.nodes.shape[0],
             _ptr(packed.leaves), packed.leaves.shape[0],
             packed.leaves.shape[1],
             _ptr(org), _ptr(dir), _ptr(tnear), _ptr(tfar), _ptr(mask),
-            org.shape[0],
+            _ptr(time), org.shape[0],
             _ptr(out_t), _ptr(out_best), _ptr(out_visits), _ptr(out_attr),
             _ptr(out_ovf), int(occlusion), int(want_attrs),
             int(packed.has_mask), int(robust), int(packed.has_kinds),
-            sum(1 << k for k in packed.kind_classes)]
+            sum(1 << k for k in packed.kind_classes),
+            int(packed.has_motion), int(packed.has_win)]
 
 
 # ---------------------------------------------------------------------------
@@ -199,40 +230,42 @@ def _want_attrs(packed: PackedScene, occlusion: bool, want_attrs: bool):
 
 def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
                     occlusion: bool = False, want_attrs: bool = False,
-                    robust: bool = False) -> TraceResult:
-    """Launch the traversal kernel on CUDA tensors (raises for others)."""
+                    robust: bool = False, time=None) -> TraceResult:
+    """Launch the traversal kernel on CUDA tensors (raises for others).
+    ``time``: (R,) float32 ray times, read by moving scenes only."""
     if org.device.type != "cuda":
         raise ValueError("traverse_kernel takes CUDA tensors only")
     want_attrs = _want_attrs(packed, occlusion, want_attrs)
-    _check(packed, org, dir, tnear, tfar, mask)
+    time = _time(packed, org, time)
+    _check(packed, org, dir, tnear, tfar, mask, time)
     for name, x in (("nodes", packed.nodes), ("leaves", packed.leaves)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     launch = _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p])
     outs = _outputs(org.shape[0], org.device, want_attrs)
     stream = torch.cuda.current_stream(org.device).cuda_stream
-    err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, outs,
+    err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                              occlusion, want_attrs, robust),
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
-    LAUNCHES[variant_name(occlusion, want_attrs, robust, packed.has_kinds,
-                          packed.has_mask)] += 1
+    LAUNCHES[packed_variant(packed, occlusion, want_attrs, robust)] += 1
     return TraceResult(*outs)
 
 
 def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
                   occlusion: bool = False, want_attrs: bool = False,
-                  robust: bool = False) -> TraceResult:
+                  robust: bool = False, time=None) -> TraceResult:
     """The kernel's per-ray logic compiled for the host (test-only)."""
     if org.device.type != "cpu":
         raise ValueError("traverse_twin takes CPU tensors only")
     want_attrs = _want_attrs(packed, occlusion, want_attrs)
-    _check(packed, org, dir, tnear, tfar, mask)
+    time = _time(packed, org, time)
+    _check(packed, org, dir, tnear, tfar, mask, time)
     run = _load("traverse_twin", "traverse_twin")
     outs = _outputs(org.shape[0], org.device, want_attrs)
-    run(*_call_args(packed, org, dir, tnear, tfar, mask, outs, occlusion,
-                    want_attrs, robust))
+    run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
+                    occlusion, want_attrs, robust))
     return TraceResult(*outs)
 
 
@@ -245,10 +278,12 @@ def _bits(x):
 
 
 def _as_tensors(a, b):
+    # a Python scalar becomes a filled tensor on the other's device (a
+    # fill, not a host-to-device copy, which would wait for the device)
     if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=b.dtype, device=b.device)
+        a = torch.full_like(b, a)
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = torch.full_like(a, b)
     return torch.broadcast_tensors(a, b)
 
 
@@ -500,12 +535,35 @@ def _leaf_flat_line(f, o, d, tn, tf):
     return ok, tl
 
 
-def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool):
+def _fields(rec, at):
+    """The 9 fields of a record's field block at word ``at``, each (n, 8)."""
+    fw = rec[:, at:at + LEAF_WORDS].contiguous().view(torch.float32)
+    return fw.reshape(-1, 9, 8).unbind(1)
+
+
+def _chunk(rec, at):
+    return rec[:, at:at + LEAF_WIDTH]
+
+
+def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
+                  time=None):
     """Per-slot (valid, t, u/v of class 0, kind tag, fields) of one leaf
     record per ray, selected by the kind tag where the record carries one
-    (:1048-1057)."""
-    fw = rec[:, :LEAF_WORDS].contiguous().view(torch.float32)
-    f = fw.reshape(-1, 9, 8).unbind(1)
+    (:1048-1057). Moving scenes first lerp every field A -> B as
+    a + w * (b - a), with w the ray time or, in windowed scenes, the
+    clipped window-local time, and reject slots whose window misses the
+    ray time (:502-520, :1059-1060)."""
+    f = _fields(rec, 0)
+    win_ok = None
+    if packed.has_motion:
+        w = time
+        if packed.has_win:
+            at = packed.chunk_at("t0")
+            t0 = _chunk(rec, at).contiguous().view(torch.float32)
+            t1 = _chunk(rec, at + LEAF_WIDTH).contiguous().view(torch.float32)
+            w = _jmin(_jmax((time - t0) / _jmax(t1 - t0, 1e-9), 0.0), 1.0)
+            win_ok = (time >= t0) & (time <= t1)
+        f = tuple(a + w * (b - a) for a, b in zip(f, _fields(rec, LEAF_WORDS)))
     dx, dy, dz = d
     ddot = dx * dx + dy * dy + dz * dz
     results = []
@@ -527,15 +585,17 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool):
         results.append((k, v, t))
     if not packed.has_kinds:
         _, valid, tt = results[0]
-        return valid, tt, uv, torch.zeros_like(rec[:, :LEAF_WIDTH]), f
-    kw = LEAF_WORDS + (LEAF_WIDTH if packed.has_mask else 0)
-    tag = rec[:, kw:kw + LEAF_WIDTH]
-    valid = torch.zeros_like(tag, dtype=torch.bool)
-    tt = torch.zeros_like(fw[:, :LEAF_WIDTH])
-    for k, v, t in results:
-        sel = tag == k
-        valid = valid | (sel & v)
-        tt = torch.where(sel, t, tt)
+        tag = torch.zeros_like(rec[:, :LEAF_WIDTH])
+    else:
+        tag = _chunk(rec, packed.chunk_at("kind"))
+        valid = torch.zeros_like(tag, dtype=torch.bool)
+        tt = torch.zeros_like(f[0])
+        for k, v, t in results:
+            sel = tag == k
+            valid = valid | (sel & v)
+            tt = torch.where(sel, t, tt)
+    if win_ok is not None:
+        valid = valid & win_ok
     return valid, tt, uv, tag, f
 
 
@@ -550,11 +610,18 @@ def _bf16_pairs(words):
 def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
                               mask, occlusion: bool = False,
                               want_attrs: bool = False,
-                              robust: bool = False) -> TraceResult:
+                              robust: bool = False, time=None) -> TraceResult:
     """Plain PyTorch version of the traversal kernel: same inputs, same
-    outputs, bit for bit."""
+    outputs, bit for bit.
+
+    A loop over steps, vectorized over the rays still active. Each step
+    splits them into rays at a node and rays at a leaf and compacts the
+    active set: three waits for the device per step. Everything else is
+    masked updates, so the steps of a long tail (a few rays that walk many
+    overlapping boxes, as in motion blur) cost kernel launches only."""
     want_attrs = _want_attrs(packed, occlusion, want_attrs)
-    _check(packed, org, dir, tnear, tfar, mask)
+    time = _time(packed, org, time)
+    _check(packed, org, dir, tnear, tfar, mask, time)
     dev = org.device
     R = org.shape[0]
     nodes, leaves = packed.nodes, packed.leaves
@@ -562,12 +629,14 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
     rd = rcp_safe(dir)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     slot = torch.arange(8, dtype=torch.int32, device=dev)
+    push_j = torch.arange(1, 8, device=dev)
     tf = tfar.clone()
     best = torch.full((R,), -1, dtype=torch.int32, device=dev)
     visits = torch.zeros((2, R), dtype=torch.int32, device=dev)
     attrs = (torch.zeros((5, R), dtype=torch.float32, device=dev)
              if want_attrs else None)
-    stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
+    # column STACK takes the pushes that fall off the stack (never read)
+    stack = torch.zeros((R, STACK + 1), dtype=torch.int32, device=dev)
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     cur = torch.zeros(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
@@ -582,13 +651,15 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
         steps += 1
         c = cur[act]
         at_node = c >= 0
-        pop = []
+        node_i = at_node.nonzero().squeeze(1)     # positions within act
+        leaf_i = (~at_node).nonzero().squeeze(1)
+        pop = torch.zeros_like(at_node)
 
         # ---- nodes: 8-wide slab test on bf16 bounds (:453-494) ----
-        na = act[at_node]
+        na = act[node_i]
         if na.numel():
             visits[0, na] += 1
-            rec = nodes[c[at_node].long().clamp(0, n_nodes - 1)]
+            rec = nodes[c[node_i].long().clamp(0, n_nodes - 1)]
             refs = rec[:, :8]
             lo, hi = _bf16_pairs(rec[:, 8:].reshape(-1, 3, 8))
             o = org[na].unsqueeze(2)                           # (n, 3, 1)
@@ -613,34 +684,35 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             srefs = refs.gather(1, (skey & 7).long())
             spn = sp[na]
             # push sorted[h-1] .. sorted[1] (farthest first) (:1150-1178)
-            for j in range(1, 8):
-                pos = spn + h - 1 - j
-                ok = (j < h) & (pos < STACK)
-                stack[na[ok], pos[ok]] = srefs[ok, j]
+            pos = spn[:, None] + h[:, None] - 1 - push_j       # (n, 7)
+            ok = (push_j < h[:, None]) & (pos < STACK)
+            stack[na[:, None], torch.where(ok, pos, STACK)] = srefs[:, 1:]
             new_sp = spn + torch.clamp(h - 1, min=0)
             overflow[na] |= new_sp > STACK
             sp[na] = new_sp
             has = h > 0
-            cur[na[has]] = srefs[has, 0]
-            pop.append(na[~has])
+            cur[na] = torch.where(has, srefs[:, 0], cur[na])
+            pop[node_i] = ~has
 
         # ---- leaves: per-kind tests over 8 slots, best slot key
         # (:496-579, :1048-1068) ----
-        la = act[~at_node]
+        la = act[leaf_i]
         if la.numel():
             visits[1, la] += 1
-            lid = (-c[~at_node] - 1).long()
+            lid = (-c[leaf_i] - 1).long()
             rec = leaves[lid.clamp(0, n_leaves - 1)]
             o = org[la]
             d = dir[la]
             valid, tt, uv, tag, f = _leaf_classes(
                 packed, rec, (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
                 (d[:, 0:1], d[:, 1:2], d[:, 2:3]), tnear[la, None],
-                tf[la, None], robust)
-            class_slots += torch.bincount(tag.reshape(-1).long().clamp(0, 7),
-                                          minlength=8)[:8]
+                tf[la, None], robust,
+                None if time is None else time[la, None])
+            class_slots.index_add_(0, tag.reshape(-1).long().clamp(0, 7),
+                                   torch.ones_like(tag.reshape(-1),
+                                                   dtype=torch.int64))
             if packed.has_mask:
-                smask = rec[:, LEAF_WORDS:LEAF_WORDS + 8]
+                smask = _chunk(rec, packed.chunk_at("mask"))
                 valid = valid & ((smask & mask[la, None]) != 0)
             tb = _bits(_jmax(tt, zero))
             lkey = torch.where(valid, (tb & ~7) | slot, INF_BITS | slot)
@@ -649,29 +721,28 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             # exact (clamped) t of the winning slot, strictly nearer (:1184)
             t_new = tb.gather(1, ws).squeeze(1).view(torch.float32)
             found = (lmin < INF_BITS) & (t_new < tf[la])
-            fr = la[found]
-            tf[fr] = t_new[found]
-            best[fr] = (lid[found] * 8 + ws[found, 0]).to(torch.int32)
+            tf[la] = torch.where(found, t_new, tf[la])
+            best[la] = torch.where(found, (lid * 8 + ws[:, 0]).to(torch.int32),
+                                   best[la])
             if want_attrs:
                 e1x, e1y, e1z, e2x, e2y, e2z = f[3:9]
                 ngx = e1y * e2z - e1z * e2y
                 ngy = e1z * e2x - e1x * e2z
                 ngz = e1x * e2y - e1y * e2x
-                wf = ws[found]
                 for k, a in enumerate(uv + (ngx, ngy, ngz)):
-                    attrs[k, fr] = a[found].gather(1, wf).squeeze(1)
-            pop.append(la)
+                    attrs[k, la] = torch.where(
+                        found, a.gather(1, ws).squeeze(1), attrs[k, la])
+            pop[leaf_i] = True
 
         # ---- advance: pop the stack or retire (:1196-1215) ----
-        pr = torch.cat(pop)
-        spp = sp[pr]
-        can = spp > 0
-        q = pr[can]
-        top = spp[can] - 1
-        cur[q] = torch.where(top < STACK, stack[q, top.clamp(max=STACK - 1)],
-                             torch.zeros_like(top, dtype=torch.int32))
-        sp[q] = top
-        live[pr[~can]] = False
+        spa = sp[act]
+        can = pop & (spa > 0)
+        top = (spa - 1).clamp(min=0)
+        popped = torch.where(top < STACK,
+                             stack[act, top.clamp(max=STACK - 1)], 0)
+        cur[act] = torch.where(can, popped, cur[act])
+        sp[act] = torch.where(can, top, spa)
+        live[act] = live[act] & ~(pop & ~can)
         if occlusion:
             live &= best < 0
         act = act[live[act]]
@@ -685,14 +756,14 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
 
 def trace(packed: PackedScene, org, dir, tnear, tfar, mask,
           occlusion: bool = False, want_attrs: bool = False,
-          robust: bool = False) -> TraceResult:
+          robust: bool = False, time=None) -> TraceResult:
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if org.device.type == "cuda":
         return traverse_kernel(packed, org, dir, tnear, tfar, mask,
-                               occlusion, want_attrs, robust)
+                               occlusion, want_attrs, robust, time)
     if org.device.type == "cpu":
         return traverse_packed_reference(packed, org, dir, tnear, tfar, mask,
-                                          occlusion, want_attrs, robust)
+                                          occlusion, want_attrs, robust, time)
     raise ValueError(f"no traversal for device {org.device}")
 
 
@@ -700,20 +771,21 @@ def trace(packed: PackedScene, org, dir, tnear, tfar, mask,
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def sort_rays_by_coherence(org, dir, tnear, tfar, mask):
-    """Reorder rays by the coherence key. Returns (perm, sorted fields);
+def sort_rays_by_coherence(org, dir, tnear, tfar, mask, time=None):
+    """Reorder rays by the coherence key. Returns (perm, sorted fields), the
+    fields org, dir, tnear, tfar, mask and, when given, time;
     ``perm[i]`` is the original index of sorted ray i."""
     key = _coherence_key(org, dir, tnear, tfar)
     perm = torch.sort(key, stable=True).indices
-    return perm, tuple(x[perm].contiguous()
-                       for x in (org, dir, tnear, tfar, mask))
+    fields = (org, dir, tnear, tfar, mask) + (() if time is None else (time,))
+    return perm, tuple(x[perm].contiguous() for x in fields)
 
 
 def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
                     occlusion: bool = False, sort_rays: bool = True,
                     want_attrs: bool = False,
                     id_tables: Tuple[torch.Tensor, ...] = (),
-                    robust: bool = False):
+                    robust: bool = False, time=None):
     """Trace R rays against a packed scene. Returns (t, best_prim) with
     best_prim = merged prim index, -1 for miss. Inputs are flat (R,3)/(R,);
     ray_mask holds uint32 values (any integer dtype).
@@ -729,6 +801,8 @@ def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
     For other scenes attrs is None.
 
     robust: the scene's robust mode (widened slabs, Plücker leaf, B2).
+
+    time: (R,) ray times, read by moving scenes (zeros when not given).
     """
     R = org.shape[0]
     org = org.to(torch.float32).contiguous()
@@ -736,13 +810,19 @@ def traverse_packed(packed: PackedScene, org, dir, tnear, tfar, ray_mask,
     tnear = tnear.to(torch.float32).contiguous()
     tfar = tfar.to(torch.float32).contiguous()
     mask = ray_mask.to(torch.int32).contiguous()   # uint32 value -> bits
+    time = _time(packed, org, time)
+    if time is not None:
+        time = time.to(torch.float32).contiguous()
     perm = None
     if sort_rays and R > SORT_MIN_RAYS:
-        perm, (org, dir, tnear, tfar, mask) = sort_rays_by_coherence(
-            org, dir, tnear, tfar, mask)
+        # the ray times travel with the rays they belong to
+        perm, fields = sort_rays_by_coherence(org, dir, tnear, tfar, mask,
+                                              time)
+        (org, dir, tnear, tfar, mask), time = fields[:5], (
+            fields[5] if time is not None else None)
     emit_attrs = want_attrs and packed.tri_attrs
     res = trace(packed, org, dir, tnear, tfar, mask, occlusion, emit_attrs,
-                robust)
+                robust, time)
     prim = torch.where(res.best >= 0,
                        packed.pid_map[res.best.clamp(min=0).long()], -1)
 

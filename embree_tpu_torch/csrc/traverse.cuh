@@ -1,13 +1,16 @@
 // Per-ray BVH8 traversal: closest hit or any hit of one ray against the
 // port's packed records (embree_tpu_torch/accel/pack.py).
 //
-// Replaces embree_tpu/accel/traverse_pallas.py::_kernel for static scenes:
-// the triangle specialization (B1, resident or streamed table), robust mode
-// (B2: +-3-ulp widened slabs, watertight Pluecker leaf, :469-479, :529-556),
+// Replaces embree_tpu/accel/traverse_pallas.py::_kernel: the triangle
+// specialization (B1, resident or streamed table), robust mode (B2:
+// +-3-ulp widened slabs, watertight Pluecker leaf, :469-479, :529-556),
 // per-slot kind tags with quads as two triangle slots (B3, :1048-1057),
-// points (B4: sphere, ray-facing disc, oriented disc, :582-621) and lines
-// (B5: round cone-sphere with the begin-cap flag, flat ray-facing,
-// :622-717). Each ray walks the exact sequence of records the Pallas kernel
+// points (B4: sphere, ray-facing disc, oriented disc, :582-621), lines (B5:
+// round cone-sphere with the begin-cap flag, flat ray-facing, :622-717) and
+// motion blur (B6: every field lerped from step A to step B by the ray time,
+// or by the window-local time with per-slot [t0, t1] windows in time-sliced
+// scenes, :502-520, :1059-1060). Each ray walks the exact sequence of
+// records the Pallas kernel
 // gives its lane: the same bf16 slab test, the same sort keys (t bits with
 // the low 3 bits replaced by the slot), the same push order, the same strict
 // `t < tfar` acceptance, and every leaf expression in the Pallas kernel's
@@ -18,7 +21,8 @@
 // the result is the same.
 //
 // What bounds it on an H100: every step reads one record (128 B for a node,
-// 288 B for a leaf, +32 B for each mask or kind chunk) through L2, dependent
+// 288 B for a leaf, twice that with motion, +32 B for each mask or kind
+// chunk, +64 B for the windows) through L2, dependent
 // on the step before; rays of one warp diverge in depth, in record kind and,
 // with kind tags, in primitive class (a round line costs ~150 operations, a
 // disc ~20). This design does nothing about either yet: one ray per thread,
@@ -51,6 +55,7 @@ constexpr int32_t kInvalidRec = 0x40000000;
 constexpr int32_t kInfBits = 0x7F800000;
 constexpr int kNodeWords = 32;         // 8 child refs + 24 bf16 lo|hi words
 constexpr int kLeafFields = 72;        // 9 fields x 8 slots, field-major
+constexpr float kMinWindow = 1e-9f;    // the window-width floor (:511)
 // robust slab widening, rounded to float32 as the Pallas kernel does
 constexpr float kRobustDown = static_cast<float>(1.0 - 3.0 * 1.19209290e-07);
 constexpr float kRobustUp = static_cast<float>(1.0 + 3.0 * 1.19209290e-07);
@@ -60,9 +65,10 @@ constexpr float kBig = 3e38f;
 struct Params {
   const int32_t* nodes;    // (n_nodes, 32)
   int32_t n_nodes;
-  const int32_t* leaves;   // (n_leaves, leaf_stride): float bits [+ masks]
-  int32_t n_leaves;
-  int32_t leaf_stride;     // 72, +8 with mask words, +8 with kind words
+  const int32_t* leaves;   // (n_leaves, leaf_stride): A [B] [mask] [kind]
+  int32_t n_leaves;        //   [t0 t1] (accel/pack.py)
+  int32_t leaf_stride;     // 72, +72 with motion, +8 per mask/kind chunk,
+                           // +16 with windows
   const float* org;        // (R, 3)
   const float* dir;        // (R, 3)
   const float* tnear;      // (R,)
@@ -74,6 +80,8 @@ struct Params {
   int32_t* out_visits;     // (2, R) node records, leaf records visited
   float* out_attr;         // (5, R) u, v, Ng of the best hit (WANT_ATTRS)
   int32_t kind_classes;    // bit k set: kind tag k occurs (KINDS)
+  const float* time;       // (R,) ray times (MOTION)
+  int32_t has_win;         // records carry per-slot windows (MOTION)
 };
 
 struct I4 {
@@ -422,12 +430,57 @@ TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
   }
 }
 
+// B6: lerp the leaf's 72 A fields in f[] toward its B fields, a + w * (b -
+// a), with w the ray time, or each slot's clipped window-local time when
+// the records carry windows; win_ok[s] tells whether the ray time lies in
+// slot s's window (both ends inclusive). The window words are read first,
+// then the B words 16 bytes at a time, so only f[] and w[] stay live.
+TRAV_HD void lerp_fields(const int32_t* rec, int win_at, bool has_win,
+                         float rtime, float* f, bool* win_ok) {
+  float w[8];
+  if (has_win) {
+    float t0[8], t1[8];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      I4 a = load4(rec + win_at + 4 * q), b = load4(rec + win_at + 8 + 4 * q);
+      t0[4 * q] = as_float(a.x); t0[4 * q + 1] = as_float(a.y);
+      t0[4 * q + 2] = as_float(a.z); t0[4 * q + 3] = as_float(a.w);
+      t1[4 * q] = as_float(b.x); t1[4 * q + 1] = as_float(b.y);
+      t1[4 * q + 2] = as_float(b.z); t1[4 * q + 3] = as_float(b.w);
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      w[s] = jmin(jmax((rtime - t0[s]) / jmax(t1[s] - t0[s], kMinWindow),
+                       0.0f),
+                  1.0f);
+      win_ok[s] = rtime >= t0[s] && rtime <= t1[s];
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      w[s] = rtime;
+      win_ok[s] = true;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kLeafFields / 4; ++q) {
+    I4 v = load4(rec + kLeafFields + 4 * q);
+    const int k = 4 * q;  // word k + j is field (k + j) / 8 of slot k + j % 8
+    f[k] = f[k] + w[k & 7] * (as_float(v.x) - f[k]);
+    f[k + 1] = f[k + 1] + w[(k + 1) & 7] * (as_float(v.y) - f[k + 1]);
+    f[k + 2] = f[k + 2] + w[(k + 2) & 7] * (as_float(v.z) - f[k + 2]);
+    f[k + 3] = f[k + 3] + w[(k + 3) & 7] * (as_float(v.w) - f[k + 3]);
+  }
+}
+
 // Trace ray i. Returns true when its stack grew past kStack (must not
 // happen: the caller counts it).
 // ROBUST: B2 slabs and leaf. KINDS: per-slot kind tags after the mask words,
 // one class test per slot (B3-B5); without it every slot is a triangle.
+// MOTION: B6, the leaf fields lerped by the ray time (p.has_win: per-slot
+// windows, a uniform branch); the slot tests then read the lerped fields.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS>
+          bool KINDS, bool MOTION>
 TRAV_HD bool trace_ray(const Params& p, int i) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
   const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
@@ -436,6 +489,11 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
   const float tnear = p.tnear[i];
   const Ray ray{ox, oy, oz, dx, dy, dz, tnear, dx * dx + dy * dy + dz * dz};
   const int32_t rmask = p.mask[i];
+  const float rtime = MOTION ? p.time[i] : 0.0f;
+  // chunk offsets after the field blocks (accel/pack.py)
+  const int mask_at = kLeafFields * (MOTION ? 2 : 1);
+  const int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+  const int win_at = kind_at + (KINDS ? 8 : 0);
   float tf = p.tfar[i];
   int32_t best = -1;
   float a_u = 0.0f, a_v = 0.0f, a_nx = 0.0f, a_ny = 0.0f, a_nz = 0.0f;
@@ -528,16 +586,17 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
         f[4 * q + 2] = as_float(v.z);
         f[4 * q + 3] = as_float(v.w);
       }
+      bool win_ok[8];
+      if (MOTION) lerp_fields(rec, win_at, p.has_win != 0, rtime, f, win_ok);
       int32_t smask[8];
       if (HAS_MASK) {
-        I4 m0 = load4(rec + kLeafFields), m1 = load4(rec + kLeafFields + 4);
+        I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
         smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
         smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
       }
       int32_t ktag[8];
       if (KINDS) {
-        const int32_t* kw = rec + kLeafFields + (HAS_MASK ? 8 : 0);
-        I4 k0 = load4(kw), k1 = load4(kw + 4);
+        I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
         ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
         ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
       }
@@ -568,6 +627,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
           const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
           bool valid = det_ok && uu >= 0.0f && vv >= 0.0f &&
                        uu + vv <= 1.0f && tt >= tnear && tt <= tf;
+          if (MOTION) valid = valid && win_ok[s];
           if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
           const int32_t tb = as_int(jmax(tt, 0.0f));
           const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
@@ -589,6 +649,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
         bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
                                                  ray, tf, tt)
                            : leaf_pluecker(q, ray, tf, tt, uu, vv);
+        if (MOTION) valid = valid && win_ok[s];
         if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
         const int32_t tb = as_int(jmax(tt, 0.0f));
         const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);

@@ -12,26 +12,36 @@
 namespace {
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS>
+          bool KINDS, bool MOTION>
 int run(const trav::Params& p) {
   int overflow = 0;
   for (int i = 0; i < p.n_rays; ++i) {
-    overflow +=
-        trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(p, i)
-            ? 1
-            : 0;
+    overflow += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
+                                KINDS, MOTION>(p, i)
+                    ? 1
+                    : 0;
   }
   return overflow;
 }
 
-template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS>
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION>
 int run_flags(const trav::Params& p, int has_mask, int robust) {
   if (has_mask) {
-    return robust ? run<OCCLUSION, WANT_ATTRS, true, true, KINDS>(p)
-                  : run<OCCLUSION, WANT_ATTRS, true, false, KINDS>(p);
+    return robust ? run<OCCLUSION, WANT_ATTRS, true, true, KINDS, MOTION>(p)
+                  : run<OCCLUSION, WANT_ATTRS, true, false, KINDS, MOTION>(p);
   }
-  return robust ? run<OCCLUSION, WANT_ATTRS, false, true, KINDS>(p)
-                : run<OCCLUSION, WANT_ATTRS, false, false, KINDS>(p);
+  return robust ? run<OCCLUSION, WANT_ATTRS, false, true, KINDS, MOTION>(p)
+                : run<OCCLUSION, WANT_ATTRS, false, false, KINDS, MOTION>(p);
+}
+
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS>
+int run_motion(const trav::Params& p, int has_mask, int robust,
+               int has_motion) {
+  return has_motion
+             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true>(p, has_mask,
+                                                             robust)
+             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false>(p, has_mask,
+                                                              robust);
 }
 
 }  // namespace
@@ -43,26 +53,31 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              int leaf_stride, const float* org,
                              const float* dir, const float* tnear,
                              const float* tfar, const int32_t* mask,
-                             int n_rays, float* out_t, int32_t* out_best,
-                             int32_t* out_visits, float* out_attr,
-                             int32_t* out_overflow, int occlusion,
-                             int want_attrs, int has_mask, int robust,
-                             int has_kinds, int kind_classes) {
-  if (has_kinds && want_attrs && !occlusion) return 1;
-  const trav::Params p{nodes, n_nodes, leaves, n_leaves, leaf_stride,
-                       org,   dir,     tnear,  tfar,     mask,
-                       n_rays, out_t,  out_best, out_visits, out_attr,
-                       kind_classes};
+                             const float* time, int n_rays, float* out_t,
+                             int32_t* out_best, int32_t* out_visits,
+                             float* out_attr, int32_t* out_overflow,
+                             int occlusion, int want_attrs, int has_mask,
+                             int robust, int has_kinds, int kind_classes,
+                             int has_motion, int has_win) {
+  if ((has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
+      (has_motion && time == nullptr)) {
+    return 1;
+  }
+  const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
+                       org,    dir,      tnear,      tfar,     mask,
+                       n_rays, out_t,    out_best,   out_visits, out_attr,
+                       kind_classes, time, has_win};
+  const int m = has_motion;
   int ovf;
   if (has_kinds) {
-    ovf = occlusion ? run_flags<true, false, true>(p, has_mask, robust)
-                    : run_flags<false, false, true>(p, has_mask, robust);
+    ovf = occlusion ? run_motion<true, false, true>(p, has_mask, robust, m)
+                    : run_motion<false, false, true>(p, has_mask, robust, m);
   } else if (occlusion) {
-    ovf = run_flags<true, false, false>(p, has_mask, robust);
+    ovf = run_motion<true, false, false>(p, has_mask, robust, m);
   } else if (want_attrs) {
-    ovf = run_flags<false, true, false>(p, has_mask, robust);
+    ovf = run_motion<false, true, false>(p, has_mask, robust, m);
   } else {
-    ovf = run_flags<false, false, false>(p, has_mask, robust);
+    ovf = run_motion<false, false, false>(p, has_mask, robust, m);
   }
   out_overflow[0] += ovf;
   return 0;

@@ -1,13 +1,15 @@
 """Geometry types, the subset the port covers: triangles, quads, points and
-line segments.
+line segments, static or moving.
 
-Port of embree_tpu/geometry.py:24-35 (kind tags) and :109-185
-(RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT and
-ROUND/FLAT_LINEAR_CURVE; role parity with kernels/common/scene_*.h).
+Port of embree_tpu/geometry.py:24-35 (kind tags), :40-106 (time steps) and
+:109-185 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT
+and ROUND/FLAT_LINEAR_CURVE; role parity with kernels/common/scene_*.h).
 Buffers stay on the host (numpy or tensors); ``Scene.commit`` reads them.
-Vertex buffers with a leading time axis (motion blur) and intersection
-filters are accepted here, as in the JAX package, and refused by ``commit``
-until the port covers them.
+A buffer with a leading time axis, (S, n, C) with 2 <= S <= 129, declares
+S-step linear motion blur over the geometry's ``time_range``
+(rtcSetGeometryTimeStepCount / rtcSetGeometryTimeRange); traversal lerps by
+the ray's time. Intersection filters are accepted here, as in the JAX
+package, and refused by ``commit`` until the port covers them.
 """
 from __future__ import annotations
 
@@ -32,6 +34,65 @@ KIND_CURVE_DISTANCE = 11
 
 FilterFn = Callable  # (org, dir, t, u, v, ng, prim_id, geom_id) -> bool mask
 
+MAX_TIME_STEPS = 129   # reference RTC_MAX_TIME_STEP_COUNT (rtcore_common.h:54)
+
+
+def _sample_steps(arr, t, time_range=(0.0, 1.0)):
+    """Evaluate an (S, n, C) piecewise-linear motion buffer at global time
+    t (the itime/ftime split of the reference's Geometry::timeSegment,
+    kernels/common/default.h:223). The buffer's knots span time_range;
+    outside it the boundary segment is linearly extrapolated: itime is
+    clamped, ftime is not. 2-D (static) buffers pass through."""
+    a = np.asarray(arr, np.float32)
+    if a.ndim == 2:
+        return a
+    S = a.shape[0]
+    r0, r1 = float(time_range[0]), float(time_range[1])
+    x = (float(t) - r0) / (r1 - r0) * (S - 1)
+    k = min(max(int(np.floor(x)), 0), S - 2)
+    w = np.float32(x - k)
+    if w == 0.0:
+        return a[k]
+    return ((1.0 - w) * a[k] + w * a[k + 1]).astype(np.float32)
+
+
+def _split_timesteps(arr, name, window=(0.0, 1.0), time_range=(0.0, 1.0)):
+    """Accept (n, C) static or (S, n, C) S-step motion buffers and return
+    (buffer at window[0], buffer at window[1], moving). Multi-step buffers
+    are exact because the scene merger first splits prims at every interior
+    knot time (time-sliced replication, the MSMBlur analog), so each window
+    lies within one linear segment; extrapolated endpoints keep that true
+    for a sub-[0,1] time_range."""
+    a = np.asarray(arr, np.float32)
+    if a.ndim == 3:
+        S = a.shape[0]
+        if not 2 <= S <= MAX_TIME_STEPS:
+            raise ValueError(f"{name}: motion buffers need 2..{MAX_TIME_STEPS}"
+                             f" time steps, got {S}")
+        return (_sample_steps(a, window[0], time_range),
+                _sample_steps(a, window[1], time_range), True)
+    return a, a, False
+
+
+def motion_knots(arrays, window, time_range=(0.0, 1.0)):
+    """Interior knot times of S-step motion buffers strictly inside the
+    window: the prim replication boundaries of time slicing. Knot k of an
+    S-step buffer sits at time_range[0] + (time_range[1]-time_range[0]) *
+    k/(S-1) (Geometry::timeStep, kernels/common/geometry.h:341)."""
+    ks = set()
+    r0, r1 = float(time_range[0]), float(time_range[1])
+    for a in arrays:
+        if a is None:
+            continue
+        a = np.asarray(a)
+        if a.ndim == 3 and a.shape[0] > 2:
+            S = a.shape[0]
+            for k in range(1, S - 1):
+                t = r0 + (r1 - r0) * k / (S - 1)
+                if window[0] < t < window[1]:
+                    ks.add(t)
+    return sorted(ks)
+
 
 @dataclasses.dataclass
 class GeometryBase:
@@ -43,11 +104,13 @@ class GeometryBase:
 @dataclasses.dataclass
 class TriangleGeometry:
     """RTC_GEOMETRY_TYPE_TRIANGLE."""
-    vertices: object             # (n_verts, 3) or (2, n_verts, 3) for motion
+    vertices: object             # (n_verts, 3) or (S, n_verts, 3) for motion
     indices: object              # (n_tris, 3) int
     mask: int = 0xFFFFFFFF
     enabled: bool = True
     filter: Optional[FilterFn] = None
+    # rtcSetGeometryTimeRange (rtcore_geometry.h:151): the geometry exists
+    # only within it, and motion buffers span it instead of [0,1]
     time_range: tuple = (0.0, 1.0)
 
     @property
@@ -75,7 +138,7 @@ class PointGeometry:
     """RTC_GEOMETRY_TYPE_{SPHERE,DISC,ORIENTED_DISC}_POINT."""
     points: object               # (n, 4) xyz+radius, or (S, n, 4)
     kind: str = "sphere"         # sphere | disc | oriented_disc
-    normals: Optional[object] = None   # (n, 3) for oriented discs
+    normals: Optional[object] = None   # (n, 3) or (S, n, 3), oriented discs
     mask: int = 0xFFFFFFFF
     enabled: bool = True
     filter: Optional[FilterFn] = None

@@ -2,9 +2,9 @@
 
 Port of embree_tpu/scene.py (:194-308 Scene, :323-579 merging, :878-1170
 finalize, :1190-1286 packing and the native build route, :1310-1720
-queries), for static scenes of the packed kinds. Role parity with the
-reference runtime core (kernels/common/scene.{h,cpp}, query dispatch
-kernels/common/rtcore.cpp:599 rtcIntersect1):
+queries), for scenes of the packed kinds, static or moving. Role parity
+with the reference runtime core (kernels/common/scene.{h,cpp}, query
+dispatch kernels/common/rtcore.cpp:599 rtcIntersect1):
 
 - ``Scene`` is the mutable host-side container of geometries.
 - ``Scene.commit(device=...)`` merges triangles, quads, points and line
@@ -12,14 +12,20 @@ kernels/common/rtcore.cpp:599 rtcIntersect1):
   ``EMBREE_TPU_NATIVE_BUILD=1`` route, at every prim count), packs the
   records and returns a ``CommittedScene``: a dataclass of tensors on one
   device, CUDA unless the caller asks for the CPU.
+- Motion blur: 2-step geometry carries A and B tables lerped by the ray's
+  time; S-step geometry is split at its interior knots into one prim per
+  linear segment with its own [t0, t1] window (time-sliced replication,
+  the MSMBlur analog); a ``time_range`` clips a geometry's window, so the
+  geometry exists only within it.
 - ``intersect``/``occluded`` are plain functions over (CommittedScene,
   RayBatch). On CUDA they launch the Hopper traversal kernel; on the CPU they
   run its plain PyTorch version.
 
 What the port does not cover yet, commit refuses with NotImplementedError:
-curves, grids, subdivision, user geometry, instances and two-level scenes,
-motion, filters, min-width (``min_width_factor != 0``), fat round-line
-joints, compact scenes, HIGH and REFIT quality.
+curves, grids, subdivision, user geometry, instances and two-level scenes
+(so quaternion and transform motion), filters, min-width
+(``min_width_factor != 0``), fat round-line joints, compact scenes, HIGH
+and REFIT quality.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
 from .geometry import (KIND_DISC, KIND_FLAT_LINE, KIND_ORIENTED_DISC,
                        KIND_QUAD, KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE,
                        LineSegmentsGeometry, PointGeometry, QuadGeometry,
-                       TriangleGeometry)
+                       TriangleGeometry, _split_timesteps, motion_knots)
 from .native import build_bvh8_native
 from .ops import line as line_ops
 from .ops import point as point_ops
@@ -52,13 +58,20 @@ PACKED_KINDS = (KIND_TRIANGLE, KIND_QUAD, KIND_SPHERE, KIND_DISC,
                 KIND_ORIENTED_DISC, KIND_ROUND_LINE, KIND_FLAT_LINE)
 _POINT_KINDS = {"sphere": KIND_SPHERE, "disc": KIND_DISC,
                 "oriented_disc": KIND_ORIENTED_DISC}
-# per-kind tables of the merged scene: name -> trailing shape
+# per-kind tables of the merged scene: name -> trailing shape. A name
+# ending in "b" is the second time step of the table without it (equal to
+# it for static geometry).
 _TABLES = {"tri_v0": (3,), "tri_v1": (3,), "tri_v2": (3,),
-           "quad_v": (4, 3), "quad_uvm": (6,),
+           "tri_v0b": (3,), "tri_v1b": (3,), "tri_v2b": (3,),
+           "quad_v": (4, 3), "quad_vb": (4, 3), "quad_uvm": (6,),
            "pnt_c": (3,), "pnt_r": (), "pnt_n": (3,),
+           "pnt_cb": (3,), "pnt_rb": (), "pnt_nb": (3,),
            "line_p0": (3,), "line_r0": (), "line_p1": (3,), "line_r1": (),
            "line_fl": (),
-           "line_pL": (3,), "line_rL": (), "line_pR": (3,), "line_rR": ()}
+           "line_pL": (3,), "line_rL": (), "line_pR": (3,), "line_rR": (),
+           "line_p0b": (3,), "line_r0b": (), "line_p1b": (3,),
+           "line_r1b": (), "line_pLb": (3,), "line_rLb": (),
+           "line_pRb": (3,), "line_rRb": ()}
 
 
 class BuildQuality:
@@ -79,14 +92,23 @@ class CommittedScene:
     prim_inst: torch.Tensor    # (T, 2) int64 instance ids (INVALID_ID)
     prim_data: torch.Tensor    # (T,) int64 index into its kind's table
     prim_mask: torch.Tensor    # (T,) int64 geometry mask (uint32 value)
+    prim_t0: torch.Tensor      # (T,) float32 time window ([0, 1] = whole)
+    prim_t1: torch.Tensor
     tri_v0: torch.Tensor       # (Tt, 3) float32
     tri_v1: torch.Tensor
     tri_v2: torch.Tensor
+    tri_v0b: torch.Tensor      # the same at the second time step
+    tri_v1b: torch.Tensor
+    tri_v2b: torch.Tensor
     quad_v: torch.Tensor       # (Tq, 4, 3) float32
+    quad_vb: torch.Tensor
     quad_uvm: torch.Tensor     # (Tq, 6) affine uv frame (identity)
     pnt_c: torch.Tensor        # (Tp, 3) point centers
     pnt_r: torch.Tensor        # (Tp,) radii
     pnt_n: torch.Tensor        # (Tp, 3) normals (oriented discs)
+    pnt_cb: torch.Tensor
+    pnt_rb: torch.Tensor
+    pnt_nb: torch.Tensor
     line_p0: torch.Tensor      # (Tl, 3) segment start
     line_r0: torch.Tensor      # (Tl,)
     line_p1: torch.Tensor      # (Tl, 3) segment end
@@ -96,9 +118,19 @@ class CommittedScene:
     line_rL: torch.Tensor      # (Tl,) its radius, < 0 when absent
     line_pR: torch.Tensor      # (Tl, 3) right neighbor's end point
     line_rR: torch.Tensor      # (Tl,) its radius, < 0 when absent
+    line_p0b: torch.Tensor     # the line tables at the second time step
+    line_r0b: torch.Tensor
+    line_p1b: torch.Tensor
+    line_r1b: torch.Tensor
+    line_pLb: torch.Tensor
+    line_rLb: torch.Tensor
+    line_pRb: torch.Tensor
+    line_rRb: torch.Tensor
     packed: pack_mod.PackedScene
     kinds_present: tuple = (KIND_TRIANGLE,)
     robust: bool = False       # RTC_SCENE_FLAG_ROBUST analog (B2)
+    has_motion: bool = False   # B tables differ from A, or windows exist
+    has_windows: bool = False  # some prim has a window other than [0, 1]
 
     @property
     def num_prims(self):
@@ -114,20 +146,22 @@ def _refuse(what: str):
         f"embree_tpu_torch does not cover {what} yet (see ROADMAP.md)")
 
 
-def _static(buf, what):
-    a = np.asarray(buf, np.float32)
-    if a.ndim != 2:
-        _refuse(f"motion blur ({what} with a time axis)")
-    return a
-
-
 class _Merger:
-    """The merged prim table (scene.py:323-579, static geometry only)."""
+    """The merged prim table (scene.py:323-579 for the packed kinds).
+
+    Every emitted prim carries the current time window. A geometry's
+    ``time_range`` clips that window and drops the geometry when the two do
+    not overlap; an S-step buffer splits it at the buffer's interior knots,
+    one prim copy per linear segment (``_segmented``)."""
 
     def __init__(self):
         self.rows = []          # (n, 5): kind, gid, local id, data, mask
         self.tab = {k: [] for k in _TABLES}
         self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0}
+        self.windows = []       # (n, 2) per emit: [t0, t1]
+        self.has_motion = False
+        self._window = (0.0, 1.0)
+        self._trange = (0.0, 1.0)   # time_range of the geometry being added
 
     def _emit(self, kind, gid, n, group, mask):
         r = np.empty((n, 5), np.int64)
@@ -137,39 +171,85 @@ class _Merger:
         r[:, 3] = self.count[group] + np.arange(n)
         r[:, 4] = int(mask) & 0xFFFFFFFF
         self.rows.append(r)
+        self.windows.append(np.tile(np.asarray(self._window, np.float32),
+                                    (n, 1)))
         self.count[group] += n
 
     def _put(self, **cols):
         for k, v in cols.items():
             self.tab[k].append(np.asarray(v, np.float32))
 
+    def _steps(self, buf, name):
+        """The buffer at the current window's two ends (scene.py:385-388)."""
+        a, b, moving = _split_timesteps(buf, name, self._window, self._trange)
+        self.has_motion |= moving
+        return a, b
+
+    def _segmented(self, knots, fn):
+        """Run fn once per sub-window of the current window split at the
+        interior knot times (scene.py:390-398)."""
+        outer = self._window
+        ts = [outer[0]] + list(knots) + [outer[1]]
+        for t0, t1 in zip(ts[:-1], ts[1:]):
+            self._window = (t0, t1)
+            fn()
+        self._window = outer
+
     def add(self, g, gid):
+        if not isinstance(g, (TriangleGeometry, QuadGeometry, PointGeometry,
+                              LineSegmentsGeometry)):
+            _refuse(type(g).__name__)
         if g.filter is not None:
             _refuse("intersection filters")
+        # the geometry exists only within its time range (scene.py:403-418)
+        tr = tuple(float(x) for x in g.time_range)
+        cw = (max(self._window[0], tr[0]), min(self._window[1], tr[1]))
+        if cw[0] > cw[1]:
+            return
+        outer = self._window
+        self._window = cw
+        self._trange = tr
+        try:
+            knots = motion_knots([getattr(g, a, None) for a in
+                                  ("vertices", "points", "normals")],
+                                 self._window, self._trange)
+            if knots:
+                self._segmented(knots, lambda: self._add_window(g, gid))
+            else:
+                self._add_window(g, gid)
+        finally:
+            self._window = outer
+
+    def _add_window(self, g, gid):
+        """Emit g's prims for the current window, whose buffers are linear
+        in time (scene.py:474-579)."""
         if isinstance(g, TriangleGeometry):
-            v = _static(g.vertices, "vertices")
-            t = v[np.asarray(g.indices, np.int64)]            # (n, 3, 3)
-            self._emit(KIND_TRIANGLE, gid, t.shape[0], "tri", g.mask)
-            self._put(tri_v0=t[:, 0], tri_v1=t[:, 1], tri_v2=t[:, 2])
+            va, vb = self._steps(g.vertices, "vertices")
+            idx = np.asarray(g.indices, np.int64)
+            ta, tb = va[idx], vb[idx]                         # (n, 3, 3)
+            self._emit(KIND_TRIANGLE, gid, ta.shape[0], "tri", g.mask)
+            self._put(tri_v0=ta[:, 0], tri_v1=ta[:, 1], tri_v2=ta[:, 2],
+                      tri_v0b=tb[:, 0], tri_v1b=tb[:, 1], tri_v2b=tb[:, 2])
         elif isinstance(g, QuadGeometry):
-            v = _static(g.vertices, "vertices")
-            q = v[np.asarray(g.indices, np.int64)]            # (n, 4, 3)
-            n = q.shape[0]
+            va, vb = self._steps(g.vertices, "vertices")
+            idx = np.asarray(g.indices, np.int64)
+            n = idx.shape[0]
             uvm = np.zeros((n, 6), np.float32)                # :1289-1295
             uvm[:, 2] = uvm[:, 5] = 1.0
             self._emit(KIND_QUAD, gid, n, "quad", g.mask)
-            self._put(quad_v=q, quad_uvm=uvm)
+            self._put(quad_v=va[idx], quad_vb=vb[idx], quad_uvm=uvm)
         elif isinstance(g, PointGeometry):
-            pa = _static(g.points, "points")
+            pa, pb = self._steps(g.points, "points")
             n = pa.shape[0]
             if g.normals is not None:
-                nrm = _static(g.normals, "normals")
+                na, nb = self._steps(g.normals, "normals")
             else:
-                nrm = np.tile(np.array([[0, 0, 1]], np.float32), (n, 1))
+                na = nb = np.tile(np.array([[0, 0, 1]], np.float32), (n, 1))
             self._emit(_POINT_KINDS[g.kind], gid, n, "pnt", g.mask)
-            self._put(pnt_c=pa[:, :3], pnt_r=pa[:, 3], pnt_n=nrm)
-        elif isinstance(g, LineSegmentsGeometry):
-            va = _static(g.vertices, "vertices")
+            self._put(pnt_c=pa[:, :3], pnt_r=pa[:, 3], pnt_n=na,
+                      pnt_cb=pb[:, :3], pnt_rb=pb[:, 3], pnt_nb=nb)
+        else:
+            va, vb = self._steps(g.vertices, "vertices")
             idx = np.asarray(g.indices, np.int64)
             n = idx.shape[0]
             kind = KIND_ROUND_LINE if g.kind == "round" else KIND_FLAT_LINE
@@ -182,23 +262,28 @@ class _Merger:
             ir = np.clip(idx + 2, 0, va.shape[0] - 1)
             if kind == KIND_ROUND_LINE and n > 0:
                 # fat joints need the generic engine's neighbor-cone
-                # clipping, which the packed record lacks (scene.py:545-557)
-                seg_len = np.linalg.norm(va[idx + 1, :3] - va[idx, :3],
-                                         axis=-1)
-                rj = np.maximum(va[idx, 3], va[idx + 1, 3])
-                if ((has_left | has_right) & (rj > 0.5 * seg_len)).any():
-                    _refuse("fat round-line joints (joint radius above half "
-                            "the segment length)")
+                # clipping, which the packed record lacks (scene.py:545-557);
+                # a moving joint may be fat at either step
+                for v in (va, vb):
+                    seg_len = np.linalg.norm(v[idx + 1, :3] - v[idx, :3],
+                                             axis=-1)
+                    rj = np.maximum(v[idx, 3], v[idx + 1, 3])
+                    if ((has_left | has_right) & (rj > 0.5 * seg_len)).any():
+                        _refuse("fat round-line joints (joint radius above "
+                                "half the segment length)")
             self._emit(kind, gid, n, "line", g.mask)
-            self._put(line_p0=va[idx, :3], line_r0=va[idx, 3],
-                      line_p1=va[idx + 1, :3], line_r1=va[idx + 1, 3],
-                      line_fl=has_left.astype(np.float32),
-                      line_pL=va[il, :3],
-                      line_rL=np.where(has_left, va[il, 3], -1.0),
-                      line_pR=va[ir, :3],
-                      line_rR=np.where(has_right, va[ir, 3], -1.0))
-        else:
-            _refuse(type(g).__name__)
+            for sfx, v in (("", va), ("b", vb)):
+                self._put(**{"line_p0" + sfx: v[idx, :3],
+                             "line_r0" + sfx: v[idx, 3],
+                             "line_p1" + sfx: v[idx + 1, :3],
+                             "line_r1" + sfx: v[idx + 1, 3],
+                             "line_pL" + sfx: v[il, :3],
+                             "line_rL" + sfx: np.where(has_left, v[il, 3],
+                                                       -1.0),
+                             "line_pR" + sfx: v[ir, :3],
+                             "line_rR" + sfx: np.where(has_right, v[ir, 3],
+                                                       -1.0)})
+            self._put(line_fl=has_left.astype(np.float32))
 
     def tables(self):
         return {k: (np.concatenate(v).reshape((-1,) + _TABLES[k]) if v else
@@ -256,15 +341,17 @@ class Scene:
         if not m.rows:
             raise ValueError("commit() on empty scene")
         self.committed = _finalize(np.concatenate(m.rows), m.tables(),
+                                   np.concatenate(m.windows), m.has_motion,
                                    self.threads, self.robust,
                                    self.max_radius_scale, dev)
         return self.committed
 
 
 def _bounds(kind, data, tab, mrs):
-    """Per-prim bounds by kind (scene.py:918-955), sanitized: NaN, Inf or
-    huge bounds become zero-volume boxes at the origin that never produce
-    hits (GarbageGeometryTest parity, :961-965)."""
+    """Per-prim bounds by kind, the union over both time steps
+    (scene.py:907-955), sanitized: NaN, Inf or huge bounds become
+    zero-volume boxes at the origin that never produce hits
+    (GarbageGeometryTest parity, :957-965)."""
     T = kind.shape[0]
     lo = np.empty((T, 3), np.float32)
     up = np.empty((T, 3), np.float32)
@@ -272,18 +359,23 @@ def _bounds(kind, data, tab, mrs):
         sel = kind == k
         d = data[sel]
         if k == KIND_TRIANGLE:
-            pts = [tab["tri_v0"][d], tab["tri_v1"][d], tab["tri_v2"][d]]
+            pts = [tab[f"tri_v{j}{b}"][d] for b in ("", "b") for j in range(3)]
             a, b = np.minimum.reduce(pts), np.maximum.reduce(pts)
         elif k == KIND_QUAD:
-            a, b = tab["quad_v"][d].min(1), tab["quad_v"][d].max(1)
+            allv = np.concatenate([tab["quad_v"][d], tab["quad_vb"][d]], 1)
+            a, b = allv.min(1), allv.max(1)
         elif k in (KIND_SPHERE, KIND_DISC, KIND_ORIENTED_DISC):
-            r = mrs * tab["pnt_r"][d][:, None]
-            a, b = tab["pnt_c"][d] - r, tab["pnt_c"][d] + r
+            ca, cb = tab["pnt_c"][d], tab["pnt_cb"][d]
+            ra = mrs * tab["pnt_r"][d][:, None]
+            rb = mrs * tab["pnt_rb"][d][:, None]
+            a = np.minimum(ca - ra, cb - rb)
+            b = np.maximum(ca + ra, cb + rb)
         else:
-            e0 = mrs * tab["line_r0"][d][:, None]
-            e1 = mrs * tab["line_r1"][d][:, None]
-            p0, p1 = tab["line_p0"][d], tab["line_p1"][d]
-            a, b = np.minimum(p0 - e0, p1 - e1), np.maximum(p0 + e0, p1 + e1)
+            ends = [(tab[f"line_p{j}{s}"][d],
+                     mrs * tab[f"line_r{j}{s}"][d][:, None])
+                    for j in (0, 1) for s in ("", "b")]
+            a = np.minimum.reduce([p - e for p, e in ends])
+            b = np.maximum.reduce([p + e for p, e in ends])
         lo[sel] = a
         up[sel] = b
     bad = (~np.isfinite(lo).all(axis=1) | ~np.isfinite(up).all(axis=1)
@@ -295,52 +387,56 @@ def _bounds(kind, data, tab, mrs):
 
 
 def _slot_encoding(rows, tab, factor):
-    """Per-slot generic fields, kind tags and prim ids (scene.py:1190-1258):
-    prim p owns slots factor*p .. factor*p+factor-1; a quad fills two
-    triangle slots, every other prim the first."""
+    """Per-slot generic fields of both time steps, kind tags and prim ids
+    (scene.py:1190-1258): prim p owns slots factor*p .. factor*p+factor-1;
+    a quad fills two triangle slots, every other prim the first. The line's
+    begin flag is the same in both steps."""
     T = rows.shape[0]
     kind = rows[:, 0]
     data = rows[:, 3]
     S = T * factor
-    fields = np.zeros((S, 9), np.float32)
+    fields = np.zeros((2, S, 9), np.float32)
     skind = np.zeros(S, np.int32)
     spid = np.full(S, -1, np.int32)
     base = np.arange(T, dtype=np.int64) * factor
 
-    def put(sel, off, cols, tag):
-        idx = base[sel] + off
-        arr = np.concatenate([np.asarray(c, np.float32).reshape(len(idx), -1)
-                              for c in cols], axis=1)
-        fields[idx, :arr.shape[1]] = arr
-        skind[idx] = tag
-        spid[idx] = np.nonzero(sel)[0]
+    for step, b in enumerate(("", "b")):       # table suffix of the step
+        def put(sel, off, cols, tag):
+            idx = base[sel] + off
+            arr = np.concatenate(
+                [np.asarray(c, np.float32).reshape(len(idx), -1)
+                 for c in cols], axis=1)
+            fields[step, idx, :arr.shape[1]] = arr
+            skind[idx] = tag
+            spid[idx] = np.nonzero(sel)[0]
 
-    for k in np.unique(kind):
-        sel = kind == k
-        d = data[sel]
-        if k == KIND_TRIANGLE:
-            v0 = tab["tri_v0"][d]
-            put(sel, 0, (v0, tab["tri_v1"][d] - v0, tab["tri_v2"][d] - v0),
-                KIND_TRIANGLE)
-        elif k == KIND_QUAD:
-            q = tab["quad_v"][d]
-            put(sel, 0, (q[:, 0], q[:, 1] - q[:, 0], q[:, 3] - q[:, 0]),
-                KIND_TRIANGLE)
-            put(sel, 1, (q[:, 2], q[:, 3] - q[:, 2], q[:, 1] - q[:, 2]),
-                KIND_TRIANGLE)
-        elif k in (KIND_SPHERE, KIND_DISC):
-            put(sel, 0, (tab["pnt_c"][d], tab["pnt_r"][d]), k)
-        elif k == KIND_ORIENTED_DISC:
-            put(sel, 0, (tab["pnt_c"][d], tab["pnt_r"][d], tab["pnt_n"][d]),
-                k)
-        else:
-            put(sel, 0, (tab["line_p0"][d], tab["line_r0"][d],
-                         tab["line_p1"][d], tab["line_r1"][d],
-                         tab["line_fl"][d]), k)
-    return fields, skind, spid
+        for k in np.unique(kind):
+            sel = kind == k
+            d = data[sel]
+            if k == KIND_TRIANGLE:
+                v0 = tab["tri_v0" + b][d]
+                put(sel, 0, (v0, tab["tri_v1" + b][d] - v0,
+                             tab["tri_v2" + b][d] - v0), KIND_TRIANGLE)
+            elif k == KIND_QUAD:
+                q = tab["quad_v" + b][d]
+                put(sel, 0, (q[:, 0], q[:, 1] - q[:, 0], q[:, 3] - q[:, 0]),
+                    KIND_TRIANGLE)
+                put(sel, 1, (q[:, 2], q[:, 3] - q[:, 2], q[:, 1] - q[:, 2]),
+                    KIND_TRIANGLE)
+            elif k in (KIND_SPHERE, KIND_DISC):
+                put(sel, 0, (tab["pnt_c" + b][d], tab["pnt_r" + b][d]), k)
+            elif k == KIND_ORIENTED_DISC:
+                put(sel, 0, (tab["pnt_c" + b][d], tab["pnt_r" + b][d],
+                             tab["pnt_n" + b][d]), k)
+            else:
+                put(sel, 0, (tab["line_p0" + b][d], tab["line_r0" + b][d],
+                             tab["line_p1" + b][d], tab["line_r1" + b][d],
+                             tab["line_fl"][d]), k)
+    return fields[0], fields[1], skind, spid
 
 
-def _finalize(rows, tab, threads, robust, max_radius_scale, device):
+def _finalize(rows, tab, windows, has_motion, threads, robust,
+              max_radius_scale, device):
     """Bounds, native BVH8 build and packing (scene.py:878-1066). The JAX
     package also builds strand-aligned leaf OBBs for hair scenes
     (:1077-1117); only its generic engine reads them, never the packed
@@ -348,6 +444,11 @@ def _finalize(rows, tab, threads, robust, max_radius_scale, device):
     T = rows.shape[0]
     kind = rows[:, 0]
     kinds_present = tuple(sorted(int(k) for k in np.unique(kind)))
+    # windowed prims ride the motion path even where both steps are equal
+    # (scene.py:970-976)
+    has_windows = bool((windows[:, 0] != 0.0).any()
+                       or (windows[:, 1] != 1.0).any())
+    has_motion = bool(has_motion or has_windows)
     lo, up = _bounds(kind, rows[:, 3], tab, np.float32(max_radius_scale))
     # quads expand to two triangle slots: leaves hold half the prims
     factor = 2 if KIND_QUAD in kinds_present else 1
@@ -355,26 +456,34 @@ def _finalize(rows, tab, threads, robust, max_radius_scale, device):
         lo, up, leaf_size=LEAF_SIZE // factor, threads=threads)
     bvh_np = dict(node_lower=nl, node_upper=nu, node_child=nc,
                   prim_order=order)
-    fields, skind, spid = _slot_encoding(rows, tab, factor)
+    fields_a, fields_b, skind, spid = _slot_encoding(rows, tab, factor)
     classes = tuple(sorted({int(t) for t in np.unique(skind[spid >= 0])}))
     has_kinds = classes != (KIND_TRIANGLE,)
     smask = np.repeat(rows[:, 4], factor).astype(np.uint32)
     has_mask = bool(np.any(rows[:, 4] != 0xFFFFFFFF))
+    # every expansion slot inherits its prim's window (scene.py:1261-1267)
     nodes, leaves, pid_map = pack_mod.pack_arrays(
-        nc, nl, nu, order, n_wide, fields, smask, spid, has_mask,
-        slot_kind=skind if has_kinds else None, slot_factor=factor)
-    inst = np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64)
-    packed = dict(nodes=nodes, leaves=leaves, pid_map=pid_map,
-                  has_mask=has_mask, has_kinds=has_kinds,
-                  kind_classes=classes,
-                  tri_attrs=classes == (KIND_TRIANGLE,) and factor == 1)
-    return _to_device(bvh_np, rows[:, 0], rows[:, 1], rows[:, 2], inst,
-                      rows[:, 3], rows[:, 4], tab, packed, kinds_present,
-                      robust, device)
+        nc, nl, nu, order, n_wide, fields_a, smask, spid, has_mask,
+        slot_kind=skind if has_kinds else None, slot_factor=factor,
+        slot_fields_b=fields_b if has_motion else None,
+        slot_t01=np.repeat(windows, factor, axis=0) if has_windows else None)
+    packed = pack_mod.PackedScene(
+        nodes=nodes, leaves=leaves, pid_map=pid_map, has_mask=has_mask,
+        tri_attrs=classes == (KIND_TRIANGLE,) and factor == 1,
+        has_kinds=has_kinds, kind_classes=classes, has_motion=has_motion,
+        has_win=has_windows)
+    prims = dict(kind=kind, geom=rows[:, 1], local=rows[:, 2],
+                 inst=np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64),
+                 data=rows[:, 3], mask=rows[:, 4], t0=windows[:, 0],
+                 t1=windows[:, 1])
+    return _to_device(bvh_np, prims, tab, packed, kinds_present, robust,
+                      has_motion, has_windows, device)
 
 
-def _to_device(bvh_np, kind, geom, local, inst, data, mask, tab, packed,
-               kinds_present, robust, device):
+def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
+               has_windows, device):
+    """The CommittedScene on ``device`` from host arrays; ``packed`` holds
+    numpy arrays or CPU tensors."""
     def t(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
@@ -382,24 +491,24 @@ def _to_device(bvh_np, kind, geom, local, inst, data, mask, tab, packed,
               node_upper=t(bvh_np["node_upper"], torch.float32),
               node_child=t(bvh_np["node_child"], torch.int32),
               prim_order=t(bvh_np["prim_order"], torch.int32))
-    pk = pack_mod.PackedScene(
-        nodes=t(packed["nodes"], torch.int32),
-        leaves=t(packed["leaves"], torch.int32),
-        pid_map=t(packed["pid_map"], torch.int64),
-        has_mask=bool(packed["has_mask"]),
-        tri_attrs=bool(packed["tri_attrs"]),
-        has_kinds=bool(packed["has_kinds"]),
-        kind_classes=tuple(int(k) for k in packed["kind_classes"]))
+    pk = dataclasses.replace(
+        packed, nodes=t(packed.nodes, torch.int32),
+        leaves=t(packed.leaves, torch.int32),
+        pid_map=t(packed.pid_map, torch.int64),
+        kind_classes=tuple(int(k) for k in packed.kind_classes))
     return CommittedScene(
         bvh=bvh,
-        prim_kind=t(kind, torch.int32),
-        prim_geom=t(geom, torch.int64),
-        prim_local=t(local, torch.int64),
-        prim_inst=t(inst, torch.int64),
-        prim_data=t(data, torch.int64),
-        prim_mask=t(mask, torch.int64),
+        prim_kind=t(prims["kind"], torch.int32),
+        prim_geom=t(prims["geom"], torch.int64),
+        prim_local=t(prims["local"], torch.int64),
+        prim_inst=t(prims["inst"], torch.int64),
+        prim_data=t(prims["data"], torch.int64),
+        prim_mask=t(prims["mask"], torch.int64),
+        prim_t0=t(prims["t0"], torch.float32),
+        prim_t1=t(prims["t1"], torch.float32),
         packed=pk, kinds_present=tuple(int(k) for k in kinds_present),
-        robust=bool(robust),
+        robust=bool(robust), has_motion=bool(has_motion),
+        has_windows=bool(has_windows),
         **{k: t(v, torch.float32) for k, v in tab.items()})
 
 
@@ -410,18 +519,18 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
 
     arrays: ``bvh.node_lower``, ``bvh.node_upper``, ``bvh.node_child``,
     ``bvh.prim_order``, ``prim_kind``, ``prim_geom``, ``prim_local``,
-    ``prim_inst``, ``prim_data``, ``prim_mask``, ``packed.table`` (the
-    unified tile table), ``packed.pid_map``, and the kind tables the scene
-    has (``tri_v0`` .. ``line_rR``, the names of CommittedScene; missing
-    ones are empty). flags: ``gn``, ``has_mask``, ``tri_attrs``,
-    ``has_kinds``, ``kind_classes``, ``kinds_present``, ``robust``, and the
-    scene flags the port refuses when set (``has_motion``, ``compact``,
-    ``filters``). ``packed.table`` is re-laid into the port's records; the
-    record contents are unchanged, so both packages traverse the same
-    records."""
+    ``prim_inst``, ``prim_data``, ``prim_mask``, ``prim_t0``, ``prim_t1``
+    (missing: [0, 1]), ``packed.table`` (the unified tile table),
+    ``packed.pid_map``, and the kind tables the scene has (``tri_v0`` ..
+    ``line_rRb``, the names of CommittedScene; missing ones are empty).
+    flags: ``gn``, ``has_mask``, ``tri_attrs``, ``has_kinds``,
+    ``kind_classes``, ``kinds_present``, ``robust``, ``has_motion`` and
+    ``has_windows`` (the JAX package's packed ``has_motion``/``has_win``
+    equal them), and the scene flags the port refuses when set
+    (``compact``, ``filters``). ``packed.table`` is re-laid into the port's
+    records; the record contents are unchanged, so both packages traverse
+    the same records."""
     dev = resolve_device(device)
-    if flags.get("has_motion"):
-        _refuse("motion blur")
     if flags.get("compact"):
         _refuse("compact scenes")
     if flags.get("filters"):
@@ -429,26 +538,31 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     kinds_present = tuple(flags.get("kinds_present", (KIND_TRIANGLE,)))
     if not set(kinds_present) <= set(PACKED_KINDS):
         _refuse(f"kinds {sorted(set(kinds_present) - set(PACKED_KINDS))}")
+    has_windows = bool(flags.get("has_windows", False))
+    has_motion = bool(flags.get("has_motion", False)) or has_windows
     packed = pack_mod.from_table(
         arrays["packed.table"], arrays["packed.pid_map"], int(flags["gn"]),
         bool(flags["has_mask"]), bool(flags["tri_attrs"]), "cpu",
         has_kinds=bool(flags.get("has_kinds", False)),
-        kind_classes=tuple(flags.get("kind_classes", (KIND_TRIANGLE,))))
+        kind_classes=tuple(flags.get("kind_classes", (KIND_TRIANGLE,))),
+        has_motion=has_motion, has_win=has_windows)
     bvh_np = {k: arrays["bvh." + k] for k in
               ("node_lower", "node_upper", "node_child", "prim_order")}
     tab = {k: (np.asarray(arrays[k], np.float32) if k in arrays else
                np.zeros((0,) + shape, np.float32))
            for k, shape in _TABLES.items()}
-    pk = dict(nodes=packed.nodes.numpy(), leaves=packed.leaves.numpy(),
-              pid_map=packed.pid_map.numpy(), has_mask=packed.has_mask,
-              tri_attrs=packed.tri_attrs, has_kinds=packed.has_kinds,
-              kind_classes=packed.kind_classes)
-    return _to_device(
-        bvh_np, arrays["prim_kind"], arrays["prim_geom"].astype(np.int64),
-        arrays["prim_local"].astype(np.int64),
-        arrays["prim_inst"].astype(np.int64), arrays["prim_data"],
-        arrays["prim_mask"].astype(np.int64), tab, pk, kinds_present,
-        bool(flags.get("robust", False)), dev)
+    T = arrays["prim_kind"].shape[0]
+    prims = dict(kind=arrays["prim_kind"], geom=arrays["prim_geom"],
+                 local=arrays["prim_local"], inst=arrays["prim_inst"],
+                 data=arrays["prim_data"], mask=arrays["prim_mask"],
+                 t0=arrays.get("prim_t0", np.zeros(T, np.float32)),
+                 t1=arrays.get("prim_t1", np.ones(T, np.float32)))
+    prims = {k: np.asarray(v).astype(np.float32 if k in ("t0", "t1")
+                                     else np.int64)
+             for k, v in prims.items()}
+    return _to_device(bvh_np, prims, tab, packed, kinds_present,
+                      bool(flags.get("robust", False)), has_motion,
+                      has_windows, dev)
 
 
 # =====================================================================
@@ -467,7 +581,7 @@ def _select(scene: CommittedScene, flat: RayBatch, occlusion: bool):
     """Run traversal, return best_prim (merged-table index, -1 = miss)."""
     _, best = traverse_packed(scene.packed, flat.org, flat.dir, flat.tnear,
                               flat.tfar, flat.mask, occlusion=occlusion,
-                              robust=scene.robust)
+                              robust=scene.robust, time=flat.time)
     return best
 
 
@@ -480,9 +594,10 @@ def intersect(scene: CommittedScene, rays: RayBatch,
     gradient through the structure); t/u/v/Ng are then recomputed in
     differentiable torch ops by re-intersecting it.
 
-    differentiable=False: on pure-triangle scenes the kernel emits the exact
-    t/u/v/Ng itself (the fast path; no gradient flows through the returned
-    hit); other scenes re-intersect the winning primitive as above.
+    differentiable=False: on pure-triangle scenes, moving or not, the
+    kernel emits the exact t/u/v/Ng itself (the fast path; no gradient flows
+    through the returned hit); other scenes re-intersect the winning
+    primitive as above.
     """
     shape, flat = _flat(scene, rays)
     if not differentiable and scene.packed.tri_attrs:
@@ -493,7 +608,7 @@ def intersect(scene: CommittedScene, rays: RayBatch,
                 id_tables=(scene.prim_local, scene.prim_geom)
                 + tuple(scene.prim_inst[:, j]
                         for j in range(scene.prim_inst.shape[1])),
-                robust=scene.robust)
+                robust=scene.robust, time=flat.time)
             found = best >= 0
             inv = torch.tensor(INVALID_ID, dtype=torch.int64,
                                device=t_k.device)
@@ -520,20 +635,36 @@ def occluded(scene: CommittedScene, rays: RayBatch) -> torch.Tensor:
     return (best >= 0).reshape(shape)
 
 
-def _kind_test(scene: CommittedScene, k: int, didx, org, dir, tnear, tfar):
-    """Closed-form intersect of prims of kind k with table rows ``didx``
-    (scene.py:1310-1386). Returns (hit, t, u, v, ng)."""
+def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
+               tfar):
+    """Closed-form intersect of prims of kind k with table rows ``didx`` at
+    lerp weight ``time`` (scene.py:1310-1386). Returns (hit, t, u, v, ng).
+
+    Moving scenes lerp the tables as a * (1 - w) + b * w, vertex by vertex,
+    as the JAX package's re-intersection does; the kernel lerps its fields
+    (v0, e1, e2 for triangles) as a + w * (b - a), so the two agree to the
+    last bits only (ROADMAP C)."""
     def rows(*names):
         n = getattr(scene, names[0]).shape[0]
         i = didx.clamp(0, max(n - 1, 0))
         return [getattr(scene, nm)[i] for nm in names]
 
+    def lerp(*names):
+        out = []
+        for a, b in zip(rows(*names), rows(*(nm + "b" for nm in names))):
+            if scene.has_motion:
+                w = time.reshape(time.shape + (1,) * (a.ndim - didx.ndim))
+                a = a * (1 - w) + b * w
+            out.append(a)
+        return out
+
     if k == KIND_TRIANGLE:
         # robust scenes use the watertight Plücker test
         fn = intersect_pluecker if scene.robust else intersect_moeller
-        return fn(org, dir, *rows("tri_v0", "tri_v1", "tri_v2"), tnear, tfar)
+        return fn(org, dir, *lerp("tri_v0", "tri_v1", "tri_v2"), tnear, tfar)
     if k == KIND_QUAD:
-        q, m = rows("quad_v", "quad_uvm")
+        (q,) = lerp("quad_v")
+        (m,) = rows("quad_uvm")
         hit, t, u, v, ng = intersect_quad(org, dir, q[..., 0, :],
                                           q[..., 1, :], q[..., 2, :],
                                           q[..., 3, :], tnear, tfar)
@@ -541,7 +672,7 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, tnear, tfar):
         return (hit, t, m[..., 0] + u * m[..., 2] + v * m[..., 4],
                 m[..., 1] + u * m[..., 3] + v * m[..., 5], ng)
     if k in (KIND_SPHERE, KIND_DISC, KIND_ORIENTED_DISC):
-        c, r, n = rows("pnt_c", "pnt_r", "pnt_n")
+        c, r, n = lerp("pnt_c", "pnt_r", "pnt_n")
         if k == KIND_SPHERE:
             return point_ops.intersect_sphere(org, dir, c, r, tnear, tfar)
         if k == KIND_DISC:
@@ -550,7 +681,7 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, tnear, tfar):
                                                  tfar)
     # u is the segment parameter: each segment spans u 0..1 (the JAX
     # package's curve-global u0/u1 differ only for linearized curves)
-    p0, r0, p1, r1 = rows("line_p0", "line_r0", "line_p1", "line_r1")
+    p0, r0, p1, r1 = lerp("line_p0", "line_r0", "line_p1", "line_r1")
     if k == KIND_ROUND_LINE:
         # the kernel's round line: begin-cap flag, no neighbor clip (the
         # packed record has no neighbor fields). The JAX package applies
@@ -565,15 +696,31 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, tnear, tfar):
                                         tfar)
 
 
-def _kinds_select(scene, kind, didx, org, dir, tnear, tfar):
-    """Each ray's (hit, t, u, v, ng) from the test of its prim's kind."""
+def _local_time(scene: CommittedScene, prim, time):
+    """The lerp weight of each prim's window at the ray time, and whether
+    the time lies in the window (scene.py:1494-1502, the MSMBlur itime
+    analog). ``prim`` may have more dimensions than ``time``."""
+    if not scene.has_windows:
+        return time, None
+    t0 = scene.prim_t0[prim]
+    t1 = scene.prim_t1[prim]
+    w = ((time - t0) / torch.clamp(t1 - t0, min=1e-9)).clamp(0.0, 1.0)
+    return w, (time >= t0) & (time <= t1)
+
+
+def _kinds_select(scene, prim, org, dir, time, tnear, tfar):
+    """Each ray's (hit, t, u, v, ng) from the test of its prim's kind, hits
+    outside the prim's time window rejected."""
+    kind = scene.prim_kind[prim]
+    didx = scene.prim_data[prim]
+    w, in_win = _local_time(scene, prim, time)
     hit = torch.zeros(tnear.shape, dtype=torch.bool, device=tnear.device)
     t = torch.full_like(tnear, math.inf)
     u = torch.zeros_like(tnear)
     v = torch.zeros_like(tnear)
     ng = torch.zeros(tnear.shape + (3,), device=tnear.device)
     for k in scene.kinds_present:
-        hk, tk, uk, vk, ngk = _kind_test(scene, k, didx, org, dir, tnear,
+        hk, tk, uk, vk, ngk = _kind_test(scene, k, didx, org, dir, w, tnear,
                                          tfar)
         sel = kind == k
         hit = torch.where(sel, hk, hit)
@@ -581,6 +728,8 @@ def _kinds_select(scene, kind, didx, org, dir, tnear, tfar):
         u = torch.where(sel, uk, u)
         v = torch.where(sel, vk, v)
         ng = torch.where(sel[..., None], ngk, ng)
+    if in_win is not None:
+        hit = hit & in_win
     return hit, t, u, v, ng
 
 
@@ -599,9 +748,8 @@ def _reconstruct_hits(scene: CommittedScene, rays: RayBatch,
     # (the nearest root >= tnear is unique for the fixed winning prim)
     wide_near = rays.tnear - 1e-4 * rays.tnear.abs() - 1e-5
     wide_far = torch.full_like(rays.tfar, math.inf)
-    _, t, u, v, ng = _kinds_select(scene, scene.prim_kind[prim],
-                                   scene.prim_data[prim], rays.org, rays.dir,
-                                   wide_near, wide_far)
+    _, t, u, v, ng = _kinds_select(scene, prim, rays.org, rays.dir,
+                                   rays.time, wide_near, wide_far)
     miss = make_miss_hits(rays.shape, device=rays.device)
     hit = HitBatch(t=t, u=u, v=v, ng=ng,
                    prim_id=scene.prim_local[prim],
@@ -625,9 +773,8 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
         for p0 in range(0, T, chunk):
             prims = torch.arange(p0, min(p0 + chunk, T), device=dev)
             hit, t, _, _, _ = _kinds_select(
-                scene, scene.prim_kind[prims][None],
-                scene.prim_data[prims][None], flat.org[:, None],
-                flat.dir[:, None], flat.tnear[:, None], t_far[:, None])
+                scene, prims[None], flat.org[:, None], flat.dir[:, None],
+                flat.time[:, None], flat.tnear[:, None], t_far[:, None])
             hit = hit & ((flat.mask[:, None] & scene.prim_mask[prims][None])
                          != 0)
             tm = torch.where(hit, t, math.inf)

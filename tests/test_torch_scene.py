@@ -223,9 +223,10 @@ def _tri():
             np.array([[0, 1, 2]], np.int32))
 
 
-@pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width", "motion",
-                                  "filter", "compact", "high", "refit",
-                                  "two_level", "from_arrays_motion"])
+@pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width",
+                                  "moving_instance", "filter", "compact",
+                                  "high", "refit", "two_level",
+                                  "from_arrays_motion_curve"])
 def test_refused_scenes(case):
     v, i = _tri()
     kw = {}
@@ -248,8 +249,14 @@ def test_refused_scenes(case):
         s.attach(pt.LineSegmentsGeometry(
             np.array([[0, 1, 0, 1.0], [0, 2, 0, 1.0], [0, 2.8, 0, 0.1]],
                      np.float32), np.array([0, 1], np.int32), kind="round"))
-    elif case == "motion":
-        s.attach(pt.TriangleGeometry(np.stack([v, v + 1]), i))
+    elif case == "moving_instance":
+        # tests/test_geometries.py:252: a (2, 3, 4) transform lerped by time
+        child = et.Scene()
+        child.attach(et.TriangleGeometry(v, i))
+        xf = np.zeros((2, 3, 4), np.float32)
+        xf[:, :, :3] = np.eye(3)
+        xf[1, 0, 3] = 2.0
+        s.attach(et.InstanceGeometry(child, xf))
     elif case == "filter":
         s.attach(pt.TriangleGeometry(v, i, filter=lambda *a: True))
     else:
@@ -257,8 +264,10 @@ def test_refused_scenes(case):
     with pytest.raises(NotImplementedError):
         if case == "two_level":
             s.commit(device="cpu", two_level=True)
-        elif case == "from_arrays_motion":
-            pt.from_arrays({}, {"has_motion": True}, "cpu")
+        elif case == "from_arrays_motion_curve":
+            # a moving scene is carried across, but not one with curves
+            pt.from_arrays({}, {"has_motion": True, "has_windows": True,
+                                "kinds_present": (0, 8)}, "cpu")
         else:
             s.commit(device="cpu")
 
