@@ -4,8 +4,9 @@ Drives the port's main path through its public entry points and holds the
 Hopper traversal kernel against its plain PyTorch version:
 
 1. the card: name and power limit from nvidia-smi;
-2. build the kernel (nvcc, sm_90a) and the native BVH builder (g++) from the
-   sources in this checkout, one compiler process each, in parallel;
+2. build the kernel's two sources (nvcc, sm_90a) and the native BVH builder
+   (g++) from the sources in this checkout, one compiler process each, in
+   parallel;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, first 65,536 rays,
    everything bit-equal, no stack overflow;
@@ -43,9 +44,20 @@ Hopper traversal kernel against its plain PyTorch version:
 11. time-sliced motion at full size: sphere_mesh(512, 1024) over 4 time
    steps, accelerating along x by 0.25 in all, 3,145,728 windowed prims,
    the same rays and checks;
-12. the kernels line, then the result line.
+12. kernel vs plain version for flat curves (B7): the scene of
+   tests/test_pallas_kernel.py:175-193 scaled up to 4,096 flat Bezier and
+   B-spline curves, its backdrop triangle and 32 tessellated round strands
+   (512 round segments, B5) at 65,536 rays: as is, masked, robust, robust +
+   masked, moving over 2 steps (the same four) and over 3 steps (windows);
+   every curve instantiation bit-equal, class-8 hits;
+13. the hair cell at full size: 131,072 B-spline strands of 11 control
+   points on a unit sphere (1,048,576 flat native curves, rate 4), 16,777,216
+   rays through both intersect modes and occluded; brute force on a few
+   rays, kernel vs plain version on a 262,144-ray prefix, commit, table,
+   steps and times;
+14. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-11) and read just
+Launch counts are zeroed just before each driven path (4-13) and read just
 after; a variant the path uses that was never launched fails the run. Any
 failed check raises, and the script then exits non-zero without a result
 line. It refuses to run without a CUDA device.
@@ -84,6 +96,23 @@ ROBUST_NODE_OPS = NODE_OPS + 8 * 6   # the six slab scalings
 # 28, oriented disc 33, round line 192, flat line 88; tag 1 never occurs
 SLOT_OPS = {0: 55, 2: 37, 3: 28, 4: 33, 5: 192, 6: 88}
 PLUECKER_OPS = 92
+
+
+def curve_slot_ops(rate):
+    """B7, one ribbon slot at ``rate`` segments, counted from
+    csrc/traverse.cuh (leaf_ribbon): CPs into the ray frame 72 (per CP 3
+    sub + 3 dot products of 5), the magnitude scan 33 (16 abs, 16 max, one
+    mul), per knot 61 (4 positions of 7, 3 derivatives of 9, small test 6)
+    over rate + 1 knots, per segment 118 (differences 2, selects 4, culling
+    11, two normal lengths 12, normals 6, quad corners 16, winding 6,
+    corner selects 9, edges 6, U/V 8, normal 9, reciprocal 4, t 6, range
+    tests 6, u 3, radius 4, self-intersection 3, take 3), key and min 2."""
+    return 72 + 33 + 61 * (rate + 1) + 118 * rate + 2
+
+
+# the curve frame, once per curve leaf visit (curve_frame: 3 square
+# roots, 3 divisions, 44 multiply/add/select)
+CURVE_FRAME_OPS = 50
 # B6, per leaf visit: the lerp a + w * (b - a) of 72 fields (3 each), and
 # with windows each slot's weight and window test (2 sub, max, div, max,
 # min, 2 compares, and: 9)
@@ -95,6 +124,7 @@ VARIANTS = (("closest_attrs", False, True), ("closest", False, False),
             ("occluded", True, False))
 KIND_VARIANTS = (("closest", False, False), ("occluded", True, False))
 SOURCE = "embree_tpu_torch/csrc/traverse.cu"
+CURVE_SOURCE = "embree_tpu_torch/csrc/traverse_curves.cu"
 DEV = "cuda"
 CHECK_MESH = (64, 128)       # the 16K-tri sphere (bench.py default)
 CHECK_RAYS = 1 << 20
@@ -107,18 +137,23 @@ KINDS_RAYS = 1 << 16
 MIXED_RAYS = 1 << 24
 MIXED_PRIMS = 1_574_400
 WATERTIGHT_RAYS = 1 << 20
-PLAIN_CHUNK = 1 << 21        # rays per plain-version call of the mixed cell
 PALLAS = "embree_tpu/accel/traverse_pallas.py"
 # the Pallas source each variant family replaces
 REPLACES = {"": f"{PALLAS}:108", "robust": f"{PALLAS}:469",
             "kinds": f"{PALLAS}:1048", "masked": f"{PALLAS}:1061",
-            "motion": f"{PALLAS}:502", "motion_win": f"{PALLAS}:1059"}
+            "motion": f"{PALLAS}:502", "motion_win": f"{PALLAS}:1059",
+            "curves": f"{PALLAS}:739"}
 MOTION_RAYS = 1 << 24
-MOTION_COMPARE = 1 << 20
+MOTION_COMPARE = 1 << 18     # rays of the plain version's prefix
 MOTION_SHIFT = 0.25          # a quarter of the unit sphere's radius, along x
 MSTEP_MESH = (512, 1024)     # 1,048,576 tris
 MSTEP_STEPS = 4              # Embree's msmblur scenes carry 3-4 steps
 MSTEP_PRIMS = 3 * 2 * MSTEP_MESH[0] * MSTEP_MESH[1]
+CURVE_CHECK = (2048, 512, 32)   # Bezier curves, B-spline and round strands
+HAIR_STRANDS = 1 << 17          # x 8 B-spline spans = 1,048,576 curves
+HAIR_CPS = 11
+HAIR_RAYS = 1 << 24
+HAIR_COMPARE = 1 << 18
 
 
 def say(*a):
@@ -179,11 +214,12 @@ def events_ms(fn, reps=5):
 
 
 def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
-            plain_ms=None):
+            plain=None):
     """Kernel vs plain version on the first n rays: every output bit-equal.
     Returns the max |difference| over t and attributes (0.0 when equal).
-    ``plain_ms``: a dict that gets the plain run's time (CUDA events) under
-    the variant's name."""
+    ``plain``: a dict that gets, under the variant's name, the plain run's
+    time (CUDA events, ``ms``), its slot tests by kind tag, its leaf visits
+    and its ray count ``n``, for ``time_variants``."""
     x = [t[:n].contiguous() for t in inputs]
     k = run_kernel(tr, packed, x, occlusion=occ, want_attrs=attrs,
                    robust=robust)
@@ -194,9 +230,10 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
                   robust=robust)
     a1.record()
     torch.cuda.synchronize()
-    if plain_ms is not None:
-        plain_ms[tr.packed_variant(packed, occ, attrs, robust)] = (
-            a0.elapsed_time(a1))
+    if plain is not None:
+        plain[tr.packed_variant(packed, occ, attrs, robust)] = dict(
+            ms=a0.elapsed_time(a1), slots=p.class_slots.double(),
+            leaf_visits=int(p.visits[1].sum(dtype=torch.int64)), n=n)
     check(int(k.overflow) == 0 and int(p.overflow) == 0,
           f"{label}: stack overflow")
     check(torch.equal(k.best, p.best), f"{label}: prim ids differ")
@@ -268,35 +305,30 @@ def phase_kernel_check(pt, tr, sphere_mesh, errs):
                 tr, cs.packed, inputs, CHECK_COMPARE, occ, attrs, label))
 
 
-def plain_run(tr, packed, inputs, occ, attrs, robust, chunk=None):
-    """The plain version over all rays (in chunks of ``chunk`` rays when
-    given, to bound its temporaries); returns (ms, slot tests by tag)."""
-    n = inputs[0].shape[0]
-    chunk = chunk or n
-    slots = torch.zeros(8, dtype=torch.int64, device=DEV)
+def plain_run(tr, packed, inputs, occ, attrs, robust):
+    """The plain version over all rays; returns (ms, slot tests by tag)."""
     a0 = torch.cuda.Event(enable_timing=True)
     a1 = torch.cuda.Event(enable_timing=True)
     a0.record()
-    for i in range(0, n, chunk):
-        p = run_plain(tr, packed, [x[i:i + chunk] for x in inputs],
-                      occlusion=occ, want_attrs=attrs, robust=robust)
-        slots += p.class_slots
-        del p
+    p = run_plain(tr, packed, inputs, occlusion=occ, want_attrs=attrs,
+                  robust=robust)
     a1.record()
     torch.cuda.synchronize()
+    slots = p.class_slots
+    del p
     torch.cuda.empty_cache()
     return a0.elapsed_time(a1), slots
 
 
 def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
-                  robust=False, suffix="", total_ms=None, chunk=None,
-                  plain_prefix=None):
+                  robust=False, total_ms=None, plain=None):
     """Kernel time (CUDA events, median of 5 after a warm-up), step counts,
     bound and plain-version time of each variant at the inputs' shape; the
     records go into ``record`` under the variant's launch-count name.
-    ``plain_prefix``: (n_rays, {name: ms}) plain times already taken on
-    the first n_rays (scenes whose plain run is too long for all rays);
-    the kernel's bound then needs no slot counts by class."""
+    ``plain``: the plain runs ``compare`` already made, by variant name;
+    where they saw a prefix of the rays (scenes whose plain run is too long
+    for all rays), their slot tests by kind tag are scaled to this run by
+    its leaf visits."""
     n_rays = inputs[0].shape[0]
     total_ms = total_ms or {}
     for base, o, a in variants:
@@ -315,26 +347,37 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         check(int(r.overflow) == 0, f"{name}: stack overflow")
         del res, r
         torch.cuda.empty_cache()
-        if plain_prefix is None:
+        if plain is None:
             plain_rays = n_rays
-            plain_ms, slots = plain_run(tr, packed, inputs, o, a, robust,
-                                        chunk)
+            plain_ms, slots = plain_run(tr, packed, inputs, o, a, robust)
         else:
-            check(not packed.has_kinds, "a prefix plain time needs no "
-                  "slot counts by class")
-            plain_rays, plain_ms = plain_prefix[0], plain_prefix[1][name]
-            slots = torch.zeros(8, dtype=torch.int64)
+            pl = plain[name]
+            plain_rays, plain_ms, slots = pl["n"], pl["ms"], pl["slots"]
+            if plain_rays != n_rays:
+                slots = slots * (leaf_v / max(pl["leaf_visits"], 1))
         out_bytes = 4 + 4 + 8 + (20 if a else 0)
         in_bytes = RAY_IN_BYTES + (TIME_BYTES if packed.has_motion else 0)
         nbytes = table_bytes + n_rays * (in_bytes + out_bytes)
         slot_ops = dict(SLOT_OPS)
         if robust:
             slot_ops[0] = PLUECKER_OPS
+        curves = tr.has_curves(packed)
+        if curves:
+            slot_ops[tr.KIND_CURVE_FLAT] = curve_slot_ops(packed.curve_rate)
         if packed.has_kinds:
-            leaf_ops = sum(int(slots[k]) * slot_ops[k] for k in slot_ops)
+            leaf_ops = sum(float(slots[k]) * slot_ops[k] for k in slot_ops)
         else:
             leaf_ops = leaf_v * 8 * slot_ops[0]
-        if packed.has_motion:
+        if curves:
+            leaf_ops += leaf_v * CURVE_FRAME_OPS
+        if packed.has_motion and curves:
+            # each slot lerps the fields its test reads (3 operations
+            # each) and, with windows, computes its weight
+            leaf_ops += sum(float(slots[k]) * (
+                3 * (16 if k == tr.KIND_CURVE_FLAT else 9)
+                + (WINDOW_LEAF_OPS // 8 if packed.has_win else 0))
+                for k in slot_ops)
+        elif packed.has_motion:
             leaf_ops += leaf_v * (MOTION_LEAF_OPS + (WINDOW_LEAF_OPS
                                                      if packed.has_win else 0))
         ops = node_v * (ROBUST_NODE_OPS if robust else NODE_OPS) + leaf_ops
@@ -347,7 +390,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    node_visits=node_v, leaf_visits=leaf_v,
-                   slot_tests={k: int(slots[k]) for k in slot_ops},
+                   slot_tests={k: int(float(slots[k])) for k in slot_ops},
                    n_rays=n_rays, plain_rays=plain_rays,
                    steps_per_ray=(node_v + leaf_v) / n_rays,
                    max_steps=max_steps,
@@ -810,9 +853,11 @@ def phase_mixed(pt, tr, errs, record):
         "within 1e-4")
     del hit, hd, occ, valid, hb, prim
     inputs = sorted_inputs(tr, rays)
+    plain = {}
     for name, o, a in KIND_VARIANTS:
         errs[f"{name}_kinds"] = max(errs.get(f"{name}_kinds", 0.0), compare(
-            tr, cs.packed, inputs, MAIN_COMPARE, o, a, f"{name}_kinds"))
+            tr, cs.packed, inputs, MAIN_COMPARE, o, a, f"{name}_kinds",
+            plain=plain))
     card = card_line()
     # entry point = select (wrapper + kernel) + _reconstruct_hits
     select = {}
@@ -830,9 +875,10 @@ def phase_mixed(pt, tr, errs, record):
     }
     diff_ms = events_ms(lambda: pt.intersect(cs, rays))
     del best, select
+    # the plain version timed on the compare prefix (on all 16M rays it
+    # took over two minutes of the run)
     time_variants(tr, cs.packed, inputs, KIND_VARIANTS, record,
-                  table_mb(cs.packed), card, total_ms=total_ms,
-                  chunk=PLAIN_CHUNK)
+                  table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
     rec = record["closest_kinds"]
     rec.update(select_ms=select_ms, reconstruct_ms=recon_ms,
                differentiable_entry_ms=diff_ms, commit_s=commit_s,
@@ -906,12 +952,11 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
         "within 1e-5")
     del hit, hd, occ, valid, hb
     inputs = sorted_inputs(tr, rays)
-    plain_ms = {}
+    plain = {}
     for base, o, a in VARIANTS:
         name = tr.packed_variant(cs.packed, o, a, False)
         errs[name] = max(errs.get(name, 0.0), compare(
-            tr, cs.packed, inputs, MOTION_COMPARE, o, a, name,
-            plain_ms=plain_ms))
+            tr, cs.packed, inputs, MOTION_COMPARE, o, a, name, plain=plain))
     card = card_line()
     total_ms = {
         "closest_attrs": events_ms(
@@ -923,8 +968,7 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
     # walk thousands of overlapping boxes: it is timed on the compare
     # prefix only
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
-                  table_mb(cs.packed), card, total_ms=total_ms,
-                  plain_prefix=(MOTION_COMPARE, plain_ms))
+                  table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
     for base, o, a in VARIANTS:
         record[tr.packed_variant(cs.packed, o, a, False)].update(
             commit_s=commit_s, table_mb=table_mb(cs.packed) / 1e6,
@@ -1031,18 +1075,242 @@ def phase_motion_check(pt, tr, sphere_mesh, errs, record):
     return launches
 
 
+def fat_curves(rng, n, step=0.15, r0=0.02, dr=0.002, wiggle=0.05):
+    """The curves of tests/test_pallas_kernel.py:175-193 at a smaller
+    scale: 4 Bezier CPs along a random direction from a point of [-1, 1]^3
+    with a sideways wiggle, radius r0 tapering by dr per CP. Returns the
+    vertices (4n, 4) and each curve's first-CP index."""
+    base = rng.uniform(-1, 1, (n, 1, 3))
+    d = rng.standard_normal((n, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    side = rng.standard_normal((n, 1, 3)) * wiggle
+    j = np.arange(4)[None, :, None]
+    xyz = base + d * step * j + side * (j % 2)
+    r = np.broadcast_to(r0 - dr * j, (n, 4, 1))
+    verts = np.concatenate([xyz, r], -1).reshape(-1, 4).astype(np.float32)
+    return verts, (4 * np.arange(n)).astype(np.int32)
+
+
+def strands(rng, n, n_cp, step, r0, r1, wiggle):
+    """n random-walk strands of n_cp control points from points of
+    [-1, 1]^3, radius r0 -> r1: the vertices and the first-CP index of each
+    of a strand's n_cp - 3 cubic spans."""
+    base = rng.uniform(-1, 1, (n, 1, 3))
+    d = rng.standard_normal((n, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    k = np.arange(n_cp)[None, :, None]
+    xyz = base + d * step * k + wiggle * rng.standard_normal((n, n_cp, 3))
+    r = np.broadcast_to(np.linspace(r0, r1, n_cp)[None, :, None],
+                        (n, n_cp, 1))
+    verts = np.concatenate([xyz, r], -1).reshape(-1, 4).astype(np.float32)
+    idx = (n_cp * np.arange(n))[:, None] + np.arange(n_cp - 3)[None]
+    return verts, idx.reshape(-1).astype(np.int32)
+
+
+def curve_check_scene(pt, masked=False, robust=False, steps=1):
+    """The scene of tests/test_pallas_kernel.py:175-193 scaled up (numpy
+    seed 4): 2,048 flat Bezier curves, 512 B-spline strands of 4 flat spans,
+    its backdrop triangle and 32 thin B-spline strands tessellated into
+    round segments; ``masked``: every second geometry has mask 0x2;
+    ``steps`` > 1: every geometry moves, over that many steps."""
+    rng = np.random.default_rng(4)
+    n_bez, n_bsp, n_round = CURVE_CHECK
+    cp, idx = fat_curves(rng, n_bez)
+    sv, si = strands(rng, n_bsp, 7, 0.1, 0.02, 0.01, 0.03)
+    rv, ri = strands(rng, n_round, 7, 0.1, 0.005, 0.003, 0.01)
+    tv = np.array([[-3, -3, -3], [3, -3, -3], [0, 3, -3]], np.float32)
+    geoms = [
+        pt.CurveGeometry(moving(cp, (0, 0, 0.1), steps), idx, basis="bezier",
+                         kind="flat"),
+        pt.CurveGeometry(moving(sv, (0.1, 0, 0), steps), si, basis="bspline",
+                         kind="flat"),
+        pt.CurveGeometry(moving(rv, (0, 0.1, 0), steps), ri, basis="bspline",
+                         kind="round", algorithm="tessellate"),
+        pt.TriangleGeometry(moving(tv, (0, 0, 0.2), steps),
+                            np.array([[0, 1, 2]], np.int32)),
+    ]
+    s = pt.Scene(robust=robust)
+    for k, g in enumerate(geoms):
+        if masked and k % 2:
+            g.mask = 0x2
+        s.attach(g)
+    return s
+
+
+def phase_curves_check(pt, tr, errs, record):
+    """Every curve instantiation (B7) against the plain version at 65,536
+    rays: static and 2-step x {as is, masked, robust, both}, and 3 steps
+    (windows)."""
+    say("phase 12: kernel vs plain version, flat curves (B7): 4,096 curves "
+        "+ a triangle + 512 tessellated round segments, static, 2-step "
+        "and 3-step, 65,536 rays")
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    time = ray_times(KINDS_RAYS)
+    rmask = np.random.default_rng(1).choice(np.array([1, 2, 3], np.uint32),
+                                            KINDS_RAYS)
+    card = card_line()
+    configs = [(m, r, st) for st in (1, 2)
+               for m, r in ((False, False), (True, False), (False, True),
+                            (True, True))] + [(False, False, 3)]
+    launches = {}
+    for masked, robust, steps in configs:
+        cs = curve_check_scene(pt, masked, robust, steps).commit(device=DEV)
+        p = cs.packed
+        check(tr.has_curves(p) and p.nf == 16 and p.kind_classes == (0, 5, 8)
+              and cs.has_motion == (steps > 1) and p.has_win == (steps > 2)
+              and p.has_mask == masked, "wrong curve check scene flags")
+        rays = pt.make_rays(org, d, time=time if steps > 1 else 0.0,
+                            mask=rmask if masked else 0xFFFFFFFF, device=DEV)
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays)
+        hk = pt.intersect(cs, rays, differentiable=False)
+        occ = pt.occluded(cs, rays)
+        torch.cuda.synchronize()
+        got = dict(tr.LAUNCHES)
+        launches.update(got)
+        check(torch.equal(occ, hit.valid) and torch.equal(hk.valid, hit.valid),
+              "curves: the entry points disagree")
+        by_geom = torch.bincount(hit.geom_id[hit.valid], minlength=4).tolist()
+        check(by_geom[0] > 0 and by_geom[1] > 0, "curves: no class-8 hits")
+        inputs = sorted_inputs(tr, rays)
+        plain = {}
+        for base, o, a in KIND_VARIANTS:
+            name = tr.packed_variant(p, o, a, robust)
+            check(got.get(name, 0) > 0, f"{name} was not launched")
+            errs[name] = max(errs.get(name, 0.0), compare(
+                tr, p, inputs, KINDS_RAYS, o, a, name, robust, plain=plain))
+        say(f"  hits by geometry (Bezier, B-spline, round strands, "
+            f"triangle): {by_geom}")
+        # the static as-is variants are timed in the hair cell
+        if masked or robust or steps > 1:
+            time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p),
+                          card, robust=robust, plain=plain)
+    say(f"  launches on the curve check paths: {launches}")
+    return launches
+
+
+def hair_scene(pt):
+    """Embree's hair_geometry tutorial at full size: 131,072 strands of 11
+    B-spline CPs (8 spans each: 1,048,576 flat native curves, rate 4)
+    rooted on the unit sphere with hair()'s layout (numpy seed 1), radius
+    0.004 -> 0.002."""
+    verts, _ = hair(np.random.default_rng(1), (0, 0, 0), HAIR_STRANDS,
+                    n_seg=HAIR_CPS - 1)
+    idx = ((HAIR_CPS * np.arange(HAIR_STRANDS))[:, None]
+           + np.arange(HAIR_CPS - 3)[None]).reshape(-1).astype(np.int32)
+    s = pt.Scene()
+    s.attach(pt.CurveGeometry(verts, idx, basis="bspline", kind="flat"))
+    return s
+
+
+def phase_hair(pt, tr, errs, record):
+    say("phase 13: hair cell, 1,048,576 flat B-spline curves, 16,777,216 "
+        "rays")
+    from embree_tpu_torch.accel.traverse import traverse_packed
+    from embree_tpu_torch.scene import _reconstruct_hits
+    n_curves = HAIR_STRANDS * (HAIR_CPS - 3)
+    cs, commit_s = commit_timed(hair_scene(pt), "hair")
+    p = cs.packed
+    check(cs.num_prims == n_curves and p.kind_classes == (8,)
+          and p.nf == 16 and p.curve_rate == 4, "not the hair cell")
+    org, d = incoherent_rays(HAIR_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  launches on the hair path: {launches}")
+    for base, o, a in KIND_VARIANTS:
+        name = tr.packed_variant(p, o, a, False)
+        check(launches.get(name, 0) > 0, f"the hair path did not launch "
+              f"{name}")
+    valid = hit.valid
+    frac = valid.double().mean().item()
+    check(torch.equal(occ, valid) and torch.equal(hd.valid, valid),
+          "hair: the entry points disagree")
+    check(frac > 0.01, "hair: too few hits")
+    check(bool(torch.isfinite(hit.t[valid]).all())
+          and bool(torch.isfinite(hit.ng[valid]).all()), "hair: non-finite")
+    # u along the curve, v across the ribbon (the quad's unclamped
+    # barycentrics: a few ulps past their range at its edges)
+    u, v = hit.u[valid], hit.v[valid]
+    say(f"  u in [{u.min().item():.7f}, {u.max().item():.7f}], v in "
+        f"[{v.min().item():.7f}, {v.max().item():.7f}]")
+    check(bool((u >= -1e-4).all()) and bool((u <= 1 + 1e-4).all())
+          and bool((v.abs() <= 1 + 1e-4).all()), "hair: u/v out of range")
+    del u, v
+    check(bool((hit.t[~valid] == math.inf).all()), "miss t is not inf")
+    say(f"  intersect: {int(valid.sum())} of {HAIR_RAYS} rays hit "
+        f"({frac:.4f}); both intersect modes and occluded agree")
+    sub = pt.RayBatch(*(getattr(rays, f)[:64] for f in
+                        ("org", "dir", "tnear", "tfar", "time", "mask")))
+    hb = pt.intersect_brute(cs, sub, chunk=1 << 13)
+    check(torch.equal(hb.valid, valid[:64]), "brute force: masks differ")
+    m = hb.valid
+    check(torch.allclose(hb.t[m], hit.t[:64][m], rtol=1e-4),
+          "brute force: t differs")
+    say(f"  brute force on 64 rays: masks equal ({int(m.sum())} hits), t "
+        "within 1e-4")
+    del hit, hd, occ, valid, hb
+    torch.cuda.empty_cache()
+    inputs = sorted_inputs(tr, rays)
+    plain = {}
+    for base, o, a in KIND_VARIANTS:
+        name = tr.packed_variant(p, o, a, False)
+        errs[name] = max(errs.get(name, 0.0), compare(
+            tr, p, inputs, HAIR_COMPARE, o, a, name, plain=plain))
+    card = card_line()
+    flat = rays.reshape(HAIR_RAYS)
+    select = {}
+
+    def sel():
+        select["b"] = traverse_packed(p, flat.org, flat.dir, flat.tnear,
+                                      flat.tfar, flat.mask)[1]
+    select_ms = events_ms(sel)
+    best = select["b"]
+    recon_ms = events_ms(lambda: _reconstruct_hits(cs, flat, best))
+    total_ms = {
+        "closest": events_ms(
+            lambda: pt.intersect(cs, rays, differentiable=False)),
+        "occluded": events_ms(lambda: pt.occluded(cs, rays)),
+    }
+    diff_ms = events_ms(lambda: pt.intersect(cs, rays))
+    del best, select
+    torch.cuda.empty_cache()
+    time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p), card,
+                  total_ms=total_ms, plain=plain)
+    rec = record[tr.packed_variant(p, False, False, False)]
+    rec.update(select_ms=select_ms, reconstruct_ms=recon_ms,
+               differentiable_entry_ms=diff_ms, commit_s=commit_s,
+               table_mb=table_mb(p) / 1e6, hit_fraction=frac,
+               n_leaves=p.leaves.shape[0], n_nodes=p.nodes.shape[0],
+               wrapper_ms=select_ms - rec["ms"])
+    say(f"  intersect(differentiable=False) {total_ms['closest']:.3f} ms, "
+        f"intersect() {diff_ms:.3f} ms: select {select_ms:.3f} ms (kernel "
+        f"{rec['ms']:.3f} + wrapper {rec['wrapper_ms']:.3f}), "
+        f"_reconstruct_hits {recon_ms:.3f} ms [{card}]")
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        " GB")
+    return launches
+
+
 def kernel_entries(record, launches, errs):
     """One entry of the kernels line per timed variant."""
     kernels = []
     for name, rec in record.items():
-        family = ("motion_win" if "motion_win" in name else
+        family = ("curves" if "curves" in name else
+                  "motion_win" if "motion_win" in name else
                   "motion" if "motion" in name else
                   "kinds" if "kinds" in name else
                   "robust" if "robust" in name else
                   "masked" if "masked" in name else "")
         check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
         kernels.append({
-            "name": f"traverse_{name}", "route": "cuda", "source": SOURCE,
+            "name": f"traverse_{name}", "route": "cuda",
+            "source": CURVE_SOURCE if family == "curves" else SOURCE,
             "replaces": REPLACES[family], "launches": launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -1068,9 +1336,11 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     say("phase 2: build")
-    secs = _build.build_all(["traverse_cuda", "bvh_builder"])
+    kernels = ["traverse_cuda", "traverse_curves_cuda"]
+    secs = _build.build_all(kernels + ["bvh_builder"])
     say(f"  built in {secs:.2f} s")
-    for line in _build.BUILD_LOGS.get("traverse_cuda", "").splitlines():
+    ptxas = "".join(_build.BUILD_LOGS.get(k, "") for k in kernels)
+    for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())
 
@@ -1085,13 +1355,15 @@ def main():
     launches.update(phase_motion_check(pt, tr, sphere_mesh, errs, record))
     launches.update(phase_motion(pt, tr, sphere_mesh, errs, record))
     launches.update(phase_multistep(pt, tr, sphere_mesh, errs, record))
+    launches.update(phase_curves_check(pt, tr, errs, record))
+    launches.update(phase_hair(pt, tr, errs, record))
 
     kernels = kernel_entries(record, launches, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
                    "launches": launches,
-                   "ptxas": _build.BUILD_LOGS.get("traverse_cuda", "")}, f,
+                   "ptxas": ptxas}, f,
                   indent=1)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

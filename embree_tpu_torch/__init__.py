@@ -7,8 +7,10 @@ Hopper (``csrc/``, built at first use by ``_build.py``). Module names mirror
 unless the caller passes ``device="cpu"``; on the CPU every kernel is replaced
 by its plain PyTorch version.
 
-The port covers static scenes of triangles, quads, points (sphere, disc,
-oriented disc) and line segments (round, flat), in normal and robust mode:
+The port covers scenes of triangles, quads, points (sphere, disc, oriented
+disc), line segments (round, flat) and cubic curves (flat native ribbons of
+every basis; tessellated curves as line segments), static or moving, in
+normal and robust mode:
 Scene -> commit (native BVH8 build + record packing) -> intersect /
 occluded -> HitBatch, and the viewer.
 
@@ -16,13 +18,14 @@ The package imports torch and numpy, never jax, and nothing of embree_tpu.
 """
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, make_rays, select_hits)
-from .geometry import (GeometryBase, LineSegmentsGeometry, PointGeometry,
-                       QuadGeometry, TriangleGeometry)
+from .geometry import (CurveGeometry, GeometryBase, LineSegmentsGeometry,
+                       PointGeometry, QuadGeometry, TriangleGeometry)
 from .scene import (BuildQuality, CommittedScene, Scene, from_arrays,
                     intersect, intersect_brute, occluded)
 
 __all__ = [
-    "BuildQuality", "CommittedScene", "GeometryBase", "HitBatch",
+    "BuildQuality", "CommittedScene", "CurveGeometry", "GeometryBase",
+    "HitBatch",
     "INVALID_ID", "LineSegmentsGeometry", "MAX_INSTANCE_LEVELS",
     "PointGeometry", "QuadGeometry", "RayBatch", "Scene", "TriangleGeometry",
     "from_arrays", "intersect", "intersect_brute",

@@ -1,9 +1,11 @@
 """Build the port's native code at first use.
 
-Three shared libraries, each with a plain C interface loaded through ctypes:
+Four shared libraries, each with a plain C interface loaded through ctypes:
 
-- ``traverse_cuda``: the Hopper traversal kernel, ``csrc/traverse.cu``, built
-  with ``nvcc`` for ``sm_90a`` (only where a CUDA toolkit exists);
+- ``traverse_cuda`` and ``traverse_curves_cuda``: the Hopper traversal
+  kernel, ``csrc/traverse.cu`` (scenes without curves) and
+  ``csrc/traverse_curves.cu`` (scenes with flat curves), built with ``nvcc``
+  for ``sm_90a``, one process each (only where a CUDA toolkit exists);
 - ``bvh_builder``: the OpenMP binned-SAH BVH8 builder,
   ``native/bvh_builder.cpp``, built with ``g++``;
 - ``traverse_twin``: the kernel's per-ray logic (``csrc/traverse.cuh``)
@@ -53,15 +55,19 @@ class Target:
 
 def _targets() -> Dict[str, Target]:
     cuh = os.path.join(CSRC, "traverse.cuh")
+    launch = os.path.join(CSRC, "launch.cuh")
+    # --fmad=false: no a*b+c contraction, so t bits equal the plain PyTorch
+    # version's (and the JAX package's) separate mul and add
+    nvcc = (_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+            "-Xcompiler", "-fPIC")
     return {
-        # --fmad=false: no a*b+c contraction, so t bits equal the plain
-        # PyTorch version's (and the JAX package's) separate mul and add
         "traverse_cuda": Target(
             "libtraverse_cuda.so",
-            (os.path.join(CSRC, "traverse.cu"), cuh),
-            (_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-             "-shared", "-Xcompiler", "-fPIC")),
+            (os.path.join(CSRC, "traverse.cu"), launch, cuh), nvcc),
+        "traverse_curves_cuda": Target(
+            "libtraverse_curves_cuda.so",
+            (os.path.join(CSRC, "traverse_curves.cu"), launch, cuh), nvcc),
         # the same flags as the JAX package's copy of the builder, so both
         # build the same tree from the same bounds
         "bvh_builder": Target(

@@ -18,20 +18,25 @@ Node record (int32 x 32 = 128 B):
 
 Leaf record (int32 words), in the Pallas kernel's chunk order
 (traverse_pallas.py:123-127), each chunk 8 words (one per slot):
-  fields A (72) : word 8*k+s is field k of slot s as float32 bits; 9
-                  generic fields:
+  fields A (8*nf) : word 8*k+s is field k of slot s as float32 bits; nf = 9
+                  generic fields, or 16 when the scene holds native flat
+                  curves (JAX accel/pack.py:63-70, scene.py:1253-1256):
                   triangle / quad half : v0(3) e1(3) e2(3)
                   sphere / disc        : center(3) radius
                   oriented disc        : center(3) radius normal(3)
                   round / flat line    : p0(3) r0 p1(3) r1 begin-flag
-  fields B (72) : the same fields at the second time step (motion scenes)
+                  flat curve           : Bezier CP j at fields 4j..4j+3 =
+                                         x, y, z, r (16 fields)
+                  Fields a kind does not use are zero.
+  fields B (8*nf) : the same fields at the second time step (motion scenes)
   mask (8)      : geometry mask of each slot (scenes with a non-default mask)
   kind (8)      : kind tag of each slot (scenes with another class than
                   triangles; quads are two triangle slots tagged 0)
   t0, t1 (8+8)  : each slot's time window (time-sliced motion scenes);
                   padding slots get [0, 1]
 Padding slots are zero with tag 0: Möller's det == 0 there, so they never
-hit. Slot identity is implicit (8*leaf+slot), mapped back to the merged
+hit (and a curve-only scene has no class 0, so its padding is never
+tested). Slot identity is implicit (8*leaf+slot), mapped back to the merged
 prim table through ``pid_map`` (-1 for padding).
 
 Record 0 of ``nodes`` is the root.
@@ -48,8 +53,8 @@ from .bvh import INVALID_NODE, decode_leaf, is_leaf
 INVALID_REC = np.int32(0x40000000)  # empty child slot in packed records
 NODE_WORDS = 32
 LEAF_WIDTH = 8               # primitive slots per leaf record (== node width)
-N_FIELDS = 9
-LEAF_WORDS = N_FIELDS * LEAF_WIDTH
+N_FIELDS = 9                 # generic fields per slot
+CURVE_FIELDS = 16            # per slot when native flat curves are present
 
 
 @dataclasses.dataclass
@@ -64,16 +69,18 @@ class PackedScene:
     kind_classes: tuple = (0,)   # the kind tags that occur
     has_motion: bool = False  # leaf records carry the B-step fields
     has_win: bool = False    # leaf records carry per-slot [t0, t1] windows
+    nf: int = N_FIELDS       # fields per slot: 9, or 16 with flat curves
+    curve_rate: int = 4      # ribbon segments per curve in the kernel
 
     @property
     def leaf_words(self) -> int:
         return leaf_words(self.has_mask, self.has_kinds, self.has_motion,
-                          self.has_win)
+                          self.has_win, self.nf)
 
     def chunk_at(self, chunk: str) -> int:
         """First word of a leaf chunk: "mask", "kind" or "t0" (t1 follows
         it), in the chunk order of the module docstring."""
-        at = LEAF_WORDS * (2 if self.has_motion else 1)
+        at = self.nf * LEAF_WIDTH * (2 if self.has_motion else 1)
         for name, present in (("mask", self.has_mask),
                               ("kind", self.has_kinds)):
             if name == chunk:
@@ -83,10 +90,10 @@ class PackedScene:
 
 
 def leaf_words(has_mask: bool, has_kinds: bool, has_motion: bool = False,
-               has_win: bool = False) -> int:
+               has_win: bool = False, nf: int = N_FIELDS) -> int:
     """Words of one leaf record: the fields, then the optional chunks."""
-    return (LEAF_WORDS * (2 if has_motion else 1) + LEAF_WIDTH
-            * (int(has_mask) + int(has_kinds) + 2 * int(has_win)))
+    return LEAF_WIDTH * (nf * (2 if has_motion else 1) + int(has_mask)
+                         + int(has_kinds) + 2 * int(has_win))
 
 
 def _dfs_positions(child, n_wide):
@@ -150,9 +157,10 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
     slot_* arrays index slots: merged prim p owns slots p*slot_factor ..
     p*slot_factor+slot_factor-1 (factor 2 when quads are present, each quad
     being two triangle slots); slot_pid < 0 marks an unused slot.
-    slot_fields (S, 9) float32, slot_mask (S,) uint32, slot_pid (S,) int32,
-    slot_kind (S,) int32 or None (no kind chunk), slot_fields_b (S, 9) or
-    None (no B-step chunk), slot_t01 (S, 2) or None (no window chunks).
+    slot_fields (S, nf) float32 (nf = 9 or 16), slot_mask (S,) uint32,
+    slot_pid (S,) int32, slot_kind (S,) int32 or None (no kind chunk),
+    slot_fields_b (S, nf) or None (no B-step chunk), slot_t01 (S, 2) or None
+    (no window chunks).
     """
     W = 8
     leaf_prims = LEAF_WIDTH // slot_factor
@@ -205,13 +213,14 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
              + np.arange(slot_factor)[None, None, :]).reshape(-1, LEAF_WIDTH)
     valid = np.repeat(pvalid, slot_factor, axis=1)
     slot_fields = np.asarray(slot_fields, np.float32)
+    nf = slot_fields.shape[1]
     slots = np.clip(slots, 0, slot_fields.shape[0] - 1)
     pid = np.asarray(slot_pid)[slots]
     valid = valid & (pid >= 0)
 
     def field_words(sf):
         f = np.where(valid[..., None], np.asarray(sf, np.float32)[slots], 0.0)
-        return (f.transpose(0, 2, 1).reshape(-1, LEAF_WORDS)
+        return (f.transpose(0, 2, 1).reshape(-1, nf * LEAF_WIDTH)
                 .astype(np.float32).view(np.int32))
 
     cols = [field_words(slot_fields)]
@@ -240,7 +249,7 @@ def pack_arrays(node_child, node_lower, node_upper, prim_order, n_wide,
 
 def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
                has_kinds=False, kind_classes=(0,), has_motion=False,
-               has_win=False) -> PackedScene:
+               has_win=False, nf=N_FIELDS, curve_rate=4) -> PackedScene:
     """Re-lay the JAX package's unified tile table (GN+GL, rows, 128) int32
     into the port's records: record r of tile g is column r of that tile.
     Node tiles come first (their first 32 rows), then leaf tiles, whose
@@ -251,7 +260,7 @@ def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
     nodes = np.ascontiguousarray(recs[:gn * 128, :NODE_WORDS])
     leaves = np.ascontiguousarray(
         recs[gn * 128:, :leaf_words(has_mask, has_kinds, has_motion,
-                                    has_win)])
+                                    has_win, nf)])
     pid = np.asarray(pid_map, np.int64)
     return PackedScene(nodes=torch.from_numpy(nodes).to(device),
                        leaves=torch.from_numpy(leaves).to(device),
@@ -259,4 +268,5 @@ def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
                        has_mask=bool(has_mask), tri_attrs=bool(tri_attrs),
                        has_kinds=bool(has_kinds),
                        kind_classes=tuple(int(k) for k in kind_classes),
-                       has_motion=bool(has_motion), has_win=bool(has_win))
+                       has_motion=bool(has_motion), has_win=bool(has_win),
+                       nf=int(nf), curve_rate=int(curve_rate))

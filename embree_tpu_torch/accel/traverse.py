@@ -5,11 +5,13 @@ Port of embree_tpu/accel/traverse_pallas.py:1268-1555. ``traverse_packed``
 keeps the JAX wrapper's contract (coherence sort, launch, ``pid_map`` and
 id-table gathers, unsort) and returns the same values. Beneath it:
 
-- ``traverse_kernel`` launches ``csrc/traverse.cu`` on CUDA tensors. It is
-  the port of ``_kernel`` (traverse_pallas.py:108): the triangle
+- ``traverse_kernel`` launches ``csrc/traverse.cu`` (or, for scenes with
+  flat curves, ``csrc/traverse_curves.cu``) on CUDA tensors. It is the
+  port of ``_kernel`` (traverse_pallas.py:108): the triangle
   specialization (B1), robust mode (B2), per-slot kind tags (B3), points
-  (B4), lines (B5) and motion blur (B6: fields lerped by the ray time,
-  per-slot time windows); ``LAUNCHES`` counts its launches per variant.
+  (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
+  per-slot time windows) and flat curves (B7: the ribbon test on 16-field
+  Bezier slots); ``LAUNCHES`` counts its launches per variant.
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
@@ -34,22 +36,25 @@ import torch
 
 from .. import _build
 from ..core.math import morton_code, rcp_safe
-from .pack import INVALID_REC, LEAF_WIDTH, LEAF_WORDS, NODE_WORDS, PackedScene
+from ..geometry import KIND_CURVE_FLAT
+from .pack import INVALID_REC, LEAF_WIDTH, NODE_WORDS, PackedScene
 
 STACK = 64               # entries per ray (STACK_BLOCKS * 8, :65)
 MAX_STEPS = 200_000      # runaway guard (:77)
 INF_BITS = 0x7F800000
 SORT_MIN_RAYS = 128      # the JAX wrapper sorts only batches above one lane row
 
-# kind classes the mixed kernel serves (traverse_pallas.py:525-717); quads
-# ride as triangle slots (class 0)
-KERNEL_CLASSES = (0, 2, 3, 4, 5, 6)
+# kind classes the mixed kernel serves (traverse_pallas.py:525-857); quads
+# ride as triangle slots (class 0), class 8 is the flat curve
+KERNEL_CLASSES = (0, 2, 3, 4, 5, 6, KIND_CURVE_FLAT)
+N_TAGS = 16              # bins of the slot-test counts by kind tag
 # float32 constants of the leaf and slab tests, as the Pallas kernel
 # rounds them
 ROBUST_DOWN = float(np.float32(1.0 - 3.0 * 1.19209290e-07))
 ROBUST_UP = float(np.float32(1.0 + 3.0 * 1.19209290e-07))
 ULP1 = float(np.float32(1.19209290e-07))
 BIG = float(np.float32(3e38))
+RIBBON_EPS = float(np.float32(4.0 * 1.19209290e-07))   # :759
 
 # Kernel launches by variant, counted where the kernel is launched and
 # nowhere else (the smoke run zeroes them before a path and reads them
@@ -63,23 +68,60 @@ def reset_launch_counts() -> None:
 
 def variant_name(occlusion: bool, want_attrs: bool, robust: bool = False,
                  kinds: bool = False, masked: bool = False,
-                 motion: bool = False, windows: bool = False) -> str:
+                 motion: bool = False, windows: bool = False,
+                 curves: bool = False) -> str:
     """closest | closest_attrs | occluded, then _robust (B2), _kinds (the
-    mixed-class kernel, B3-B5), _motion (B6, fields lerped by ray time) or
-    _motion_win (B6 with per-slot time windows, a uniform branch of the
-    same instantiation), and _masked (per-slot mask chunk)."""
+    mixed-class kernel, B3-B5) or _curves (the mixed-class kernel with
+    16-field slots and the ribbon, B7), _motion (B6, fields lerped by ray
+    time) or _motion_win (B6 with per-slot time windows, a uniform branch of
+    the same instantiation), and _masked (per-slot mask chunk)."""
     name = ("occluded" if occlusion else
             "closest_attrs" if want_attrs else "closest")
-    return (name + ("_robust" if robust else "") + ("_kinds" if kinds else "")
+    return (name + ("_robust" if robust else "")
+            + ("_curves" if curves else "_kinds" if kinds else "")
             + ("_motion_win" if windows else "_motion" if motion else "")
             + ("_masked" if masked else ""))
+
+
+def has_curves(packed: PackedScene) -> bool:
+    return KIND_CURVE_FLAT in packed.kind_classes
 
 
 def packed_variant(packed: PackedScene, occlusion: bool, want_attrs: bool,
                    robust: bool) -> str:
     """The variant name of a launch on ``packed``."""
     return variant_name(occlusion, want_attrs, robust, packed.has_kinds,
-                        packed.has_mask, packed.has_motion, packed.has_win)
+                        packed.has_mask, packed.has_motion, packed.has_win,
+                        has_curves(packed))
+
+
+def ribbon_weights(rate: int) -> np.ndarray:
+    """(rate + 1, 7) float32: at knot k, the cubic Bernstein weights of
+    t = k / rate and the quadratic ones of its derivative, computed in
+    float64 as the Pallas kernel's Python does (``bezw``, ``bez2w``,
+    :730-737) and rounded to float32 where they meet the float32 planes."""
+    rows = []
+    for k in range(rate + 1):
+        t = k / rate
+        sm = 1.0 - t
+        rows.append((sm * sm * sm, 3 * sm * sm * t, 3 * sm * t * t,
+                     t * t * t, sm * sm, 2 * sm * t, t * t))
+    return np.asarray(rows, np.float64).astype(np.float32)
+
+
+_weights_cache: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _ribbon_weights_on(packed: PackedScene, device) -> Optional[torch.Tensor]:
+    """The ribbon weights of the scene's rate on ``device`` (None without
+    curves), made once per rate and device."""
+    if not has_curves(packed):
+        return None
+    key = (int(packed.curve_rate), str(device))
+    if key not in _weights_cache:
+        _weights_cache[key] = torch.from_numpy(
+            ribbon_weights(packed.curve_rate).reshape(-1)).to(device)
+    return _weights_cache[key]
 
 
 @dataclasses.dataclass
@@ -90,9 +132,9 @@ class TraceResult:
     visits: torch.Tensor          # (2, R) int32: node, leaf records visited
     attrs: Optional[torch.Tensor]  # (5, R) float32 u, v, Ng (want_attrs)
     overflow: torch.Tensor        # () int32: rays whose stack overflowed
-    # (8,) int64 slot tests by kind tag over all leaf visits, tags of the
-    # scene's classes only (the plain version counts them; the operation
-    # count of a bound needs them)
+    # (N_TAGS,) int64 slot tests by kind tag over all leaf visits, tags of
+    # the scene's classes only (the plain version counts them; the
+    # operation count of a bound needs them)
     class_slots: Optional[torch.Tensor] = None
 
 
@@ -167,6 +209,11 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
                              f"all in {KERNEL_CLASSES}")
     elif tuple(packed.kind_classes) != (0,):
         raise ValueError("a scene without kind tags holds triangles only")
+    if packed.nf != (16 if has_curves(packed) else 9):
+        raise ValueError(f"{packed.nf} fields per slot: curve scenes take "
+                         "16, others 9")
+    if has_curves(packed) and packed.curve_rate < 1:
+        raise ValueError(f"ribbon rate {packed.curve_rate} is below 1")
     if packed.nodes.shape[0] < 1 or packed.leaves.shape[0] < 1:
         raise ValueError("packed scene has no records")
 
@@ -186,7 +233,7 @@ def _ptr(x):
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
           ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
+         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
@@ -214,7 +261,9 @@ def _call_args(packed, org, dir, tnear, tfar, mask, time, outs, occlusion,
             _ptr(out_ovf), int(occlusion), int(want_attrs),
             int(packed.has_mask), int(robust), int(packed.has_kinds),
             sum(1 << k for k in packed.kind_classes),
-            int(packed.has_motion), int(packed.has_win)]
+            int(packed.has_motion), int(packed.has_win), int(packed.nf),
+            int(packed.curve_rate), _ptr(_ribbon_weights_on(packed,
+                                                            org.device))]
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +290,9 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     for name, x in (("nodes", packed.nodes), ("leaves", packed.leaves)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    launch = _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p])
+    launch = (_load("traverse_curves_cuda", "traverse_curves_launch",
+                    [ctypes.c_void_p]) if has_curves(packed) else
+              _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p]))
     outs = _outputs(org.shape[0], org.device, want_attrs)
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
@@ -318,8 +369,9 @@ def _where(c, a, b):
 
 
 # ---- leaf tests per kind class, over (n, 8) slots, in the Pallas kernel's
-# association order (traverse_pallas.py:525-717). o, d: 3-tuples of (n, 1)
-# ray components; tn, tf: (n, 1); f: the 9 generic fields, each (n, 8).
+# association order (traverse_pallas.py:525-857). o, d: 3-tuples of (n, 1)
+# ray components; tn, tf: (n, 1); f: the slot fields, each (n, 8) (the
+# first 9 for every class but the curve's 16).
 
 def _leaf_moeller(f, o, d, tn, tf):
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
@@ -535,10 +587,122 @@ def _leaf_flat_line(f, o, d, tn, tf):
     return ok, tl
 
 
-def _fields(rec, at):
-    """The 9 fields of a record's field block at word ``at``, each (n, 8)."""
-    fw = rec[:, at:at + LEAF_WORDS].contiguous().view(torch.float32)
-    return fw.reshape(-1, 9, 8).unbind(1)
+def curve_frame(d):
+    """B7: the per-ray curve frame of the unnormalized direction
+    (:197-221): rows vx, vy (3-tuples), vz * ds (3-tuple) and ds = 1 /
+    |d|, with 1 / sqrt, not rsqrt."""
+    dx, dy, dz = d
+    ds = 1.0 / _sqrt(_jmax(dx * dx + dy * dy + dz * dz, 1e-36))
+    nx, ny, nz = dx * ds, dy * ds, dz * ds
+    pick = (nz * nz + ny * ny) > (nz * nz + nx * nx)
+    fx0 = _where(pick, 0.0, -nz)
+    fx1 = _where(pick, nz, 0.0)
+    fx2 = _where(pick, -ny, nx)
+    fl = 1.0 / _sqrt(_jmax(fx0 * fx0 + fx1 * fx1 + fx2 * fx2, 1e-36))
+    fx0, fx1, fx2 = fx0 * fl, fx1 * fl, fx2 * fl
+    fy0 = ny * fx2 - nz * fx1
+    fy1 = nz * fx0 - nx * fx2
+    fy2 = nx * fx1 - ny * fx0
+    fyl = 1.0 / _sqrt(_jmax(fy0 * fy0 + fy1 * fy1 + fy2 * fy2, 1e-36))
+    return ((fx0, fx1, fx2), (fy0 * fyl, fy1 * fyl, fy2 * fyl),
+            (nx * ds, ny * ds, nz * ds), ds)
+
+
+def _leaf_ribbon(f, o, tn, tf, frame, weights):
+    """B7: the ribbon (:739-856) on 16-field Bezier slots (CP j at fields
+    4j..4j+3): CPs into the ray frame, ``len(weights) - 1`` ruled quads
+    between the +-r offset curves, backface-culled 2D quad tests, the
+    nearest accepted t of the slot; its hit is the OR of every accepted
+    segment. ``weights``: ``ribbon_weights`` rows as Python floats."""
+    (vx, vy, vz, ds) = frame
+    ox, oy, oz = o
+    c2x, c2y, c2z, cpr = [], [], [], []
+    for j in range(4):
+        rx = f[4 * j] - ox
+        ry = f[4 * j + 1] - oy
+        rz = f[4 * j + 2] - oz
+        c2x.append(rx * vx[0] + ry * vx[1] + rz * vx[2])
+        c2y.append(rx * vy[0] + ry * vy[1] + rz * vy[2])
+        c2z.append(rx * vz[0] + ry * vz[1] + rz * vz[2])
+        cpr.append(f[4 * j + 3])
+    amax = torch.zeros_like(c2x[0])
+    for j in range(4):
+        for c in (c2x[j], c2y[j], c2z[j], cpr[j]):
+            amax = _jmax(amax, c.abs())
+    eps = RIBBON_EPS * amax
+
+    def knot(k):
+        w0, w1, w2, w3, q0, q1, q2 = weights[k]
+
+        def pos(c):
+            return w0 * c[0] + w1 * c[1] + w2 * c[2] + w3 * c[3]
+
+        def der(c):
+            return 3.0 * (q0 * (c[1] - c[0]) + q1 * (c[2] - c[1])
+                          + q2 * (c[3] - c[2]))
+        dkx, dky, dkz = der(c2x), der(c2y), der(c2z)
+        small = _jmax(_jmax(dkx.abs(), dky.abs()), dkz.abs()) < eps
+        return pos(c2x), pos(c2y), pos(c2z), pos(cpr), dkx, dky, small
+
+    rib_t = torch.full_like(eps, float("inf"))
+    rib_hit = torch.zeros_like(eps, dtype=torch.bool)
+    px0, py0, pz0, pr0, dx0, dy0, sm0 = knot(0)
+    for i in range(len(weights) - 1):
+        px1, py1, pz1, pr1, dx1, dy1, sm1 = knot(i + 1)
+        sdx = px1 - px0
+        sdy = py1 - py0
+        d0x = torch.where(sm0, sdx, dx0)
+        d0y = torch.where(sm0, sdy, dy0)
+        d1x = torch.where(sm1, sdx, dx1)
+        d1y = torch.where(sm1, sdy, dy1)
+        # cylinder culling against the 2D origin (ribbon.h:66-71)
+        num = sdx * py0 - sdy * px0
+        den2 = sdx * sdx + sdy * sdy
+        rmax = _jmax(pr0, pr1)
+        vseg = num * num <= rmax * rmax * den2
+        n0l = 1.0 / _sqrt(_jmax(d0y * d0y + d0x * d0x, 1e-36))
+        n1l = 1.0 / _sqrt(_jmax(d1y * d1y + d1x * d1x, 1e-36))
+        n0x, n0y = d0y * n0l, -d0x * n0l
+        n1x, n1y = d1y * n1l, -d1x * n1l
+        # quad (lp0, lp1, up1, up0), backface-culled 2D variant
+        # (quad_intersector.h:15-74); z rides along for t
+        va = (px0 + pr0 * n0x, py0 + pr0 * n0y, pz0)
+        vb = (px1 + pr1 * n1x, py1 + pr1 * n1y, pz1)
+        vc = (px1 - pr1 * n1x, py1 - pr1 * n1y, pz1)
+        vd = (px0 - pr0 * n0x, py0 - pr0 * n0y, pz0)
+        edbx = vb[0] - vd[0]
+        edby = vb[1] - vd[1]
+        sel = vd[0] * edby - vd[1] * edbx <= 0.0
+        v0 = [torch.where(sel, a, c) for a, c in zip(va, vc)]
+        v1 = [torch.where(sel, b, d) for b, d in zip(vb, vd)]
+        v2 = [torch.where(sel, d, b) for b, d in zip(vb, vd)]
+        e0 = [b - a for a, b in zip(v0, v2)]
+        e1 = [a - b for a, b in zip(v0, v1)]
+        uq = v0[0] * e0[1] - v0[1] * e0[0]
+        vq = v1[0] * e1[1] - v1[1] * e1[0]
+        vseg = vseg & (_jmax(uq, vq) <= 0.0)
+        ngx = e1[1] * e0[2] - e1[2] * e0[1]
+        ngy = e1[2] * e0[0] - e1[0] * e0[2]
+        ngz = e1[0] * e0[1] - e1[1] * e0[0]
+        rden = _where(ngz != 0.0, 1.0 / _where(ngz == 0.0, 1.0, ngz), 0.0)
+        tq = rden * (v0[0] * ngx + v0[1] * ngy + v0[2] * ngz)
+        vseg = vseg & (tn <= tq) & (tq <= tf) & (ngz != 0.0)
+        uq = uq * rden
+        uq = torch.where(sel, uq, 1.0 - uq)
+        r_at = pr0 * (1.0 - uq) + pr1 * uq
+        # self-intersection avoidance (ribbon.h:117-120)
+        vseg = vseg & (tq > 2.0 * r_at * ds)
+        rib_t = torch.where(vseg & (tq < rib_t), tq, rib_t)
+        rib_hit = rib_hit | vseg
+        px0, py0, pz0, pr0, dx0, dy0, sm0 = px1, py1, pz1, pr1, dx1, dy1, sm1
+    return rib_hit, rib_t
+
+
+def _fields(rec, at, nf):
+    """The nf fields of a record's field block at word ``at``, each
+    (n, 8)."""
+    fw = rec[:, at:at + nf * LEAF_WIDTH].contiguous().view(torch.float32)
+    return fw.reshape(-1, nf, LEAF_WIDTH).unbind(1)
 
 
 def _chunk(rec, at):
@@ -553,7 +717,8 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
     a + w * (b - a), with w the ray time or, in windowed scenes, the
     clipped window-local time, and reject slots whose window misses the
     ray time (:502-520, :1059-1060)."""
-    f = _fields(rec, 0)
+    nf = packed.nf
+    f = _fields(rec, 0, nf)
     win_ok = None
     if packed.has_motion:
         w = time
@@ -563,25 +728,30 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
             t1 = _chunk(rec, at + LEAF_WIDTH).contiguous().view(torch.float32)
             w = _jmin(_jmax((time - t0) / _jmax(t1 - t0, 1e-9), 0.0), 1.0)
             win_ok = (time >= t0) & (time <= t1)
-        f = tuple(a + w * (b - a) for a, b in zip(f, _fields(rec, LEAF_WORDS)))
+        f = tuple(a + w * (b - a) for a, b in
+                  zip(f, _fields(rec, nf * LEAF_WIDTH, nf)))
     dx, dy, dz = d
     ddot = dx * dx + dy * dy + dz * dz
     results = []
     uv = None
+    f9 = f[:9]
     for k in packed.kind_classes:
         if k == 0:
             v, t, uv = (_leaf_pluecker if robust else _leaf_moeller)(
-                f, o, d, tn, tf)
+                f9, o, d, tn, tf)
         elif k == 2:
-            v, t = _leaf_sphere(f, o, d, tn, tf, ddot)
+            v, t = _leaf_sphere(f9, o, d, tn, tf, ddot)
         elif k == 3:
-            v, t = _leaf_disc(f, o, d, tn, tf)
+            v, t = _leaf_disc(f9, o, d, tn, tf)
         elif k == 4:
-            v, t = _leaf_oriented_disc(f, o, d, tn, tf)
+            v, t = _leaf_oriented_disc(f9, o, d, tn, tf)
         elif k == 5:
-            v, t = _leaf_round_line(f, o, d, tn, tf, ddot)
+            v, t = _leaf_round_line(f9, o, d, tn, tf, ddot)
+        elif k == 6:
+            v, t = _leaf_flat_line(f9, o, d, tn, tf)
         else:
-            v, t = _leaf_flat_line(f, o, d, tn, tf)
+            weights = ribbon_weights(packed.curve_rate).tolist()
+            v, t = _leaf_ribbon(f, o, tn, tf, curve_frame(d), weights)
         results.append((k, v, t))
     if not packed.has_kinds:
         _, valid, tt = results[0]
@@ -640,7 +810,7 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     cur = torch.zeros(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
-    class_slots = torch.zeros(8, dtype=torch.int64, device=dev)
+    class_slots = torch.zeros(N_TAGS, dtype=torch.int64, device=dev)
     live = tnear <= tfar
     if not packed.has_mask:
         # mask-free scenes fold the ray mask into activation (:1231-1235)
@@ -708,7 +878,8 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
                 (d[:, 0:1], d[:, 1:2], d[:, 2:3]), tnear[la, None],
                 tf[la, None], robust,
                 None if time is None else time[la, None])
-            class_slots.index_add_(0, tag.reshape(-1).long().clamp(0, 7),
+            class_slots.index_add_(0, tag.reshape(-1).long()
+                                   .clamp(0, N_TAGS - 1),
                                    torch.ones_like(tag.reshape(-1),
                                                    dtype=torch.int64))
             if packed.has_mask:
@@ -747,7 +918,7 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             live &= best < 0
         act = act[live[act]]
 
-    in_classes = torch.zeros(8, dtype=torch.bool, device=dev)
+    in_classes = torch.zeros(N_TAGS, dtype=torch.bool, device=dev)
     in_classes[list(packed.kind_classes)] = True
     return TraceResult(t=tf, best=best, visits=visits, attrs=attrs,
                        overflow=overflow.sum().to(torch.int32),

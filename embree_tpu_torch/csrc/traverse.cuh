@@ -6,35 +6,47 @@
 // +-3-ulp widened slabs, watertight Pluecker leaf, :469-479, :529-556),
 // per-slot kind tags with quads as two triangle slots (B3, :1048-1057),
 // points (B4: sphere, ray-facing disc, oriented disc, :582-621), lines (B5:
-// round cone-sphere with the begin-cap flag, flat ray-facing, :622-717) and
+// round cone-sphere with the begin-cap flag, flat ray-facing, :622-717),
 // motion blur (B6: every field lerped from step A to step B by the ray time,
 // or by the window-local time with per-slot [t0, t1] windows in time-sliced
-// scenes, :502-520, :1059-1060). Each ray walks the exact sequence of
-// records the Pallas kernel
-// gives its lane: the same bf16 slab test, the same sort keys (t bits with
-// the low 3 bits replaced by the slot), the same push order, the same strict
-// `t < tfar` acceptance, and every leaf expression in the Pallas kernel's
-// association order. The TPU kernel's fetch stalls and 16-group lockstep
-// only delay a lane, never change its result, so they have no counterpart
-// here. Where the Pallas kernel computes every class of a slot and selects
-// by tag, this code switches on the tag: selection never mixes classes, so
-// the result is the same.
+// scenes, :502-520, :1059-1060) and flat curves (B7: the ribbon on 16-field
+// slots holding 4 Bezier CPs as x, y, z, r, with the per-ray curve frame,
+// :719-856, :194-221). Each ray walks the exact sequence of records the
+// Pallas kernel gives its lane: the same bf16 slab test, the same sort keys
+// (t bits with the low 3 bits replaced by the slot), the same push order,
+// the same strict `t < tfar` acceptance, and every leaf expression in the
+// Pallas kernel's association order. The TPU kernel's fetch stalls and
+// 16-group lockstep only delay a lane, never change its result, so they
+// have no counterpart here. Where the Pallas kernel computes every class
+// of a slot and selects by tag, this code switches on the tag: selection
+// never mixes classes, so the result is the same.
 //
 // What bounds it on an H100: every step reads one record (128 B for a node,
-// 288 B for a leaf, twice that with motion, +32 B for each mask or kind
-// chunk, +64 B for the windows) through L2, dependent
-// on the step before; rays of one warp diverge in depth, in record kind and,
-// with kind tags, in primitive class (a round line costs ~150 operations, a
-// disc ~20). This design does nothing about either yet: one ray per thread,
+// 288 B for a leaf, 512 B with curves, twice that with motion, +32 B for
+// each mask or kind chunk, +64 B for the windows) through L2, dependent on
+// the step before; rays of one warp diverge in depth, in record kind and,
+// with kind tags, in primitive class (a round line costs ~190 operations, a
+// disc ~30). This design does nothing about either yet: one ray per thread,
 // a 64-entry stack in local memory, records read with 16-byte __ldg loads,
 // a switch per slot. It is the baseline that later designs (warp-cooperative
 // node tests, a treelet queue, shared-memory top levels, class-sorted leaf
 // work) are measured against.
 //
-// The file is compiled twice: by nvcc into the kernel (traverse.cu) and by
-// g++ into a CPU twin (traverse_cpu.cpp) that the tests hold against the
-// plain PyTorch version. Both builds forbid FMA contraction, and both take
-// 1/sqrt for the Pallas kernel's rsqrt, correctly rounded.
+// B7 is bound by operations, not bytes: a ribbon slot at rate 4 costs 884
+// operations, 16x a triangle's (curve_slot_ops in chip_smoke.py counts them
+// from this file). A curve leaf of 16-field slots (128 floats, 256 with motion)
+// cannot stay in registers next to the stack, so the CURVES variants read
+// each slot's words when its test runs (field k of slot s is word 8k+s:
+// 4-byte loads from one 512 B block), lerp them there, and evaluate the
+// ribbon's knots one at a time. The ray frame is computed at each curve
+// leaf visit. Nothing else is done about the bound yet; later designs can
+// take the ribbons of one warp together.
+//
+// The file is compiled by nvcc into the kernel (traverse.cu, and
+// traverse_curves.cu for the CURVES variants) and by g++ into a CPU twin
+// (traverse_cpu.cpp) that the tests hold against the plain PyTorch
+// version. Both builds forbid FMA contraction, and both take 1/sqrt for the
+// Pallas kernel's rsqrt, correctly rounded.
 #pragma once
 
 #include <stdint.h>
@@ -55,12 +67,17 @@ constexpr int32_t kInvalidRec = 0x40000000;
 constexpr int32_t kInfBits = 0x7F800000;
 constexpr int kNodeWords = 32;         // 8 child refs + 24 bf16 lo|hi words
 constexpr int kLeafFields = 72;        // 9 fields x 8 slots, field-major
+constexpr int kCurveFields = 16;       // per slot in curve scenes (B7)
+constexpr int kTagCurve = 8;           // KIND_CURVE_FLAT
+constexpr int kKnotWeights = 7;        // per ribbon knot: 4 cubic + 3 quadratic
 constexpr float kMinWindow = 1e-9f;    // the window-width floor (:511)
 // robust slab widening, rounded to float32 as the Pallas kernel does
 constexpr float kRobustDown = static_cast<float>(1.0 - 3.0 * 1.19209290e-07);
 constexpr float kRobustUp = static_cast<float>(1.0 + 3.0 * 1.19209290e-07);
 constexpr float kUlp1 = 1.19209290e-07f;
 constexpr float kBig = 3e38f;
+// the ribbon's small-derivative threshold factor (:759), rounded as Pallas
+constexpr float kRibbonEps = static_cast<float>(4.0 * 1.19209290e-07);
 
 struct Params {
   const int32_t* nodes;    // (n_nodes, 32)
@@ -82,6 +99,8 @@ struct Params {
   int32_t kind_classes;    // bit k set: kind tag k occurs (KINDS)
   const float* time;       // (R,) ray times (MOTION)
   int32_t has_win;         // records carry per-slot windows (MOTION)
+  int32_t curve_rate;      // ribbon segments per curve (CURVES)
+  const float* curve_w;    // (curve_rate + 1, 7) knot weights (CURVES)
 };
 
 struct I4 {
@@ -117,6 +136,23 @@ TRAV_HD I4 load4(const int32_t* p) {
   I4 v;
   memcpy(&v, p, 16);
   return v;
+#endif
+}
+
+// One 4-byte load (read-only path on the card).
+TRAV_HD int32_t load1(const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+TRAV_HD float load1f(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
 #endif
 }
 
@@ -403,8 +439,150 @@ TRAV_HD bool leaf_flat_line(const Slot& q, const Ray& r, float tf,
          (vx != 0.0f || vy != 0.0f || vz != 0.0f);
 }
 
+// ---- class 8, B7: the flat curve's ribbon (:739-856) ----
+
+// The per-ray curve frame (:197-221): rows vx, vy and vz * ds of the ray
+// space, and ds = 1 / |d|, from the unnormalized direction, with 1 / sqrt.
+struct CurveFrame {
+  float vx0, vx1, vx2, vy0, vy1, vy2, vz0, vz1, vz2, ds;
+};
+
+TRAV_HD CurveFrame curve_frame(float dx, float dy, float dz) {
+  const float ds = 1.0f / sqrtf(jmax(dx * dx + dy * dy + dz * dz, 1e-36f));
+  const float nx = dx * ds, ny = dy * ds, nz = dz * ds;
+  const bool pick = (nz * nz + ny * ny) > (nz * nz + nx * nx);
+  float fx0 = pick ? 0.0f : -nz;
+  float fx1 = pick ? nz : 0.0f;
+  float fx2 = pick ? -ny : nx;
+  const float fl = 1.0f / sqrtf(jmax(fx0 * fx0 + fx1 * fx1 + fx2 * fx2,
+                                     1e-36f));
+  fx0 = fx0 * fl;
+  fx1 = fx1 * fl;
+  fx2 = fx2 * fl;
+  const float fy0 = ny * fx2 - nz * fx1;
+  const float fy1 = nz * fx0 - nx * fx2;
+  const float fy2 = nx * fx1 - ny * fx0;
+  const float fyl = 1.0f / sqrtf(jmax(fy0 * fy0 + fy1 * fy1 + fy2 * fy2,
+                                      1e-36f));
+  return CurveFrame{fx0,       fx1,       fx2,       fy0 * fyl, fy1 * fyl,
+                    fy2 * fyl, nx * ds,   ny * ds,   nz * ds,   ds};
+}
+
+// One ribbon knot in ray space: position (x, y, z, r), the 2D derivative,
+// and whether the derivative is too small to give a direction.
+struct Knot {
+  float px, py, pz, pr, dx, dy;
+  bool small;
+};
+
+// The knot of weights w (4 cubic Bernstein weights, then 3 quadratic
+// ones), with every product kept (zero weights at the end knots too).
+TRAV_HD Knot ribbon_knot(const float* w, const float* cx, const float* cy,
+                         const float* cz, const float* cr, float eps) {
+  const float w0 = load1f(w), w1 = load1f(w + 1), w2 = load1f(w + 2),
+              w3 = load1f(w + 3);
+  const float q0 = load1f(w + 4), q1 = load1f(w + 5), q2 = load1f(w + 6);
+  Knot k;
+  k.px = w0 * cx[0] + w1 * cx[1] + w2 * cx[2] + w3 * cx[3];
+  k.py = w0 * cy[0] + w1 * cy[1] + w2 * cy[2] + w3 * cy[3];
+  k.pz = w0 * cz[0] + w1 * cz[1] + w2 * cz[2] + w3 * cz[3];
+  k.pr = w0 * cr[0] + w1 * cr[1] + w2 * cr[2] + w3 * cr[3];
+  k.dx = 3.0f * (q0 * (cx[1] - cx[0]) + q1 * (cx[2] - cx[1]) +
+                 q2 * (cx[3] - cx[2]));
+  k.dy = 3.0f * (q0 * (cy[1] - cy[0]) + q1 * (cy[2] - cy[1]) +
+                 q2 * (cy[3] - cy[2]));
+  const float dz = 3.0f * (q0 * (cz[1] - cz[0]) + q1 * (cz[2] - cz[1]) +
+                           q2 * (cz[3] - cz[2]));
+  k.small = jmax(jmax(fabsf(k.dx), fabsf(k.dy)), fabsf(dz)) < eps;
+  return k;
+}
+
+// The ribbon of one slot: cf holds its 16 fields (CP j at 4j..4j+3 = x, y,
+// z, r). CPs into the ray frame, `rate` ruled quads between the +-r offset
+// curves, knot i + 1 computed, segment i tested, knots shifted; each quad
+// a backface-culled 2D test with z riding along for t, rejected inside the
+// self-intersection distance. tt is the nearest accepted t (strictly
+// nearer, in segment order); the slot hits when any segment is accepted.
+TRAV_HD bool leaf_ribbon(const float* cf, const Ray& r, const CurveFrame& fr,
+                         float tf, int rate, const float* wt, float& tt) {
+  float cx[4], cy[4], cz[4], cr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float rx = cf[4 * j] - r.ox, ry = cf[4 * j + 1] - r.oy,
+                rz = cf[4 * j + 2] - r.oz;
+    cx[j] = rx * fr.vx0 + ry * fr.vx1 + rz * fr.vx2;
+    cy[j] = rx * fr.vy0 + ry * fr.vy1 + rz * fr.vy2;
+    cz[j] = rx * fr.vz0 + ry * fr.vz1 + rz * fr.vz2;
+    cr[j] = cf[4 * j + 3];
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    amax = jmax(amax, fabsf(cx[j]));
+    amax = jmax(amax, fabsf(cy[j]));
+    amax = jmax(amax, fabsf(cz[j]));
+    amax = jmax(amax, fabsf(cr[j]));
+  }
+  const float eps = kRibbonEps * amax;
+  float rib_t = as_float(kInfBits);
+  bool rib_hit = false;
+  Knot k0 = ribbon_knot(wt, cx, cy, cz, cr, eps);
+  for (int i = 0; i < rate; ++i) {
+    const Knot k1 =
+        ribbon_knot(wt + kKnotWeights * (i + 1), cx, cy, cz, cr, eps);
+    const float sdx = k1.px - k0.px, sdy = k1.py - k0.py;
+    const float d0x = k0.small ? sdx : k0.dx, d0y = k0.small ? sdy : k0.dy;
+    const float d1x = k1.small ? sdx : k1.dx, d1y = k1.small ? sdy : k1.dy;
+    // cylinder culling against the 2D origin (ribbon.h:66-71)
+    const float num = sdx * k0.py - sdy * k0.px;
+    const float den2 = sdx * sdx + sdy * sdy;
+    const float rmax = jmax(k0.pr, k1.pr);
+    bool vseg = num * num <= rmax * rmax * den2;
+    const float n0l = 1.0f / sqrtf(jmax(d0y * d0y + d0x * d0x, 1e-36f));
+    const float n1l = 1.0f / sqrtf(jmax(d1y * d1y + d1x * d1x, 1e-36f));
+    const float n0x = d0y * n0l, n0y = -d0x * n0l;
+    const float n1x = d1y * n1l, n1y = -d1x * n1l;
+    // quad (lp0, lp1, up1, up0) (quad_intersector.h:15-74)
+    const float vax = k0.px + k0.pr * n0x, vay = k0.py + k0.pr * n0y;
+    const float vbx = k1.px + k1.pr * n1x, vby = k1.py + k1.pr * n1y;
+    const float vcx = k1.px - k1.pr * n1x, vcy = k1.py - k1.pr * n1y;
+    const float vdx = k0.px - k0.pr * n0x, vdy = k0.py - k0.pr * n0y;
+    const float edbx = vbx - vdx, edby = vby - vdy;
+    const bool sel = vdx * edby - vdy * edbx <= 0.0f;
+    const float v0x = sel ? vax : vcx, v0y = sel ? vay : vcy,
+                v0z = sel ? k0.pz : k1.pz;
+    const float v1x = sel ? vbx : vdx, v1y = sel ? vby : vdy,
+                v1z = sel ? k1.pz : k0.pz;
+    const float v2x = sel ? vdx : vbx, v2y = sel ? vdy : vby,
+                v2z = sel ? k0.pz : k1.pz;
+    const float e0x = v2x - v0x, e0y = v2y - v0y, e0z = v2z - v0z;
+    const float e1x = v0x - v1x, e1y = v0y - v1y, e1z = v0z - v1z;
+    const float uq = v0x * e0y - v0y * e0x;
+    const float vq = v1x * e1y - v1y * e1x;
+    vseg = vseg && jmax(uq, vq) <= 0.0f;
+    const float ngx = e1y * e0z - e1z * e0y;
+    const float ngy = e1z * e0x - e1x * e0z;
+    const float ngz = e1x * e0y - e1y * e0x;
+    const float rden = ngz != 0.0f ? 1.0f / (ngz == 0.0f ? 1.0f : ngz) : 0.0f;
+    const float tq = rden * (v0x * ngx + v0y * ngy + v0z * ngz);
+    vseg = vseg && r.tnear <= tq && tq <= tf && ngz != 0.0f;
+    const float us = uq * rden;
+    const float u = sel ? us : 1.0f - us;
+    const float r_at = k0.pr * (1.0f - u) + k1.pr * u;
+    // self-intersection avoidance (ribbon.h:117-120)
+    vseg = vseg && tq > 2.0f * r_at * fr.ds;
+    if (vseg && tq < rib_t) rib_t = tq;
+    rib_hit = rib_hit || vseg;
+    k0 = k1;
+  }
+  tt = rib_t;
+  return rib_hit;
+}
+
 // Slot test of one class by its tag (the mixed-class kernel). Tags outside
 // the scene's classes stay invalid, as an unmatched tag does in Pallas.
+// Curve slots (tag 8) never come here: their 16 fields take the CURVES
+// leaf below.
 template <bool ROBUST>
 TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
                          const Ray& r, float tf, float& tt) {
@@ -473,16 +651,80 @@ TRAV_HD void lerp_fields(const int32_t* rec, int win_at, bool has_win,
   }
 }
 
+// B7: the slots of one leaf of a curve scene (16-field slots), into the
+// leaf's best key. No slot's fields are held past its own test: each test
+// reads its slot's words (field k of slot s is word 8k+s), lerps them by
+// the slot's weight (MOTION), and runs the ribbon for a curve slot or its
+// class test on the first 9 fields for any other.
+template <bool HAS_MASK, bool ROBUST, bool MOTION>
+TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
+                        float tf, float rtime, int32_t rmask,
+                        int32_t& best_key, int32_t& best_tb) {
+  constexpr int kBlock = kCurveFields * 8;  // words of one field block
+  constexpr int mask_at = kBlock * (MOTION ? 2 : 1);
+  constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+  constexpr int win_at = kind_at + 8;
+  const CurveFrame fr = curve_frame(ray.dx, ray.dy, ray.dz);
+#pragma unroll 1
+  for (int s = 0; s < 8; ++s) {
+    const int32_t tag = load1(rec + kind_at + s);
+    float w = rtime;
+    bool win_ok = true;
+    if (MOTION && p.has_win) {
+      const float t0 = as_float(load1(rec + win_at + s));
+      const float t1 = as_float(load1(rec + win_at + 8 + s));
+      w = jmin(jmax((rtime - t0) / jmax(t1 - t0, kMinWindow), 0.0f), 1.0f);
+      win_ok = rtime >= t0 && rtime <= t1;
+    }
+    float tt;
+    bool valid;
+    if (tag == kTagCurve && ((p.kind_classes >> kTagCurve) & 1)) {
+      float cf[kCurveFields];
+#pragma unroll
+      for (int k = 0; k < kCurveFields; ++k) {
+        cf[k] = as_float(load1(rec + 8 * k + s));
+        if (MOTION) {
+          cf[k] = cf[k] + w * (as_float(load1(rec + kBlock + 8 * k + s)) -
+                               cf[k]);
+        }
+      }
+      valid = leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt);
+    } else {
+      float q[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        q[k] = as_float(load1(rec + 8 * k + s));
+        if (MOTION) {
+          q[k] = q[k] + w * (as_float(load1(rec + kBlock + 8 * k + s)) -
+                             q[k]);
+        }
+      }
+      const Slot sl{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8]};
+      valid = leaf_by_tag<ROBUST>(tag, p.kind_classes, sl, ray, tf, tt);
+    }
+    if (MOTION) valid = valid && win_ok;
+    if (HAS_MASK) valid = valid && (load1(rec + mask_at + s) & rmask) != 0;
+    const int32_t tb = as_int(jmax(tt, 0.0f));
+    const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
+    if (k < best_key) {
+      best_key = k;
+      best_tb = tb;
+    }
+  }
+}
+
 // Trace ray i. Returns true when its stack grew past kStack (must not
 // happen: the caller counts it).
 // ROBUST: B2 slabs and leaf. KINDS: per-slot kind tags after the mask words,
 // one class test per slot (B3-B5); without it every slot is a triangle.
 // MOTION: B6, the leaf fields lerped by the ray time (p.has_win: per-slot
 // windows, a uniform branch); the slot tests then read the lerped fields.
+// CURVES: B7, 16-field slots read slot by slot (curve_leaf); implies KINDS.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION>
+          bool KINDS, bool MOTION, bool CURVES>
 TRAV_HD bool trace_ray(const Params& p, int i) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
+  static_assert(!CURVES || KINDS, "curve scenes carry kind tags");
   const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   const float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
   const float rdx = rcp_safe(dx), rdy = rcp_safe(dy), rdz = rcp_safe(dz);
@@ -577,56 +819,82 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
       const int32_t* rec =
           p.leaves +
           static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
-      float f[kLeafFields];
-#pragma unroll
-      for (int q = 0; q < kLeafFields / 4; ++q) {
-        I4 v = load4(rec + 4 * q);
-        f[4 * q] = as_float(v.x);
-        f[4 * q + 1] = as_float(v.y);
-        f[4 * q + 2] = as_float(v.z);
-        f[4 * q + 3] = as_float(v.w);
-      }
-      bool win_ok[8];
-      if (MOTION) lerp_fields(rec, win_at, p.has_win != 0, rtime, f, win_ok);
-      int32_t smask[8];
-      if (HAS_MASK) {
-        I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
-        smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
-        smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
-      }
-      int32_t ktag[8];
-      if (KINDS) {
-        I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
-        ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
-        ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
-      }
       int32_t best_key = 0x7FFFFFFF, best_tb = 0;
       float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
+      if constexpr (CURVES) {
+        curve_leaf<HAS_MASK, ROBUST, MOTION>(p, rec, ray, tf, rtime, rmask,
+                                             best_key, best_tb);
+      } else {
+        float f[kLeafFields];
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        if (!KINDS && !ROBUST) {
-          // B1's slot body, kept as it was: written through leaf_moeller
-          // and Slot it computes the same bits but ptxas allocates up to
-          // 2 more registers, and the triangle variants must compile as
-          // before
-          const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
-          const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
-          const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
-          const float pvx = dy * e2z - dz * e2y;
-          const float pvy = dz * e2x - dx * e2z;
-          const float pvz = dx * e2y - dy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          const bool det_ok = fabsf(det) > 1e-24f;
-          const float inv_det = det_ok ? 1.0f / det : 0.0f;
-          const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-          const float qvx = tvy * e1z - tvz * e1y;
-          const float qvy = tvz * e1x - tvx * e1z;
-          const float qvz = tvx * e1y - tvy * e1x;
-          const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-          const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-          bool valid = det_ok && uu >= 0.0f && vv >= 0.0f &&
-                       uu + vv <= 1.0f && tt >= tnear && tt <= tf;
+        for (int q = 0; q < kLeafFields / 4; ++q) {
+          I4 v = load4(rec + 4 * q);
+          f[4 * q] = as_float(v.x);
+          f[4 * q + 1] = as_float(v.y);
+          f[4 * q + 2] = as_float(v.z);
+          f[4 * q + 3] = as_float(v.w);
+        }
+        bool win_ok[8];
+        if (MOTION) lerp_fields(rec, win_at, p.has_win != 0, rtime, f, win_ok);
+        int32_t smask[8];
+        if (HAS_MASK) {
+          I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
+          smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
+          smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
+        }
+        int32_t ktag[8];
+        if (KINDS) {
+          I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
+          ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
+          ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
+        }
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          if (!KINDS && !ROBUST) {
+            // B1's slot body, kept as it was: written through leaf_moeller
+            // and Slot it computes the same bits but ptxas allocates up to
+            // 2 more registers, and the triangle variants must compile as
+            // before
+            const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
+            const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
+            const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
+            const float pvx = dy * e2z - dz * e2y;
+            const float pvy = dz * e2x - dx * e2z;
+            const float pvz = dx * e2y - dy * e2x;
+            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+            const bool det_ok = fabsf(det) > 1e-24f;
+            const float inv_det = det_ok ? 1.0f / det : 0.0f;
+            const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+            const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+            const float qvx = tvy * e1z - tvz * e1y;
+            const float qvy = tvz * e1x - tvx * e1z;
+            const float qvz = tvx * e1y - tvy * e1x;
+            const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+            const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+            bool valid = det_ok && uu >= 0.0f && vv >= 0.0f &&
+                         uu + vv <= 1.0f && tt >= tnear && tt <= tf;
+            if (MOTION) valid = valid && win_ok[s];
+            if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
+            const int32_t tb = as_int(jmax(tt, 0.0f));
+            const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
+            if (k < best_key) {
+              best_key = k;
+              best_tb = tb;
+              if (WANT_ATTRS) {
+                b_u = uu;
+                b_v = vv;
+                b_nx = e1y * e2z - e1z * e2y;
+                b_ny = e1z * e2x - e1x * e2z;
+                b_nz = e1x * e2y - e1y * e2x;
+              }
+            }
+            continue;
+          }
+          const Slot q = slot_fields(f, s);
+          float tt, uu = 0.0f, vv = 0.0f;
+          bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
+                                                   ray, tf, tt)
+                             : leaf_pluecker(q, ray, tf, tt, uu, vv);
           if (MOTION) valid = valid && win_ok[s];
           if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
           const int32_t tb = as_int(jmax(tt, 0.0f));
@@ -637,31 +905,10 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
             if (WANT_ATTRS) {
               b_u = uu;
               b_v = vv;
-              b_nx = e1y * e2z - e1z * e2y;
-              b_ny = e1z * e2x - e1x * e2z;
-              b_nz = e1x * e2y - e1y * e2x;
+              b_nx = q.f4 * q.f8 - q.f5 * q.f7;
+              b_ny = q.f5 * q.f6 - q.f3 * q.f8;
+              b_nz = q.f3 * q.f7 - q.f4 * q.f6;
             }
-          }
-          continue;
-        }
-        const Slot q = slot_fields(f, s);
-        float tt, uu = 0.0f, vv = 0.0f;
-        bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
-                                                 ray, tf, tt)
-                           : leaf_pluecker(q, ray, tf, tt, uu, vv);
-        if (MOTION) valid = valid && win_ok[s];
-        if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
-        const int32_t tb = as_int(jmax(tt, 0.0f));
-        const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-        if (k < best_key) {
-          best_key = k;
-          best_tb = tb;
-          if (WANT_ATTRS) {
-            b_u = uu;
-            b_v = vv;
-            b_nx = q.f4 * q.f8 - q.f5 * q.f7;
-            b_ny = q.f5 * q.f6 - q.f3 * q.f8;
-            b_nz = q.f3 * q.f7 - q.f4 * q.f6;
           }
         }
       }

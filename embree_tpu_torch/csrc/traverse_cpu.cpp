@@ -12,36 +12,39 @@
 namespace {
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION>
+          bool KINDS, bool MOTION, bool CURVES>
 int run(const trav::Params& p) {
   int overflow = 0;
   for (int i = 0; i < p.n_rays; ++i) {
     overflow += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
-                                KINDS, MOTION>(p, i)
+                                KINDS, MOTION, CURVES>(p, i)
                     ? 1
                     : 0;
   }
   return overflow;
 }
 
-template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION>
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION,
+          bool CURVES>
 int run_flags(const trav::Params& p, int has_mask, int robust) {
+  constexpr bool O = OCCLUSION, A = WANT_ATTRS, K = KINDS, M = MOTION,
+                 C = CURVES;
   if (has_mask) {
-    return robust ? run<OCCLUSION, WANT_ATTRS, true, true, KINDS, MOTION>(p)
-                  : run<OCCLUSION, WANT_ATTRS, true, false, KINDS, MOTION>(p);
+    return robust ? run<O, A, true, true, K, M, C>(p)
+                  : run<O, A, true, false, K, M, C>(p);
   }
-  return robust ? run<OCCLUSION, WANT_ATTRS, false, true, KINDS, MOTION>(p)
-                : run<OCCLUSION, WANT_ATTRS, false, false, KINDS, MOTION>(p);
+  return robust ? run<O, A, false, true, K, M, C>(p)
+                : run<O, A, false, false, K, M, C>(p);
 }
 
-template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS>
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool CURVES = false>
 int run_motion(const trav::Params& p, int has_mask, int robust,
                int has_motion) {
   return has_motion
-             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true>(p, has_mask,
-                                                             robust)
-             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false>(p, has_mask,
-                                                              robust);
+             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES>(
+                   p, has_mask, robust)
+             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES>(
+                   p, has_mask, robust);
 }
 
 }  // namespace
@@ -58,18 +61,26 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              float* out_attr, int32_t* out_overflow,
                              int occlusion, int want_attrs, int has_mask,
                              int robust, int has_kinds, int kind_classes,
-                             int has_motion, int has_win) {
+                             int has_motion, int has_win, int nf,
+                             int curve_rate, const float* curve_w) {
+  const bool curves = (kind_classes >> trav::kTagCurve) & 1;
   if ((has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
-      (has_motion && time == nullptr)) {
+      (has_motion && time == nullptr) ||
+      nf != (curves ? trav::kCurveFields : 9) ||
+      (curves && (!has_kinds || curve_rate < 1 || curve_w == nullptr))) {
     return 1;
   }
   const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
                        org,    dir,      tnear,      tfar,     mask,
                        n_rays, out_t,    out_best,   out_visits, out_attr,
-                       kind_classes, time, has_win};
+                       kind_classes, time, has_win, curve_rate, curve_w};
   const int m = has_motion;
   int ovf;
-  if (has_kinds) {
+  if (curves) {
+    ovf = occlusion
+              ? run_motion<true, false, true, true>(p, has_mask, robust, m)
+              : run_motion<false, false, true, true>(p, has_mask, robust, m);
+  } else if (has_kinds) {
     ovf = occlusion ? run_motion<true, false, true>(p, has_mask, robust, m)
                     : run_motion<false, false, true>(p, has_mask, robust, m);
   } else if (occlusion) {

@@ -1,9 +1,10 @@
-"""Geometry types, the subset the port covers: triangles, quads, points and
-line segments, static or moving.
+"""Geometry types, the subset the port covers: triangles, quads, points, line
+segments and cubic curves, static or moving.
 
 Port of embree_tpu/geometry.py:24-35 (kind tags), :40-106 (time steps) and
-:109-185 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT
-and ROUND/FLAT_LINEAR_CURVE; role parity with kernels/common/scene_*.h).
+:109-222 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
+ROUND/FLAT_LINEAR_CURVE and the *_BEZIER/BSPLINE/HERMITE/CATMULL_ROM_CURVE
+types; role parity with kernels/common/scene_*.h).
 Buffers stay on the host (numpy or tensors); ``Scene.commit`` reads them.
 A buffer with a leading time axis, (S, n, C) with 2 <= S <= 129, declares
 S-step linear motion blur over the geometry's ``time_range``
@@ -17,6 +18,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
+
+from .ops.curve import BASIS_BEZIER, BASIS_LINEAR
 
 # primitive kind tags in the merged prim table (embree_tpu/geometry.py:24-35)
 KIND_TRIANGLE = 0
@@ -165,3 +168,36 @@ class LineSegmentsGeometry:
     @property
     def num_prims(self):
         return np.asarray(self.indices).shape[0]
+
+
+@dataclasses.dataclass
+class CurveGeometry:
+    """RTC_GEOMETRY_TYPE_*_{BEZIER,BSPLINE,HERMITE,CATMULL_ROM}_CURVE and
+    the linear basis.
+
+    algorithm="native" keeps one prim per curve (the reference's per-curve
+    intersectors: the ribbon for flat curves); algorithm="tessellate", or
+    the linear basis, lowers each curve into ``tessellation_rate`` line
+    segments at commit. tessellation_rate mirrors
+    rtcSetGeometryTessellationRate (reference default 4): the ribbon's
+    segment count and the tessellation's."""
+    vertices: object             # (n_cp, 4) xyz+radius, or (S, n_cp, 4)
+    indices: object              # (n_curves,) int first-control-point index
+    basis: str = BASIS_BEZIER
+    kind: str = "round"          # round | flat | oriented
+    tangents: Optional[object] = None  # (n_cp, 4) hermite tangents
+    normals: Optional[object] = None   # (n_cp, 3) oriented-curve normals
+    normal_derivatives: Optional[object] = None  # (n_cp, 3) hermite
+    tessellation_rate: int = 4
+    algorithm: str = "native"    # native | tessellate (| distance)
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    filter: Optional[FilterFn] = None
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        n = np.asarray(self.indices).shape[0]
+        if self.algorithm == "native" and self.basis != BASIS_LINEAR:
+            return n
+        return n * self.tessellation_rate

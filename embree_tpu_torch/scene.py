@@ -1,17 +1,24 @@
 """Scene: geometry container + commit (BVH build) + intersect/occluded queries.
 
-Port of embree_tpu/scene.py (:194-308 Scene, :323-579 merging, :878-1170
+Port of embree_tpu/scene.py (:194-308 Scene, :323-701 merging, :878-1170
 finalize, :1190-1286 packing and the native build route, :1310-1720
 queries), for scenes of the packed kinds, static or moving. Role parity
 with the reference runtime core (kernels/common/scene.{h,cpp}, query
 dispatch kernels/common/rtcore.cpp:599 rtcIntersect1):
 
 - ``Scene`` is the mutable host-side container of geometries.
-- ``Scene.commit(device=...)`` merges triangles, quads, points and line
-  segments, builds a BVH8 with the native builder (the JAX package's
+- ``Scene.commit(device=...)`` merges triangles, quads, points, line
+  segments and curves, builds a BVH8 with the native builder (the JAX
+  package's
   ``EMBREE_TPU_NATIVE_BUILD=1`` route, at every prim count), packs the
   records and returns a ``CommittedScene``: a dataclass of tensors on one
   device, CUDA unless the caller asks for the CPU.
+- Curves: native flat curves of every cubic basis are one prim per curve,
+  stored as world-space Bezier CPs, and the records widen to 16 fields per
+  slot (4 CPs x xyz+r); the kernel runs one ribbon rate per scene.
+  Tessellated curves (``algorithm="tessellate"`` or the linear basis)
+  become round or flat line segments whose prim id is the curve's and
+  whose u runs over the whole curve.
 - Motion blur: 2-step geometry carries A and B tables lerped by the ray's
   time; S-step geometry is split at its interior knots into one prim per
   linear segment with its own [t0, t1] window (time-sliced replication,
@@ -22,10 +29,11 @@ dispatch kernels/common/rtcore.cpp:599 rtcIntersect1):
   run its plain PyTorch version.
 
 What the port does not cover yet, commit refuses with NotImplementedError:
-curves, grids, subdivision, user geometry, instances and two-level scenes
-(so quaternion and transform motion), filters, min-width
-(``min_width_factor != 0``), fat round-line joints, compact scenes, HIGH
-and REFIT quality.
+native round, oriented and distance curves, flat curves of more than one
+tessellation rate, grids, subdivision, user geometry, instances and
+two-level scenes (so quaternion and transform motion), filters, min-width
+(``min_width_factor != 0``), fat round-line and tessellated-curve joints,
+compact scenes, HIGH and REFIT quality.
 """
 from __future__ import annotations
 
@@ -41,11 +49,13 @@ from .accel.bvh import BVH
 from .accel.traverse import traverse_packed
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, resolve_device, select_hits)
-from .geometry import (KIND_DISC, KIND_FLAT_LINE, KIND_ORIENTED_DISC,
-                       KIND_QUAD, KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE,
+from .geometry import (KIND_CURVE_FLAT, KIND_DISC, KIND_FLAT_LINE,
+                       KIND_ORIENTED_DISC, KIND_QUAD, KIND_ROUND_LINE,
+                       KIND_SPHERE, KIND_TRIANGLE, CurveGeometry,
                        LineSegmentsGeometry, PointGeometry, QuadGeometry,
                        TriangleGeometry, _split_timesteps, motion_knots)
 from .native import build_bvh8_native
+from .ops import curve as curve_ops
 from .ops import line as line_ops
 from .ops import point as point_ops
 from .ops.quad import intersect_quad
@@ -53,9 +63,13 @@ from .ops.triangle import intersect_moeller, intersect_pluecker
 
 # Static leaf block size for scene BVHs (TriangleM M=4 analog, triangle.h:14).
 LEAF_SIZE = 8
-# the kinds the packed kernel serves (scene.py:1172-1174 without curves)
+# the kinds the packed kernel serves (scene.py:1172-1174)
 PACKED_KINDS = (KIND_TRIANGLE, KIND_QUAD, KIND_SPHERE, KIND_DISC,
-                KIND_ORIENTED_DISC, KIND_ROUND_LINE, KIND_FLAT_LINE)
+                KIND_ORIENTED_DISC, KIND_ROUND_LINE, KIND_FLAT_LINE,
+                KIND_CURVE_FLAT)
+# the kernel's ribbon rate starts here and rises to the largest native
+# flat-curve rate of the scene (scene.py:349, :650-651)
+DEFAULT_CURVE_RATE = 4
 _POINT_KINDS = {"sphere": KIND_SPHERE, "disc": KIND_DISC,
                 "oriented_disc": KIND_ORIENTED_DISC}
 # per-kind tables of the merged scene: name -> trailing shape. A name
@@ -67,11 +81,12 @@ _TABLES = {"tri_v0": (3,), "tri_v1": (3,), "tri_v2": (3,),
            "pnt_c": (3,), "pnt_r": (), "pnt_n": (3,),
            "pnt_cb": (3,), "pnt_rb": (), "pnt_nb": (3,),
            "line_p0": (3,), "line_r0": (), "line_p1": (3,), "line_r1": (),
-           "line_fl": (),
+           "line_fl": (), "line_u0": (), "line_u1": (),
            "line_pL": (3,), "line_rL": (), "line_pR": (3,), "line_rR": (),
            "line_p0b": (3,), "line_r0b": (), "line_p1b": (3,),
            "line_r1b": (), "line_pLb": (3,), "line_rLb": (),
-           "line_pRb": (3,), "line_rRb": ()}
+           "line_pRb": (3,), "line_rRb": (),
+           "curve_cp": (4, 4), "curve_cpb": (4, 4)}
 
 
 class BuildQuality:
@@ -114,6 +129,8 @@ class CommittedScene:
     line_p1: torch.Tensor      # (Tl, 3) segment end
     line_r1: torch.Tensor      # (Tl,)
     line_fl: torch.Tensor      # (Tl,) 1 where a segment ends at our start
+    line_u0: torch.Tensor      # (Tl,) curve u at the segment's start (0
+    line_u1: torch.Tensor      # for segments) and at its end (1)
     line_pL: torch.Tensor      # (Tl, 3) left neighbor's start point
     line_rL: torch.Tensor      # (Tl,) its radius, < 0 when absent
     line_pR: torch.Tensor      # (Tl, 3) right neighbor's end point
@@ -126,11 +143,16 @@ class CommittedScene:
     line_rLb: torch.Tensor
     line_pRb: torch.Tensor
     line_rRb: torch.Tensor
+    curve_cp: torch.Tensor     # (Tc, 4, 4) world-space Bezier CPs, xyz+r
+    curve_cpb: torch.Tensor    # the same at the second time step
+    curve_prate: torch.Tensor  # (Tc,) int32 tessellation rate of each curve
     packed: pack_mod.PackedScene
     kinds_present: tuple = (KIND_TRIANGLE,)
     robust: bool = False       # RTC_SCENE_FLAG_ROBUST analog (B2)
     has_motion: bool = False   # B tables differ from A, or windows exist
     has_windows: bool = False  # some prim has a window other than [0, 1]
+    curve_rate: int = DEFAULT_CURVE_RATE   # the kernel's ribbon rate
+    curve_rates_present: tuple = (DEFAULT_CURVE_RATE,)  # rates of the curves
 
     @property
     def num_prims(self):
@@ -157,7 +179,9 @@ class _Merger:
     def __init__(self):
         self.rows = []          # (n, 5): kind, gid, local id, data, mask
         self.tab = {k: [] for k in _TABLES}
-        self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0}
+        self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0, "curve": 0}
+        self.prate = []         # per emit of native curves: (n,) rates
+        self.curve_rate = DEFAULT_CURVE_RATE
         self.windows = []       # (n, 2) per emit: [t0, t1]
         self.has_motion = False
         self._window = (0.0, 1.0)
@@ -197,7 +221,7 @@ class _Merger:
 
     def add(self, g, gid):
         if not isinstance(g, (TriangleGeometry, QuadGeometry, PointGeometry,
-                              LineSegmentsGeometry)):
+                              LineSegmentsGeometry, CurveGeometry)):
             _refuse(type(g).__name__)
         if g.filter is not None:
             _refuse("intersection filters")
@@ -211,7 +235,8 @@ class _Merger:
         self._trange = tr
         try:
             knots = motion_knots([getattr(g, a, None) for a in
-                                  ("vertices", "points", "normals")],
+                                  ("vertices", "points", "normals",
+                                   "tangents")],
                                  self._window, self._trange)
             if knots:
                 self._segmented(knots, lambda: self._add_window(g, gid))
@@ -248,6 +273,8 @@ class _Merger:
             self._emit(_POINT_KINDS[g.kind], gid, n, "pnt", g.mask)
             self._put(pnt_c=pa[:, :3], pnt_r=pa[:, 3], pnt_n=na,
                       pnt_cb=pb[:, :3], pnt_rb=pb[:, 3], pnt_nb=nb)
+        elif isinstance(g, CurveGeometry):
+            self._add_curves(g, gid)
         else:
             va, vb = self._steps(g.vertices, "vertices")
             idx = np.asarray(g.indices, np.int64)
@@ -283,7 +310,85 @@ class _Merger:
                              "line_pR" + sfx: v[ir, :3],
                              "line_rR" + sfx: np.where(has_right, v[ir, 3],
                                                        -1.0)})
-            self._put(line_fl=has_left.astype(np.float32))
+            self._put(line_fl=has_left, line_u0=np.zeros(n),
+                      line_u1=np.ones(n))
+
+    def _add_curves(self, g, gid):
+        """Native flat curves: one prim per curve, its world-space Bezier
+        CPs at both steps (hermite as p, tangent, p, tangent). Tessellated
+        curves (or the linear basis): ``tessellation_rate`` line segments
+        per curve, prim id = curve index, curve-global u, neighbor tables
+        within the curve (scene.py:581-701)."""
+        cps, cpsb = self._steps(g.vertices, "vertices")
+        idx = np.asarray(g.indices, np.int64)
+        if g.basis == curve_ops.BASIS_HERMITE:
+            tan, tanb = self._steps(g.tangents, "tangents")
+            cp = np.stack([cps[idx], tan[idx], cps[idx + 1], tan[idx + 1]], 1)
+            cpb = np.stack([cpsb[idx], tanb[idx], cpsb[idx + 1],
+                            tanb[idx + 1]], 1)
+        else:
+            gather = idx[:, None] + np.arange(4)[None, :]
+            cp, cpb = cps[gather], cpsb[gather]
+        if (g.algorithm in ("native", "distance")
+                and g.basis != curve_ops.BASIS_LINEAR):
+            if g.algorithm == "distance":
+                # the JAX package serves these with its generic engine
+                _refuse("distance curves (algorithm='distance')")
+            if g.kind in ("round", "oriented"):
+                _refuse(f"native {g.kind} curves")
+            n = cp.shape[0]
+            self._emit(KIND_CURVE_FLAT, gid, n, "curve", g.mask)
+            rate = int(g.tessellation_rate)
+            self.curve_rate = max(self.curve_rate, rate)
+            self.prate.append(np.full(n, rate, np.int32))
+            self._put(curve_cp=curve_ops.to_bezier(
+                          g.basis, torch.from_numpy(cp)).numpy(),
+                      curve_cpb=curve_ops.to_bezier(
+                          g.basis, torch.from_numpy(cpb)).numpy())
+            return
+        rate = int(g.tessellation_rate)
+        p0, r0, p1, r1, u0, u1 = (x.numpy() for x in
+                                  curve_ops.tessellate_segments(
+                                      g.basis, torch.from_numpy(cp), rate))
+        p0b, r0b, p1b, r1b, _, _ = (x.numpy() for x in
+                                    curve_ops.tessellate_segments(
+                                        g.basis, torch.from_numpy(cpb), rate))
+        kind = KIND_ROUND_LINE if g.kind == "round" else KIND_FLAT_LINE
+        n = p0.shape[0]
+        jj = np.arange(n)
+        has_left = (jj % rate) != 0
+        has_right = (jj % rate) != rate - 1
+        if kind == KIND_ROUND_LINE and n > 0:
+            # the JAX merger's fat-joint predicate as it stands (first step
+            # only, scene.py:668-673): it marks every segment of a curve of
+            # rate > 1, so the port refuses exactly the scenes the JAX
+            # package sends to its generic engine
+            seg_len = np.linalg.norm(p1 - p0, axis=-1)
+            rj = np.maximum(r0, r1)
+            if ((has_left | has_right) & (rj > 0.5 * seg_len)).any():
+                _refuse("fat tessellated round-curve joints (joint radius "
+                        "above half the segment length)")
+        self._emit(kind, gid, n, "line", g.mask)
+        self.rows[-1][:, 2] = np.repeat(np.arange(idx.shape[0]), rate)
+        for sfx, (a0, b0, a1, b1) in (("", (p0, r0, p1, r1)),
+                                      ("b", (p0b, r0b, p1b, r1b))):
+            self._put(**{"line_p0" + sfx: a0, "line_r0" + sfx: b0,
+                         "line_p1" + sfx: a1, "line_r1" + sfx: b1,
+                         "line_pL" + sfx: np.roll(a0, 1, axis=0),
+                         "line_rL" + sfx: np.where(has_left, np.roll(b0, 1),
+                                                   -1.0),
+                         "line_pR" + sfx: np.roll(a1, -1, axis=0),
+                         "line_rR" + sfx: np.where(has_right,
+                                                   np.roll(b1, -1), -1.0)})
+        self._put(line_fl=has_left, line_u0=u0, line_u1=u1)
+
+    def curve_rates(self):
+        """Each native curve's rate, and the distinct rates (scene.py:
+        902-904)."""
+        prate = (np.concatenate(self.prate) if self.prate
+                 else np.zeros(0, np.int32))
+        return prate, tuple(sorted({int(r) for r in prate})) or (
+            DEFAULT_CURVE_RATE,)
 
     def tables(self):
         return {k: (np.concatenate(v).reshape((-1,) + _TABLES[k]) if v else
@@ -340,10 +445,12 @@ class Scene:
                 m.add(g, gid)
         if not m.rows:
             raise ValueError("commit() on empty scene")
+        prate, rates = m.curve_rates()
         self.committed = _finalize(np.concatenate(m.rows), m.tables(),
                                    np.concatenate(m.windows), m.has_motion,
                                    self.threads, self.robust,
-                                   self.max_radius_scale, dev)
+                                   self.max_radius_scale, dev,
+                                   (prate, m.curve_rate, rates))
         return self.committed
 
 
@@ -370,6 +477,13 @@ def _bounds(kind, data, tab, mrs):
             rb = mrs * tab["pnt_rb"][d][:, None]
             a = np.minimum(ca - ra, cb - rb)
             b = np.maximum(ca + ra, cb + rb)
+        elif k == KIND_CURVE_FLAT:
+            # the Bezier hull of both steps dilated by the largest radius
+            cpx = np.concatenate([tab["curve_cp"][d], tab["curve_cpb"][d]],
+                                 axis=1)
+            rmax = mrs * cpx[..., 3].max(axis=1)[:, None]
+            a = cpx[..., :3].min(axis=1) - rmax
+            b = cpx[..., :3].max(axis=1) + rmax
         else:
             ends = [(tab[f"line_p{j}{s}"][d],
                      mrs * tab[f"line_r{j}{s}"][d][:, None])
@@ -390,12 +504,15 @@ def _slot_encoding(rows, tab, factor):
     """Per-slot generic fields of both time steps, kind tags and prim ids
     (scene.py:1190-1258): prim p owns slots factor*p .. factor*p+factor-1;
     a quad fills two triangle slots, every other prim the first. The line's
-    begin flag is the same in both steps."""
+    begin flag is the same in both steps. Slots are 9 fields wide, or 16
+    when the scene holds flat curves (Bezier CP j at fields 4j..4j+3)."""
     T = rows.shape[0]
     kind = rows[:, 0]
     data = rows[:, 3]
     S = T * factor
-    fields = np.zeros((2, S, 9), np.float32)
+    nf = (pack_mod.CURVE_FIELDS if KIND_CURVE_FLAT in kind
+          else pack_mod.N_FIELDS)
+    fields = np.zeros((2, S, nf), np.float32)
     skind = np.zeros(S, np.int32)
     spid = np.full(S, -1, np.int32)
     base = np.arange(T, dtype=np.int64) * factor
@@ -428,6 +545,8 @@ def _slot_encoding(rows, tab, factor):
             elif k == KIND_ORIENTED_DISC:
                 put(sel, 0, (tab["pnt_c" + b][d], tab["pnt_r" + b][d],
                              tab["pnt_n" + b][d]), k)
+            elif k == KIND_CURVE_FLAT:
+                put(sel, 0, (tab["curve_cp" + b][d],), k)
             else:
                 put(sel, 0, (tab["line_p0" + b][d], tab["line_r0" + b][d],
                              tab["line_p1" + b][d], tab["line_r1" + b][d],
@@ -436,14 +555,19 @@ def _slot_encoding(rows, tab, factor):
 
 
 def _finalize(rows, tab, windows, has_motion, threads, robust,
-              max_radius_scale, device):
+              max_radius_scale, device, curves):
     """Bounds, native BVH8 build and packing (scene.py:878-1066). The JAX
     package also builds strand-aligned leaf OBBs for hair scenes
     (:1077-1117); only its generic engine reads them, never the packed
-    kernel, so the port does not build them."""
+    kernel, so the port does not build them. ``curves``: (each native
+    curve's rate, the kernel's ribbon rate, the distinct rates)."""
     T = rows.shape[0]
     kind = rows[:, 0]
     kinds_present = tuple(sorted(int(k) for k in np.unique(kind)))
+    prate, curve_rate, rates = curves
+    if KIND_CURVE_FLAT in kinds_present and len(rates) > 1:
+        # the kernel runs one ribbon rate (scene.py:983-992)
+        _refuse(f"flat curves of more than one tessellation rate {rates}")
     # windowed prims ride the motion path even where both steps are equal
     # (scene.py:970-976)
     has_windows = bool((windows[:, 0] != 0.0).any()
@@ -471,19 +595,19 @@ def _finalize(rows, tab, windows, has_motion, threads, robust,
         nodes=nodes, leaves=leaves, pid_map=pid_map, has_mask=has_mask,
         tri_attrs=classes == (KIND_TRIANGLE,) and factor == 1,
         has_kinds=has_kinds, kind_classes=classes, has_motion=has_motion,
-        has_win=has_windows)
+        has_win=has_windows, nf=fields_a.shape[1], curve_rate=curve_rate)
     prims = dict(kind=kind, geom=rows[:, 1], local=rows[:, 2],
                  inst=np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64),
                  data=rows[:, 3], mask=rows[:, 4], t0=windows[:, 0],
                  t1=windows[:, 1])
     return _to_device(bvh_np, prims, tab, packed, kinds_present, robust,
-                      has_motion, has_windows, device)
+                      has_motion, has_windows, device, curves)
 
 
 def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
-               has_windows, device):
+               has_windows, device, curves):
     """The CommittedScene on ``device`` from host arrays; ``packed`` holds
-    numpy arrays or CPU tensors."""
+    numpy arrays or CPU tensors; ``curves`` as for ``_finalize``."""
     def t(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
@@ -506,9 +630,11 @@ def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
         prim_mask=t(prims["mask"], torch.int64),
         prim_t0=t(prims["t0"], torch.float32),
         prim_t1=t(prims["t1"], torch.float32),
+        curve_prate=t(curves[0], torch.int32),
         packed=pk, kinds_present=tuple(int(k) for k in kinds_present),
         robust=bool(robust), has_motion=bool(has_motion),
-        has_windows=bool(has_windows),
+        has_windows=bool(has_windows), curve_rate=int(curves[1]),
+        curve_rates_present=tuple(int(r) for r in curves[2]),
         **{k: t(v, torch.float32) for k, v in tab.items()})
 
 
@@ -521,15 +647,16 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     ``bvh.prim_order``, ``prim_kind``, ``prim_geom``, ``prim_local``,
     ``prim_inst``, ``prim_data``, ``prim_mask``, ``prim_t0``, ``prim_t1``
     (missing: [0, 1]), ``packed.table`` (the unified tile table),
-    ``packed.pid_map``, and the kind tables the scene has (``tri_v0`` ..
-    ``line_rRb``, the names of CommittedScene; missing ones are empty).
-    flags: ``gn``, ``has_mask``, ``tri_attrs``, ``has_kinds``,
-    ``kind_classes``, ``kinds_present``, ``robust``, ``has_motion`` and
-    ``has_windows`` (the JAX package's packed ``has_motion``/``has_win``
-    equal them), and the scene flags the port refuses when set
-    (``compact``, ``filters``). ``packed.table`` is re-laid into the port's
-    records; the record contents are unchanged, so both packages traverse
-    the same records."""
+    ``packed.pid_map``, the kind tables the scene has (``tri_v0`` ..
+    ``curve_cpb``, the names of CommittedScene; missing ones are empty) and
+    ``curve_prate``. flags: ``gn``, ``has_mask``, ``tri_attrs``,
+    ``has_kinds``, ``kind_classes``, ``kinds_present``, ``robust``,
+    ``has_motion`` and ``has_windows`` (the JAX package's packed
+    ``has_motion``/``has_win`` equal them), ``nf``, ``curve_rate`` and
+    ``curve_rates_present`` (curve scenes), and the scene flags the port
+    refuses when set (``compact``, ``filters``). ``packed.table`` is
+    re-laid into the port's records; the record contents are unchanged, so
+    both packages traverse the same records."""
     dev = resolve_device(device)
     if flags.get("compact"):
         _refuse("compact scenes")
@@ -538,6 +665,10 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     kinds_present = tuple(flags.get("kinds_present", (KIND_TRIANGLE,)))
     if not set(kinds_present) <= set(PACKED_KINDS):
         _refuse(f"kinds {sorted(set(kinds_present) - set(PACKED_KINDS))}")
+    curve_rate = int(flags.get("curve_rate", DEFAULT_CURVE_RATE))
+    rates = tuple(flags.get("curve_rates_present", (curve_rate,)))
+    if KIND_CURVE_FLAT in kinds_present and len(rates) > 1:
+        _refuse(f"flat curves of more than one tessellation rate {rates}")
     has_windows = bool(flags.get("has_windows", False))
     has_motion = bool(flags.get("has_motion", False)) or has_windows
     packed = pack_mod.from_table(
@@ -545,12 +676,16 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
         bool(flags["has_mask"]), bool(flags["tri_attrs"]), "cpu",
         has_kinds=bool(flags.get("has_kinds", False)),
         kind_classes=tuple(flags.get("kind_classes", (KIND_TRIANGLE,))),
-        has_motion=has_motion, has_win=has_windows)
+        has_motion=has_motion, has_win=has_windows,
+        nf=int(flags.get("nf", pack_mod.N_FIELDS)), curve_rate=curve_rate)
     bvh_np = {k: arrays["bvh." + k] for k in
               ("node_lower", "node_upper", "node_child", "prim_order")}
     tab = {k: (np.asarray(arrays[k], np.float32) if k in arrays else
                np.zeros((0,) + shape, np.float32))
            for k, shape in _TABLES.items()}
+    if "line_u0" not in arrays:          # segments: u spans 0..1
+        tab["line_u0"] = np.zeros_like(tab["line_r0"])
+        tab["line_u1"] = np.ones_like(tab["line_r0"])
     T = arrays["prim_kind"].shape[0]
     prims = dict(kind=arrays["prim_kind"], geom=arrays["prim_geom"],
                  local=arrays["prim_local"], inst=arrays["prim_inst"],
@@ -560,9 +695,10 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     prims = {k: np.asarray(v).astype(np.float32 if k in ("t0", "t1")
                                      else np.int64)
              for k, v in prims.items()}
+    prate = np.asarray(arrays.get("curve_prate", np.zeros(0)), np.int32)
     return _to_device(bvh_np, prims, tab, packed, kinds_present,
                       bool(flags.get("robust", False)), has_motion,
-                      has_windows, dev)
+                      has_windows, dev, (prate, curve_rate, rates))
 
 
 # =====================================================================
@@ -643,7 +779,9 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
     Moving scenes lerp the tables as a * (1 - w) + b * w, vertex by vertex,
     as the JAX package's re-intersection does; the kernel lerps its fields
     (v0, e1, e2 for triangles) as a + w * (b - a), so the two agree to the
-    last bits only (ROADMAP C)."""
+    last bits only (ROADMAP C). Flat curves run one ribbon per distinct
+    rate, each curve taking its own rate's result (:1396-1413); the kernel
+    ran the scene's single ``curve_rate``, which starts at 4 (ROADMAP C)."""
     def rows(*names):
         n = getattr(scene, names[0]).shape[0]
         i = didx.clamp(0, max(n - 1, 0))
@@ -679,8 +817,20 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
             return point_ops.intersect_disc(org, dir, c, r, tnear, tfar)
         return point_ops.intersect_oriented_disc(org, dir, c, r, n, tnear,
                                                  tfar)
-    # u is the segment parameter: each segment spans u 0..1 (the JAX
-    # package's curve-global u0/u1 differ only for linearized curves)
+    if k == KIND_CURVE_FLAT:
+        (cp,) = lerp("curve_cp")
+        (pr,) = rows("curve_prate")
+        out = None
+        for r in scene.curve_rates_present or (scene.curve_rate,):
+            hr = curve_ops.intersect_ribbon(org, dir, cp, tnear, tfar,
+                                            n_seg=int(r))
+            if out is None:
+                out = list(hr)
+            else:
+                sel = pr == r
+                out = [torch.where(sel[..., None] if a.ndim > sel.ndim
+                                   else sel, a, b) for a, b in zip(hr, out)]
+        return tuple(out)
     p0, r0, p1, r1 = lerp("line_p0", "line_r0", "line_p1", "line_r1")
     if k == KIND_ROUND_LINE:
         # the kernel's round line: begin-cap flag, no neighbor clip (the
@@ -690,10 +840,15 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
         # test that selected the hit. The neighbor tables wait for the
         # generic engine, which serves fat joints.
         (fl,) = rows("line_fl")
-        return line_ops.intersect_round_line(
+        hit, t, s, v, ng = line_ops.intersect_round_line(
             org, dir, p0, r0, p1, r1, tnear, tfar, begin_cap=fl < 0.5)
-    return line_ops.intersect_flat_line(org, dir, p0, r0, p1, r1, tnear,
-                                        tfar)
+    else:
+        hit, t, s, v, ng = line_ops.intersect_flat_line(
+            org, dir, p0, r0, p1, r1, tnear, tfar)
+    # the segment parameter mapped into the curve's u: segments span 0..1,
+    # a tessellated curve's sub-segments their share of it
+    u0, u1 = rows("line_u0", "line_u1")
+    return hit, t, u0 * (1 - s) + u1 * s, v, ng
 
 
 def _local_time(scene: CommittedScene, prim, time):

@@ -240,10 +240,11 @@ def test_refused_scenes(case):
         kw = {"quality": BuildQuality.REFIT}
     s = pt.Scene(**kw)
     if case == "curve":
-        s.attach(et.CurveGeometry(
+        # native round curves ride the JAX package's generic engine
+        s.attach(pt.CurveGeometry(
             np.array([[0, 0, 0, 0.1], [1, 0, 0, 0.1], [2, 0, 0, 0.1],
                       [3, 0, 0, 0.1]], np.float32),
-            np.array([0], np.int32), basis="bezier", kind="flat"))
+            np.array([0], np.int32), basis="bezier", kind="round"))
     elif case == "fat_joint":
         # tests/test_geometries.py:414-421: joint radius 1 on unit segments
         s.attach(pt.LineSegmentsGeometry(
@@ -265,9 +266,10 @@ def test_refused_scenes(case):
         if case == "two_level":
             s.commit(device="cpu", two_level=True)
         elif case == "from_arrays_motion_curve":
-            # a moving scene is carried across, but not one with curves
+            # a moving curve scene is carried across, but not one with
+            # round curves
             pt.from_arrays({}, {"has_motion": True, "has_windows": True,
-                                "kinds_present": (0, 8)}, "cpu")
+                                "kinds_present": (0, 9)}, "cpu")
         else:
             s.commit(device="cpu")
 
