@@ -4,16 +4,16 @@ Drives the port's main path through its public entry points and holds the
 Hopper traversal kernel against its plain PyTorch version:
 
 1. the card: name and power limit from nvidia-smi;
-2. build the kernel's two sources (nvcc, sm_90a) and the native BVH builder
-   (g++) from the sources in this checkout, one compiler process each, in
-   parallel;
+2. build the kernel (nvcc, sm_90a: its two sources compile in parallel and
+   link into one library) and the native BVH builder (g++) from the sources
+   in this checkout, one compiler process each, in parallel;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
-   rays (and on a masked copy of it): every variant, first 65,536 rays,
+   rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow;
 4. the main path at full size: the 2,097,152-triangle sphere committed by the
    port, 16,777,216 incoherent rays through intersect(differentiable=False)
    and occluded; a brute-force check on a few rays; kernel vs plain version
-   on the first 262,144 rays; kernel and wrapper times (CUDA events, median
+   on 262,144 of the rays; kernel and wrapper times (CUDA events, median
    of 5 after a warm-up) and the plain version's time;
    then the same sphere with geometry mask 0x2 and random ray masks, to time
    the masked variants at full size;
@@ -40,7 +40,7 @@ Hopper traversal kernel against its plain PyTorch version:
    quarter of its radius along x (Embree's motion_blur_geometry tutorial
    at bench.py:56's size), 16,777,216 rays with times through both
    intersect modes and occluded, held against the exact moving sphere and
-   brute force; kernel vs plain version on 1,048,576 rays;
+   brute force; kernel vs plain version on 262,144 of the rays;
 11. time-sliced motion at full size: sphere_mesh(512, 1024) over 4 time
    steps, accelerating along x by 0.25 in all, 3,145,728 windowed prims,
    the same rays and checks;
@@ -53,7 +53,7 @@ Hopper traversal kernel against its plain PyTorch version:
 13. the hair cell at full size: 131,072 B-spline strands of 11 control
    points on a unit sphere (1,048,576 flat native curves, rate 4), 16,777,216
    rays through both intersect modes and occluded; brute force on a few
-   rays, kernel vs plain version on a 262,144-ray prefix, commit, table,
+   rays, kernel vs plain version on 262,144 of the rays, commit, table,
    steps and times;
 14. the kernels line, then the result line.
 
@@ -144,7 +144,7 @@ REPLACES = {"": f"{PALLAS}:108", "robust": f"{PALLAS}:469",
             "motion": f"{PALLAS}:502", "motion_win": f"{PALLAS}:1059",
             "curves": f"{PALLAS}:739"}
 MOTION_RAYS = 1 << 24
-MOTION_COMPARE = 1 << 18     # rays of the plain version's prefix
+MOTION_COMPARE = 1 << 18     # rays of the plain version's sample
 MOTION_SHIFT = 0.25          # a quarter of the unit sphere's radius, along x
 MSTEP_MESH = (512, 1024)     # 1,048,576 tris
 MSTEP_STEPS = 4              # Embree's msmblur scenes carry 3-4 steps
@@ -215,12 +215,15 @@ def events_ms(fn, reps=5):
 
 def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
             plain=None):
-    """Kernel vs plain version on the first n rays: every output bit-equal.
-    Returns the max |difference| over t and attributes (0.0 when equal).
-    ``plain``: a dict that gets, under the variant's name, the plain run's
-    time (CUDA events, ``ms``), its slot tests by kind tag, its leaf visits
-    and its ray count ``n``, for ``time_variants``."""
-    x = [t[:n].contiguous() for t in inputs]
+    """Kernel vs plain version on n of the (sorted) rays, every k-th of
+    them, so that the sample spans the whole batch and its mix of paths:
+    every output bit-equal. Returns the max |difference| over t and
+    attributes (0.0 when equal). ``plain``: a dict that gets, under the
+    variant's name, the plain run's time (CUDA events, ``ms``), its slot
+    tests by kind tag, its leaf visits and its ray count ``n``, for
+    ``time_variants``."""
+    k = max(inputs[0].shape[0] // n, 1)
+    x = [t[::k][:n].contiguous() for t in inputs]
     k = run_kernel(tr, packed, x, occlusion=occ, want_attrs=attrs,
                    robust=robust)
     a0 = torch.cuda.Event(enable_timing=True)
@@ -326,7 +329,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
     bound and plain-version time of each variant at the inputs' shape; the
     records go into ``record`` under the variant's launch-count name.
     ``plain``: the plain runs ``compare`` already made, by variant name;
-    where they saw a prefix of the rays (scenes whose plain run is too long
+    where they saw a sample of the rays (scenes whose plain run is too long
     for all rays), their slot tests by kind tag are scaled to this run by
     its leaf visits."""
     n_rays = inputs[0].shape[0]
@@ -875,7 +878,7 @@ def phase_mixed(pt, tr, errs, record):
     }
     diff_ms = events_ms(lambda: pt.intersect(cs, rays))
     del best, select
-    # the plain version timed on the compare prefix (on all 16M rays it
+    # the plain version timed on the compare sample (on all 16M rays it
     # took over two minutes of the run)
     time_variants(tr, cs.packed, inputs, KIND_VARIANTS, record,
                   table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
@@ -902,7 +905,7 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
     """A full-size moving sphere: commit, the three entry points at
     16,777,216 rays with times U[0, 1), checks (entry points agree, the
     exact moving sphere, brute force), kernel vs plain version on a
-    1,048,576-ray prefix, times. ``center(time)``: the sphere's exact
+    262,144-ray sample, times. ``center(time)``: the sphere's exact
     center at each time."""
     cs, commit_s = commit_timed(scene, label)
     check(cs.num_prims == n_prims, "wrong prim count")
@@ -966,7 +969,7 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
     }
     # the plain version runs until its slowest ray is done, and a few rays
     # walk thousands of overlapping boxes: it is timed on the compare
-    # prefix only
+    # sample only
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
                   table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
     for base, o, a in VARIANTS:
@@ -1234,13 +1237,14 @@ def phase_hair(pt, tr, errs, record):
     check(frac > 0.01, "hair: too few hits")
     check(bool(torch.isfinite(hit.t[valid]).all())
           and bool(torch.isfinite(hit.ng[valid]).all()), "hair: non-finite")
-    # u along the curve, v across the ribbon (the quad's unclamped
-    # barycentrics: a few ulps past their range at its edges)
+    # u along the curve, v across the ribbon: the ribbon's quad test leaves
+    # its barycentrics unclamped, as the JAX package's does, so they may pass
+    # their range by rounding (v = 2 V / den - 1: up to 8.8e-6 in this cell)
     u, v = hit.u[valid], hit.v[valid]
     say(f"  u in [{u.min().item():.7f}, {u.max().item():.7f}], v in "
         f"[{v.min().item():.7f}, {v.max().item():.7f}]")
-    check(bool((u >= -1e-4).all()) and bool((u <= 1 + 1e-4).all())
-          and bool((v.abs() <= 1 + 1e-4).all()), "hair: u/v out of range")
+    check(bool((u >= -1e-5).all()) and bool((u <= 1 + 1e-5).all())
+          and bool((v.abs() <= 1 + 1e-5).all()), "hair: u/v out of range")
     del u, v
     check(bool((hit.t[~valid] == math.inf).all()), "miss t is not inf")
     say(f"  intersect: {int(valid.sum())} of {HAIR_RAYS} rays hit "
@@ -1336,10 +1340,9 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     say("phase 2: build")
-    kernels = ["traverse_cuda", "traverse_curves_cuda"]
-    secs = _build.build_all(kernels + ["bvh_builder"])
+    secs = _build.build_all(["traverse_cuda", "bvh_builder"])
     say(f"  built in {secs:.2f} s")
-    ptxas = "".join(_build.BUILD_LOGS.get(k, "") for k in kernels)
+    ptxas = _build.BUILD_LOGS.get("traverse_cuda", "")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())

@@ -1,11 +1,12 @@
 """Build the port's native code at first use.
 
-Four shared libraries, each with a plain C interface loaded through ctypes:
+Three shared libraries, each with a plain C interface loaded through ctypes:
 
-- ``traverse_cuda`` and ``traverse_curves_cuda``: the Hopper traversal
-  kernel, ``csrc/traverse.cu`` (scenes without curves) and
-  ``csrc/traverse_curves.cu`` (scenes with flat curves), built with ``nvcc``
-  for ``sm_90a``, one process each (only where a CUDA toolkit exists);
+- ``traverse_cuda``: the Hopper traversal kernel, built with ``nvcc`` for
+  ``sm_90a`` (only where a CUDA toolkit exists): ``csrc/traverse.cu``
+  (scenes without curves, and the entry point) and
+  ``csrc/traverse_curves.cu`` (scenes with flat curves) compile to objects
+  in parallel, one process each, and link into one library;
 - ``bvh_builder``: the OpenMP binned-SAH BVH8 builder,
   ``native/bvh_builder.cpp``, built with ``g++``;
 - ``traverse_twin``: the kernel's per-ray logic (``csrc/traverse.cuh``)
@@ -45,12 +46,20 @@ def _nvcc() -> str:
 @dataclasses.dataclass(frozen=True)
 class Target:
     lib: str                    # output file name inside BUILD_DIR
-    sources: Tuple[str, ...]    # first one is compiled; all are dependencies
+    units: Tuple[str, ...]      # compiled one process each
+    headers: Tuple[str, ...]    # further dependencies
     flags: Tuple[str, ...]      # compiler flags (the compiler comes first)
+    # several units: each is compiled with ``flags -c``, then the objects
+    # are linked with ``link``; one unit is compiled straight to the library
+    link: Tuple[str, ...] = ()
 
     @property
     def path(self) -> str:
         return os.path.join(BUILD_DIR, self.lib)
+
+    @property
+    def sources(self) -> Tuple[str, ...]:
+        return self.units + self.headers
 
 
 def _targets() -> Dict[str, Target]:
@@ -58,29 +67,26 @@ def _targets() -> Dict[str, Target]:
     launch = os.path.join(CSRC, "launch.cuh")
     # --fmad=false: no a*b+c contraction, so t bits equal the plain PyTorch
     # version's (and the JAX package's) separate mul and add
-    nvcc = (_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-            "-Xcompiler", "-fPIC")
+    arch = ("-gencode", "arch=compute_90a,code=sm_90a")
     return {
         "traverse_cuda": Target(
             "libtraverse_cuda.so",
-            (os.path.join(CSRC, "traverse.cu"), launch, cuh), nvcc),
-        "traverse_curves_cuda": Target(
-            "libtraverse_curves_cuda.so",
-            (os.path.join(CSRC, "traverse_curves.cu"), launch, cuh), nvcc),
+            (os.path.join(CSRC, "traverse.cu"),
+             os.path.join(CSRC, "traverse_curves.cu")), (launch, cuh),
+            (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
+                                 "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
+            link=(_nvcc(),) + arch + ("-shared",)),
         # the same flags as the JAX package's copy of the builder, so both
         # build the same tree from the same bounds
         "bvh_builder": Target(
-            "libbvh.so",
-            (os.path.join(NATIVE, "bvh_builder.cpp"),),
+            "libbvh.so", (os.path.join(NATIVE, "bvh_builder.cpp"),), (),
             ("g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")),
         # no -march=native: that would allow FMA; -ffp-contract=off forbids
         # contraction like --fmad=false does on the card
         "traverse_twin": Target(
-            "libtraverse_twin.so",
-            (os.path.join(CSRC, "traverse_cpu.cpp"), cuh),
-            ("g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
-             "-fPIC")),
+            "libtraverse_twin.so", (os.path.join(CSRC, "traverse_cpu.cpp"),),
+            (cuh,), ("g++", "-O2", "-std=c++17", "-ffp-contract=off",
+                     "-shared", "-fPIC")),
     }
 
 
@@ -98,30 +104,48 @@ def _stale(t: Target) -> bool:
     return any(os.path.getmtime(s) > built for s in t.sources)
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str):
-    """Start compiling one target; returns (proc, tmp_path) or None when the
-    library is up to date."""
+    """Start compiling one target's units, all at once; returns (the
+    processes, their outputs, the library's temporary path) or None when
+    the library is up to date."""
     t = TARGETS[name]
     if not _stale(t):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{t.path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = list(t.flags) + [t.sources[0], "-o", tmp]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp
+    if not t.link:
+        return [_run(list(t.flags) + [t.units[0], "-o", tmp])], [tmp], tmp
+    objs = [f"{tmp}.{k}.o" for k in range(len(t.units))]
+    procs = [_run(list(t.flags) + ["-c", u, "-o", o])
+             for u, o in zip(t.units, objs)]
+    return procs, objs, tmp
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp = started
-    out, _ = proc.communicate()
-    BUILD_LOGS[name] = out
-    if proc.returncode != 0:
+    procs, outs, tmp = started
+    t = TARGETS[name]
+    logs = [p.communicate()[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if t.link and not any(codes):
+        proc = _run(list(t.link) + outs + ["-o", tmp])
+        logs.append(proc.communicate()[0])
+        codes.append(proc.returncode)
+    log = "".join(logs)
+    BUILD_LOGS[name] = log
+    for f in set(outs) - {tmp}:
+        if os.path.exists(f):
+            os.remove(f)
+    if any(codes):
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"building {name} failed "
-                           f"(exit {proc.returncode}):\n{out}")
-    os.replace(tmp, TARGETS[name].path)
+        raise RuntimeError(f"building {name} failed (exit "
+                           f"{max(codes)}):\n{log}")
+    os.replace(tmp, t.path)
 
 
 def ensure(name: str) -> str:
@@ -134,8 +158,8 @@ def ensure(name: str) -> str:
 
 
 def build_all(names: Iterable[str]) -> float:
-    """Build the named libraries in parallel, one compiler process each.
-    Returns the wall seconds spent."""
+    """Build the named libraries in parallel, one compiler process per
+    unit. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     with _lock:
         started = {n: _start(n) for n in names}

@@ -5,8 +5,8 @@ Port of embree_tpu/accel/traverse_pallas.py:1268-1555. ``traverse_packed``
 keeps the JAX wrapper's contract (coherence sort, launch, ``pid_map`` and
 id-table gathers, unsort) and returns the same values. Beneath it:
 
-- ``traverse_kernel`` launches ``csrc/traverse.cu`` (or, for scenes with
-  flat curves, ``csrc/traverse_curves.cu``) on CUDA tensors. It is the
+- ``traverse_kernel`` launches ``csrc/traverse.cu`` (flat curves:
+  ``csrc/traverse_curves.cu``, linked into it) on CUDA tensors. It is the
   port of ``_kernel`` (traverse_pallas.py:108): the triangle
   specialization (B1), robust mode (B2), per-slot kind tags (B3), points
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
@@ -290,9 +290,7 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     for name, x in (("nodes", packed.nodes), ("leaves", packed.leaves)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    launch = (_load("traverse_curves_cuda", "traverse_curves_launch",
-                    [ctypes.c_void_p]) if has_curves(packed) else
-              _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p]))
+    launch = _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p])
     outs = _outputs(org.shape[0], org.device, want_attrs)
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,

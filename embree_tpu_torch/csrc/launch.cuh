@@ -1,6 +1,6 @@
-// The kernel entry, its launch dispatch over the template flags, and the
-// argument check, shared by traverse.cu (B1-B6) and traverse_curves.cu
-// (B7), which nvcc compiles in parallel.
+// The kernel entry and its launch dispatch over the template flags, shared
+// by traverse.cu (B1-B6 and the C entry point) and traverse_curves.cu (B7),
+// which nvcc compiles in parallel into objects of one library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,18 +60,9 @@ void launch_motion(const Params& p, int has_mask, int robust, int has_motion,
   }
 }
 
-// A variant that does not exist: attributes with kind tags, windows
-// without motion, motion without times, curves without kind tags, 16-field
-// slots or knot weights.
-inline bool bad_variant(int occlusion, int want_attrs, int has_kinds,
-                        int kind_classes, int has_motion, int has_win,
-                        const float* time, int nf, int curve_rate,
-                        const float* curve_w) {
-  const bool curves = (kind_classes >> kTagCurve) & 1;
-  return (has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
-         (has_motion && time == nullptr) ||
-         nf != (curves ? kCurveFields : 9) ||
-         (curves && (!has_kinds || curve_rate < 1 || curve_w == nullptr));
-}
+// The 16 flat-curve variants (traverse_curves.cu): {closest, occluded} x
+// {mask chunk or not} x {robust or not} x {static or moving}.
+void launch_curves(const Params& p, int occlusion, int has_mask, int robust,
+                   int has_motion, int32_t* ovf, cudaStream_t s);
 
 }  // namespace trav

@@ -1,5 +1,5 @@
-// Hopper kernel for BVH8 traversal, one ray per thread: the variants of
-// scenes without curves.
+// Hopper kernel for BVH8 traversal, one ray per thread: the C entry point
+// and the variants of scenes without curves.
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
@@ -10,17 +10,20 @@
 // (traverse_pallas.py:347-426): global loads through L2 serve a table of any
 // size, so there is no tile cache to manage.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC traverse.cu
-//        -o libtraverse_cuda.so
+// Build (the two sources compile in parallel, then link into one library):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+//        -Xcompiler -fPIC -c traverse.cu -o traverse.o   (and traverse_curves)
+//   nvcc -gencode arch=compute_90a,code=sm_90a -shared traverse.o
+//        traverse_curves.o -o libtraverse_cuda.so
 #include "launch.cuh"
 
-// Instantiated variants (40): triangles-only x {closest with attrs,
+// Instantiated variants here (40): triangles-only x {closest with attrs,
 // closest, occluded} and mixed classes x {closest, occluded}, each x {mask
-// chunk or not} x {robust or not} x {static or moving}.
+// chunk or not} x {robust or not} x {static or moving}; scenes with the
+// curve tag go to trav::launch_curves.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
-// bad_variant) or a curve scene (traverse_curves_launch takes those).
+// bad_variant).
 extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
                                const int32_t* leaves, int n_leaves,
                                int leaf_stride, const float* org,
@@ -36,8 +39,7 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
                                void* stream) {
   using trav::launch_motion;
   if (n_rays <= 0) return 0;
-  if (((kind_classes >> trav::kTagCurve) & 1) ||
-      trav::bad_variant(occlusion, want_attrs, has_kinds, kind_classes,
+  if (trav::bad_variant(occlusion, want_attrs, has_kinds, kind_classes,
                         has_motion, has_win, time, nf, curve_rate, curve_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -48,7 +50,9 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = has_motion;
   int32_t* ovf = out_overflow;
-  if (has_kinds) {
+  if ((kind_classes >> trav::kTagCurve) & 1) {
+    trav::launch_curves(p, occlusion, has_mask, robust, m, ovf, s);
+  } else if (has_kinds) {
     if (occlusion) {
       launch_motion<true, false, true, false>(p, has_mask, robust, m, ovf, s);
     } else {

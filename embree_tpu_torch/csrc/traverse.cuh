@@ -103,6 +103,20 @@ struct Params {
   const float* curve_w;    // (curve_rate + 1, 7) knot weights (CURVES)
 };
 
+// A variant that does not exist: attributes with kind tags, windows
+// without motion, motion without times, curves without kind tags, 16-field
+// slots or knot weights.
+inline bool bad_variant(int occlusion, int want_attrs, int has_kinds,
+                        int kind_classes, int has_motion, int has_win,
+                        const float* time, int nf, int curve_rate,
+                        const float* curve_w) {
+  const bool curves = (kind_classes >> kTagCurve) & 1;
+  return (has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
+         (has_motion && time == nullptr) ||
+         nf != (curves ? kCurveFields : 9) ||
+         (curves && (!has_kinds || curve_rate < 1 || curve_w == nullptr));
+}
+
 struct I4 {
   int32_t x, y, z, w;
 };

@@ -63,13 +63,11 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              int robust, int has_kinds, int kind_classes,
                              int has_motion, int has_win, int nf,
                              int curve_rate, const float* curve_w) {
-  const bool curves = (kind_classes >> trav::kTagCurve) & 1;
-  if ((has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
-      (has_motion && time == nullptr) ||
-      nf != (curves ? trav::kCurveFields : 9) ||
-      (curves && (!has_kinds || curve_rate < 1 || curve_w == nullptr))) {
+  if (trav::bad_variant(occlusion, want_attrs, has_kinds, kind_classes,
+                        has_motion, has_win, time, nf, curve_rate, curve_w)) {
     return 1;
   }
+  const bool curves = (kind_classes >> trav::kTagCurve) & 1;
   const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
                        org,    dir,      tnear,      tfar,     mask,
                        n_rays, out_t,    out_best,   out_visits, out_attr,

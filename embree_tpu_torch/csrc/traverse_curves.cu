@@ -5,42 +5,22 @@
 // specialization (B7: the ribbon, :719-856, with the curve ray frame,
 // :194-221), with every other class of a kind-tagged scene beside it.
 // What bounds it on the card and what this design does about it are in
-// traverse.cuh. A source of its own so that nvcc builds it beside
-// traverse.cu.
-//
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC traverse_curves.cu
-//        -o libtraverse_curves_cuda.so
+// traverse.cuh. A source of its own so that nvcc compiles it beside
+// traverse.cu; both objects link into one library (build line there), whose
+// traverse_launch calls launch_curves for curve scenes.
 #include "launch.cuh"
 
-// Instantiated variants (16): {closest, occluded} x {mask chunk or not} x
-// {robust or not} x {static or moving}. Same arguments and returns as
-// traverse_launch (traverse.cu); takes curve scenes only.
-extern "C" int traverse_curves_launch(
-    const int32_t* nodes, int n_nodes, const int32_t* leaves, int n_leaves,
-    int leaf_stride, const float* org, const float* dir, const float* tnear,
-    const float* tfar, const int32_t* mask, const float* time, int n_rays,
-    float* out_t, int32_t* out_best, int32_t* out_visits, float* out_attr,
-    int32_t* out_overflow, int occlusion, int want_attrs, int has_mask,
-    int robust, int has_kinds, int kind_classes, int has_motion, int has_win,
-    int nf, int curve_rate, const float* curve_w, void* stream) {
-  if (n_rays <= 0) return 0;
-  if (!((kind_classes >> trav::kTagCurve) & 1) ||
-      trav::bad_variant(occlusion, want_attrs, has_kinds, kind_classes,
-                        has_motion, has_win, time, nf, curve_rate, curve_w)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
-                       org,    dir,      tnear,      tfar,     mask,
-                       n_rays, out_t,    out_best,   out_visits, out_attr,
-                       kind_classes, time, has_win, curve_rate, curve_w};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace trav {
+
+void launch_curves(const Params& p, int occlusion, int has_mask, int robust,
+                   int has_motion, int32_t* ovf, cudaStream_t s) {
   if (occlusion) {
-    trav::launch_motion<true, false, true, true>(p, has_mask, robust,
-                                                 has_motion, out_overflow, s);
+    launch_motion<true, false, true, true>(p, has_mask, robust, has_motion,
+                                           ovf, s);
   } else {
-    trav::launch_motion<false, false, true, true>(p, has_mask, robust,
-                                                  has_motion, out_overflow, s);
+    launch_motion<false, false, true, true>(p, has_mask, robust, has_motion,
+                                            ovf, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace trav

@@ -145,7 +145,6 @@ class CommittedScene:
     line_rRb: torch.Tensor
     curve_cp: torch.Tensor     # (Tc, 4, 4) world-space Bezier CPs, xyz+r
     curve_cpb: torch.Tensor    # the same at the second time step
-    curve_prate: torch.Tensor  # (Tc,) int32 tessellation rate of each curve
     packed: pack_mod.PackedScene
     kinds_present: tuple = (KIND_TRIANGLE,)
     robust: bool = False       # RTC_SCENE_FLAG_ROBUST analog (B2)
@@ -180,7 +179,7 @@ class _Merger:
         self.rows = []          # (n, 5): kind, gid, local id, data, mask
         self.tab = {k: [] for k in _TABLES}
         self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0, "curve": 0}
-        self.prate = []         # per emit of native curves: (n,) rates
+        self.rates = set()      # tessellation rates of the native curves
         self.curve_rate = DEFAULT_CURVE_RATE
         self.windows = []       # (n, 2) per emit: [t0, t1]
         self.has_motion = False
@@ -340,7 +339,7 @@ class _Merger:
             self._emit(KIND_CURVE_FLAT, gid, n, "curve", g.mask)
             rate = int(g.tessellation_rate)
             self.curve_rate = max(self.curve_rate, rate)
-            self.prate.append(np.full(n, rate, np.int32))
+            self.rates.add(rate)
             self._put(curve_cp=curve_ops.to_bezier(
                           g.basis, torch.from_numpy(cp)).numpy(),
                       curve_cpb=curve_ops.to_bezier(
@@ -383,12 +382,8 @@ class _Merger:
         self._put(line_fl=has_left, line_u0=u0, line_u1=u1)
 
     def curve_rates(self):
-        """Each native curve's rate, and the distinct rates (scene.py:
-        902-904)."""
-        prate = (np.concatenate(self.prate) if self.prate
-                 else np.zeros(0, np.int32))
-        return prate, tuple(sorted({int(r) for r in prate})) or (
-            DEFAULT_CURVE_RATE,)
+        """The distinct rates of the native curves (scene.py:902-904)."""
+        return tuple(sorted(self.rates)) or (DEFAULT_CURVE_RATE,)
 
     def tables(self):
         return {k: (np.concatenate(v).reshape((-1,) + _TABLES[k]) if v else
@@ -445,12 +440,11 @@ class Scene:
                 m.add(g, gid)
         if not m.rows:
             raise ValueError("commit() on empty scene")
-        prate, rates = m.curve_rates()
         self.committed = _finalize(np.concatenate(m.rows), m.tables(),
                                    np.concatenate(m.windows), m.has_motion,
                                    self.threads, self.robust,
                                    self.max_radius_scale, dev,
-                                   (prate, m.curve_rate, rates))
+                                   (m.curve_rate, m.curve_rates()))
         return self.committed
 
 
@@ -559,12 +553,12 @@ def _finalize(rows, tab, windows, has_motion, threads, robust,
     """Bounds, native BVH8 build and packing (scene.py:878-1066). The JAX
     package also builds strand-aligned leaf OBBs for hair scenes
     (:1077-1117); only its generic engine reads them, never the packed
-    kernel, so the port does not build them. ``curves``: (each native
-    curve's rate, the kernel's ribbon rate, the distinct rates)."""
+    kernel, so the port does not build them. ``curves``: (the kernel's
+    ribbon rate, the distinct rates of the native curves)."""
     T = rows.shape[0]
     kind = rows[:, 0]
     kinds_present = tuple(sorted(int(k) for k in np.unique(kind)))
-    prate, curve_rate, rates = curves
+    curve_rate, rates = curves
     if KIND_CURVE_FLAT in kinds_present and len(rates) > 1:
         # the kernel runs one ribbon rate (scene.py:983-992)
         _refuse(f"flat curves of more than one tessellation rate {rates}")
@@ -630,11 +624,10 @@ def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
         prim_mask=t(prims["mask"], torch.int64),
         prim_t0=t(prims["t0"], torch.float32),
         prim_t1=t(prims["t1"], torch.float32),
-        curve_prate=t(curves[0], torch.int32),
         packed=pk, kinds_present=tuple(int(k) for k in kinds_present),
         robust=bool(robust), has_motion=bool(has_motion),
-        has_windows=bool(has_windows), curve_rate=int(curves[1]),
-        curve_rates_present=tuple(int(r) for r in curves[2]),
+        has_windows=bool(has_windows), curve_rate=int(curves[0]),
+        curve_rates_present=tuple(int(r) for r in curves[1]),
         **{k: t(v, torch.float32) for k, v in tab.items()})
 
 
@@ -648,9 +641,9 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     ``prim_inst``, ``prim_data``, ``prim_mask``, ``prim_t0``, ``prim_t1``
     (missing: [0, 1]), ``packed.table`` (the unified tile table),
     ``packed.pid_map``, the kind tables the scene has (``tri_v0`` ..
-    ``curve_cpb``, the names of CommittedScene; missing ones are empty) and
-    ``curve_prate``. flags: ``gn``, ``has_mask``, ``tri_attrs``,
-    ``has_kinds``, ``kind_classes``, ``kinds_present``, ``robust``,
+    ``curve_cpb``, the names of CommittedScene; missing ones are empty).
+    flags: ``gn``, ``has_mask``, ``tri_attrs``, ``has_kinds``,
+    ``kind_classes``, ``kinds_present``, ``robust``,
     ``has_motion`` and ``has_windows`` (the JAX package's packed
     ``has_motion``/``has_win`` equal them), ``nf``, ``curve_rate`` and
     ``curve_rates_present`` (curve scenes), and the scene flags the port
@@ -695,10 +688,9 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
     prims = {k: np.asarray(v).astype(np.float32 if k in ("t0", "t1")
                                      else np.int64)
              for k, v in prims.items()}
-    prate = np.asarray(arrays.get("curve_prate", np.zeros(0)), np.int32)
     return _to_device(bvh_np, prims, tab, packed, kinds_present,
                       bool(flags.get("robust", False)), has_motion,
-                      has_windows, dev, (prate, curve_rate, rates))
+                      has_windows, dev, (curve_rate, rates))
 
 
 # =====================================================================
@@ -779,9 +771,9 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
     Moving scenes lerp the tables as a * (1 - w) + b * w, vertex by vertex,
     as the JAX package's re-intersection does; the kernel lerps its fields
     (v0, e1, e2 for triangles) as a + w * (b - a), so the two agree to the
-    last bits only (ROADMAP C). Flat curves run one ribbon per distinct
-    rate, each curve taking its own rate's result (:1396-1413); the kernel
-    ran the scene's single ``curve_rate``, which starts at 4 (ROADMAP C)."""
+    last bits only (ROADMAP C). Flat curves run the ribbon at their own
+    rate (:1396-1413; a scene holds one), the kernel at the scene's
+    ``curve_rate``, which starts at 4 (ROADMAP C)."""
     def rows(*names):
         n = getattr(scene, names[0]).shape[0]
         i = didx.clamp(0, max(n - 1, 0))
@@ -819,18 +811,8 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
                                                  tfar)
     if k == KIND_CURVE_FLAT:
         (cp,) = lerp("curve_cp")
-        (pr,) = rows("curve_prate")
-        out = None
-        for r in scene.curve_rates_present or (scene.curve_rate,):
-            hr = curve_ops.intersect_ribbon(org, dir, cp, tnear, tfar,
-                                            n_seg=int(r))
-            if out is None:
-                out = list(hr)
-            else:
-                sel = pr == r
-                out = [torch.where(sel[..., None] if a.ndim > sel.ndim
-                                   else sel, a, b) for a, b in zip(hr, out)]
-        return tuple(out)
+        return curve_ops.intersect_ribbon(
+            org, dir, cp, tnear, tfar, n_seg=scene.curve_rates_present[0])
     p0, r0, p1, r1 = lerp("line_p0", "line_r0", "line_p1", "line_r1")
     if k == KIND_ROUND_LINE:
         # the kernel's round line: begin-cap flag, no neighbor clip (the
