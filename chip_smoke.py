@@ -53,19 +53,39 @@ Hopper traversal kernel against its plain PyTorch version:
 13. the hair cell at full size: 131,072 B-spline strands of 11 control
    points on a unit sphere (1,048,576 flat native curves, rate 4), 16,777,216
    rays through both intersect modes and occluded; brute force on a few
-   rays, kernel vs plain version on 262,144 of the rays, commit, table,
-   steps and times;
-14. the kernels line, then the result line.
+   rays, kernel vs plain version on 262,144 of the rays, commit (with the
+   hair tier's leaf OBBs), table, steps and times;
+14. kernel vs plain version for round curves (B8), with round curves among
+   the packed kinds (the JAX package's EMBREE_TPU_KERNEL_ROUND opt-in): 2,048
+   round Bezier curves, 512 round B-spline strands of 4 spans, 32
+   tessellated round strands and the backdrop triangle at 65,536 rays, every
+   curve instantiation (static and 2-step x {as is, masked, robust, both},
+   3 steps), bit-equal, class-9 hits;
+15. the round hair cell: phase 13's strands as 1,048,576 native round
+   curves. The generic engine (the default route) on 1,048,576 of the rays
+   through both intersect modes and occluded, with its lockstep steps, time
+   and peak memory; brute force on a few rays; then the kernel route (B8)
+   on all 16,777,216 rays, kernel vs plain version on 65,536 of them, and
+   B8 against the engine on the engine's rays within the JAX package's own
+   bounds (test_pallas_kernel.py:229-233);
+16. the generic engine against the kernel on phase 6's kind check scene at
+   65,536 rays: equal hit masks, prim ids equal but at near-ties;
+17. the viewer's mixed scene (a round curve: the generic engine) at 96x96
+   against tests/golden/mixed_*.pfm;
+18. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-13) and read just
+Launch counts are zeroed just before each driven path (4-17) and read just
 after; a variant the path uses that was never launched fails the run. Any
 failed check raises, and the script then exits non-zero without a result
-line. It refuses to run without a CUDA device.
+line. It refuses to run without a CUDA device. To stay near its earlier
+length, phases 10 and 11 hold the kernel against the plain version on
+65,536 of their rays (262,144 before).
 
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -110,6 +130,23 @@ def curve_slot_ops(rate):
     return 72 + 33 + 61 * (rate + 1) + 118 * rate + 2
 
 
+def round_slot_ops(rate):
+    """B8, one round slot before its polishes, counted from
+    csrc/traverse.cuh (leaf_round_curve): rcp of |d|^2 2, centroid 12,
+    dtc 9, relative CPs 36, box scan 32, error scales 3, first knot 28, per
+    cone segment 151 (knot 28, recentring 21, cone coefficients 53, roots
+    and their tests 49), key and min 2."""
+    n = max(rate, 8)
+    return 2 + 12 + 9 + 36 + 32 + 3 + 28 + 151 * n + 2
+
+
+# B8, per candidate a segment yields: its seed (t, y, u: 9) and 5 Newton
+# steps of 258 (the curve and its two derivatives at u 79, the residual
+# and its error bounds 36, the tangent and its derivative 23, f, g and
+# their Jacobian 79, the update and the acceptance tests 41), the min 2
+ROUND_CANDIDATE_OPS = 9 + 5 * 258 + 2
+
+
 # the curve frame, once per curve leaf visit (curve_frame: 3 square
 # roots, 3 divisions, 44 multiply/add/select)
 CURVE_FRAME_OPS = 50
@@ -142,9 +179,9 @@ PALLAS = "embree_tpu/accel/traverse_pallas.py"
 REPLACES = {"": f"{PALLAS}:108", "robust": f"{PALLAS}:469",
             "kinds": f"{PALLAS}:1048", "masked": f"{PALLAS}:1061",
             "motion": f"{PALLAS}:502", "motion_win": f"{PALLAS}:1059",
-            "curves": f"{PALLAS}:739"}
+            "curves": f"{PALLAS}:739", "curves_round": f"{PALLAS}:858"}
 MOTION_RAYS = 1 << 24
-MOTION_COMPARE = 1 << 18     # rays of the plain version's sample
+MOTION_COMPARE = 1 << 16     # rays of the plain version's sample
 MOTION_SHIFT = 0.25          # a quarter of the unit sphere's radius, along x
 MSTEP_MESH = (512, 1024)     # 1,048,576 tris
 MSTEP_STEPS = 4              # Embree's msmblur scenes carry 3-4 steps
@@ -154,6 +191,9 @@ HAIR_STRANDS = 1 << 17          # x 8 B-spline spans = 1,048,576 curves
 HAIR_CPS = 11
 HAIR_RAYS = 1 << 24
 HAIR_COMPARE = 1 << 18
+ROUND_CHECK = (2048, 512, 32)   # round Bezier, round B-spline, tessellated
+ENGINE_RAYS = 1 << 20           # the generic engine's share of the hair rays
+ROUND_COMPARE = 1 << 16
 
 
 def say(*a):
@@ -236,6 +276,7 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
     if plain is not None:
         plain[tr.packed_variant(packed, occ, attrs, robust)] = dict(
             ms=a0.elapsed_time(a1), slots=p.class_slots.double(),
+            cands=float(p.round_candidates),
             leaf_visits=int(p.visits[1].sum(dtype=torch.int64)), n=n)
     check(int(k.overflow) == 0 and int(p.overflow) == 0,
           f"{label}: stack overflow")
@@ -309,7 +350,8 @@ def phase_kernel_check(pt, tr, sphere_mesh, errs):
 
 
 def plain_run(tr, packed, inputs, occ, attrs, robust):
-    """The plain version over all rays; returns (ms, slot tests by tag)."""
+    """The plain version over all rays; returns (ms, slot tests by tag,
+    round-curve candidates)."""
     a0 = torch.cuda.Event(enable_timing=True)
     a1 = torch.cuda.Event(enable_timing=True)
     a0.record()
@@ -317,10 +359,10 @@ def plain_run(tr, packed, inputs, occ, attrs, robust):
                   robust=robust)
     a1.record()
     torch.cuda.synchronize()
-    slots = p.class_slots
+    slots, cands = p.class_slots, float(p.round_candidates)
     del p
     torch.cuda.empty_cache()
-    return a0.elapsed_time(a1), slots
+    return a0.elapsed_time(a1), slots, cands
 
 
 def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
@@ -352,12 +394,16 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         torch.cuda.empty_cache()
         if plain is None:
             plain_rays = n_rays
-            plain_ms, slots = plain_run(tr, packed, inputs, o, a, robust)
+            plain_ms, slots, cands = plain_run(tr, packed, inputs, o, a,
+                                               robust)
         else:
             pl = plain[name]
-            plain_rays, plain_ms, slots = pl["n"], pl["ms"], pl["slots"]
+            plain_rays, plain_ms, slots, cands = (pl["n"], pl["ms"],
+                                                  pl["slots"], pl["cands"])
             if plain_rays != n_rays:
-                slots = slots * (leaf_v / max(pl["leaf_visits"], 1))
+                scale = leaf_v / max(pl["leaf_visits"], 1)
+                slots = slots * scale
+                cands = cands * scale
         out_bytes = 4 + 4 + 8 + (20 if a else 0)
         in_bytes = RAY_IN_BYTES + (TIME_BYTES if packed.has_motion else 0)
         nbytes = table_bytes + n_rays * (in_bytes + out_bytes)
@@ -367,17 +413,20 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         curves = tr.has_curves(packed)
         if curves:
             slot_ops[tr.KIND_CURVE_FLAT] = curve_slot_ops(packed.curve_rate)
+            slot_ops[tr.KIND_CURVE_ROUND] = round_slot_ops(packed.curve_rate)
         if packed.has_kinds:
             leaf_ops = sum(float(slots[k]) * slot_ops[k] for k in slot_ops)
         else:
             leaf_ops = leaf_v * 8 * slot_ops[0]
         if curves:
-            leaf_ops += leaf_v * CURVE_FRAME_OPS
+            # the frame at each curve leaf visit; each round candidate's
+            # polish (counted from this run's data)
+            leaf_ops += leaf_v * CURVE_FRAME_OPS + cands * ROUND_CANDIDATE_OPS
         if packed.has_motion and curves:
             # each slot lerps the fields its test reads (3 operations
             # each) and, with windows, computes its weight
             leaf_ops += sum(float(slots[k]) * (
-                3 * (16 if k == tr.KIND_CURVE_FLAT else 9)
+                3 * (16 if k in tr.CURVE_CLASSES else 9)
                 + (WINDOW_LEAF_OPS // 8 if packed.has_win else 0))
                 for k in slot_ops)
         elif packed.has_motion:
@@ -394,6 +443,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    node_visits=node_v, leaf_visits=leaf_v,
                    slot_tests={k: int(float(slots[k])) for k in slot_ops},
+                   round_candidates=int(cands),
                    n_rays=n_rays, plain_rays=plain_rays,
                    steps_per_ray=(node_v + leaf_v) / n_rays,
                    max_steps=max_steps,
@@ -425,9 +475,12 @@ def commit_timed(scene, label):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     p = cs.packed
-    say(f"  commit: {cs.num_prims} prims ({label}) in {secs:.3f} s; table "
-        f"{table_mb(p) / 1e6:.3f} MB ({p.nodes.shape[0]} nodes, "
-        f"{p.leaves.shape[0]} leaves); device memory "
+    table = ("no packed table (the generic engine)" if p is None else
+             f"table {table_mb(p) / 1e6:.3f} MB ({p.nodes.shape[0]} nodes, "
+             f"{p.leaves.shape[0]} leaves)")
+    obbs = int((cs.leaf_obb_up[:, 0] < 3e38).sum())
+    say(f"  commit: {cs.num_prims} prims ({label}) in {secs:.3f} s; {table};"
+        f" {obbs} leaf OBBs; device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return cs, secs
 
@@ -1192,17 +1245,17 @@ def phase_curves_check(pt, tr, errs, record):
     return launches
 
 
-def hair_scene(pt):
+def hair_scene(pt, kind="flat"):
     """Embree's hair_geometry tutorial at full size: 131,072 strands of 11
-    B-spline CPs (8 spans each: 1,048,576 flat native curves, rate 4)
-    rooted on the unit sphere with hair()'s layout (numpy seed 1), radius
-    0.004 -> 0.002."""
+    B-spline CPs (8 spans each: 1,048,576 native curves, rate 4) rooted on
+    the unit sphere with hair()'s layout (numpy seed 1), radius 0.004 ->
+    0.002; ``kind``: flat or round."""
     verts, _ = hair(np.random.default_rng(1), (0, 0, 0), HAIR_STRANDS,
                     n_seg=HAIR_CPS - 1)
     idx = ((HAIR_CPS * np.arange(HAIR_STRANDS))[:, None]
            + np.arange(HAIR_CPS - 3)[None]).reshape(-1).astype(np.int32)
     s = pt.Scene()
-    s.attach(pt.CurveGeometry(verts, idx, basis="bspline", kind="flat"))
+    s.attach(pt.CurveGeometry(verts, idx, basis="bspline", kind=kind))
     return s
 
 
@@ -1301,11 +1354,295 @@ def phase_hair(pt, tr, errs, record):
     return launches
 
 
+@contextlib.contextmanager
+def round_packed(pscene):
+    """Round curves among the packed kinds while the block runs (the JAX
+    package's EMBREE_TPU_KERNEL_ROUND opt-in, as its tests take it)."""
+    pscene.PACKED_KINDS.add(9)
+    try:
+        yield
+    finally:
+        pscene.PACKED_KINDS.discard(9)
+
+
+def round_check_scene(pt, masked=False, robust=False, steps=1):
+    """phase 12's curve check scene with round curves (numpy seed 4): 2,048
+    round Bezier curves, 512 round B-spline strands of 4 spans, 32 thin
+    B-spline strands tessellated into round segments and the backdrop
+    triangle; ``masked``: every second geometry has mask 0x2; ``steps`` > 1:
+    every geometry moves, over that many steps."""
+    rng = np.random.default_rng(4)
+    n_bez, n_bsp, n_round = ROUND_CHECK
+    cp, idx = fat_curves(rng, n_bez)
+    sv, si = strands(rng, n_bsp, 7, 0.1, 0.02, 0.01, 0.03)
+    rv, ri = strands(rng, n_round, 7, 0.1, 0.005, 0.003, 0.01)
+    tv = np.array([[-3, -3, -3], [3, -3, -3], [0, 3, -3]], np.float32)
+    geoms = [
+        pt.CurveGeometry(moving(cp, (0, 0, 0.1), steps), idx, basis="bezier",
+                         kind="round"),
+        pt.CurveGeometry(moving(sv, (0.1, 0, 0), steps), si, basis="bspline",
+                         kind="round"),
+        pt.CurveGeometry(moving(rv, (0, 0.1, 0), steps), ri, basis="bspline",
+                         kind="round", algorithm="tessellate"),
+        pt.TriangleGeometry(moving(tv, (0, 0, 0.2), steps),
+                            np.array([[0, 1, 2]], np.int32)),
+    ]
+    s = pt.Scene(robust=robust)
+    for k, g in enumerate(geoms):
+        if masked and k % 2:
+            g.mask = 0x2
+        s.attach(g)
+    return s
+
+
+def phase_round_check(pt, tr, errs, record):
+    """Every curve instantiation on round slots (B8) against the plain
+    version at 65,536 rays: static and 2-step x {as is, masked, robust,
+    both}, and 3 steps (windows)."""
+    from embree_tpu_torch import scene as pscene
+    say("phase 14: kernel vs plain version, round curves (B8): 2,560 round "
+        "curves + 512 tessellated round segments + a triangle, static, "
+        "2-step and 3-step, 65,536 rays")
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    time = ray_times(KINDS_RAYS)
+    rmask = np.random.default_rng(1).choice(np.array([1, 2, 3], np.uint32),
+                                            KINDS_RAYS)
+    card = card_line()
+    configs = [(m, r, st) for st in (1, 2)
+               for m, r in ((False, False), (True, False), (False, True),
+                            (True, True))] + [(False, False, 3)]
+    launches = {}
+    for masked, robust, steps in configs:
+        with round_packed(pscene):
+            cs = round_check_scene(pt, masked, robust, steps).commit(
+                device=DEV)
+        p = cs.packed
+        check(p is not None and p.nf == 16 and p.kind_classes == (0, 5, 9)
+              and cs.has_motion == (steps > 1) and p.has_win == (steps > 2)
+              and p.has_mask == masked, "wrong round check scene flags")
+        rays = pt.make_rays(org, d, time=time if steps > 1 else 0.0,
+                            mask=rmask if masked else 0xFFFFFFFF, device=DEV)
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays)
+        hk = pt.intersect(cs, rays, differentiable=False)
+        occ = pt.occluded(cs, rays)
+        torch.cuda.synchronize()
+        got = dict(tr.LAUNCHES)
+        launches.update(got)
+        check(torch.equal(occ, hit.valid) and torch.equal(hk.valid, hit.valid),
+              "round: the entry points disagree")
+        by_geom = torch.bincount(hit.geom_id[hit.valid], minlength=4).tolist()
+        check(by_geom[0] > 0 and by_geom[1] > 0, "round: no class-9 hits")
+        inputs = sorted_inputs(tr, rays)
+        plain = {}
+        for base, o, a in KIND_VARIANTS:
+            name = tr.packed_variant(p, o, a, robust)
+            check(got.get(name, 0) > 0, f"{name} was not launched")
+            errs[name] = max(errs.get(name, 0.0), compare(
+                tr, p, inputs, KINDS_RAYS, o, a, name, robust, plain=plain))
+        say(f"  hits by geometry (Bezier, B-spline, round strands, "
+            f"triangle): {by_geom}")
+        # the static as-is variants are timed in the round hair cell
+        if masked or robust or steps > 1:
+            time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p),
+                          card, robust=robust, plain=plain)
+    say(f"  launches on the round check paths: {launches}")
+    return launches
+
+
+def host_ms(fn):
+    """Host clock around fn() and a device synchronize, in ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_round_hair(pt, tr, errs, record):
+    """The round hair cell: the generic engine on 1,048,576 rays, the
+    kernel route (B8) on 16,777,216, and the two against each other."""
+    from embree_tpu_torch import scene as pscene
+    from embree_tpu_torch.accel import traverse_generic as tg
+    say("phase 15: round hair cell, 1,048,576 native round B-spline curves: "
+        "the generic engine on 1,048,576 rays, the kernel (B8) on "
+        "16,777,216")
+    n_curves = HAIR_STRANDS * (HAIR_CPS - 3)
+    scene = hair_scene(pt, kind="round")
+    cs, commit_s = commit_timed(scene, "round hair, generic route")
+    check(cs.num_prims == n_curves and cs.packed is None
+          and cs.kinds_present == (9,) and cs.leaf_obb_rot.shape[0] > 0,
+          "not the round hair cell on the generic route")
+    org, d = incoherent_rays(HAIR_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    sub = pt.RayBatch(*(getattr(rays, f)[:ENGINE_RAYS] for f in
+                        ("org", "dir", "tnear", "tfar", "time", "mask")))
+    card = card_line()
+    # ---- the generic engine: the scene's default route ----
+    tr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sel_ms, res = host_ms(lambda: tg.traverse(
+        cs.bvh, pscene._make_prim_test(cs, sub), sub.org, sub.dir, sub.tnear,
+        sub.tfar, max_leaf_size=pscene.LEAF_SIZE,
+        leaf_obb=pscene._scene_leaf_obb(cs)))
+    check(res.overflow == 0, "engine: stack overflow")
+    diff_ms, he = host_ms(lambda: pt.intersect(cs, sub))
+    fast_ms, hf = host_ms(lambda: pt.intersect(cs, sub,
+                                               differentiable=False))
+    occ_ms, oe = host_ms(lambda: pt.occluded(cs, sub))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(not tr.LAUNCHES, "the generic route launched the kernel")
+    valid = he.valid
+    check(torch.equal(valid, hf.valid) and torch.equal(oe, valid)
+          and torch.equal(res.best_prim.long() >= 0, valid),
+          "engine: the entry points disagree")
+    check(bool(torch.isfinite(he.t[valid]).all())
+          and bool(torch.isfinite(he.ng[valid]).all()), "engine: non-finite")
+    check(bool((he.t[~valid] == math.inf).all()), "miss t is not inf")
+    frac = valid.double().mean().item()
+    say(f"  engine: {int(valid.sum())} of {ENGINE_RAYS} rays hit ({frac:.4f});"
+        f" {res.steps} lockstep steps, select {sel_ms:.1f} ms, intersect() "
+        f"{diff_ms:.1f} ms, intersect(differentiable=False) {fast_ms:.1f} ms, "
+        f"occluded {occ_ms:.1f} ms, peak device memory {peak:.3f} GB [{card}]")
+    hb_rays = pt.RayBatch(*(getattr(sub, f)[:32] for f in
+                            ("org", "dir", "tnear", "tfar", "time", "mask")))
+    hb = pt.intersect_brute(cs, hb_rays, chunk=1 << 13)
+    check(torch.equal(hb.valid, valid[:32]), "brute force: masks differ")
+    m = hb.valid
+    check(torch.allclose(hb.t[m], he.t[:32][m], rtol=1e-4),
+          "brute force: t differs")
+    say(f"  brute force on 32 rays: masks equal ({int(m.sum())} hits), t "
+        "within 1e-4")
+    engine = dict(n_rays=ENGINE_RAYS, steps=res.steps, select_ms=sel_ms,
+                  intersect_ms=diff_ms, intersect_fast_ms=fast_ms,
+                  occluded_ms=occ_ms, peak_gb=peak, commit_s=commit_s,
+                  hit_fraction=frac, card=card)
+    e_valid, e_t = valid.clone(), he.t.clone()
+    del res, he, hf, oe, hb, valid
+    del cs
+    torch.cuda.empty_cache()
+
+    # ---- the kernel route: round curves packed (B8) ----
+    with round_packed(pscene):
+        cs, commit_k = commit_timed(scene, "round hair, kernel route")
+    p = cs.packed
+    check(p is not None and p.kind_classes == (9,) and p.nf == 16,
+          "not the round hair cell on the kernel route")
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  launches on the round hair path: {launches}")
+    for base, o, a in KIND_VARIANTS:
+        name = tr.packed_variant(p, o, a, False)
+        check(launches.get(name, 0) > 0, f"the round hair path did not "
+              f"launch {name}")
+    valid = hit.valid
+    check(torch.equal(occ, valid) and torch.equal(hd.valid, valid),
+          "round hair: the entry points disagree")
+    check(bool(torch.isfinite(hit.t[valid]).all())
+          and bool(torch.isfinite(hit.ng[valid]).all()), "round hair: "
+          "non-finite")
+    k_valid = valid[:ENGINE_RAYS]
+    agree = (k_valid == e_valid).double().mean().item()
+    both = k_valid & e_valid
+    rel = ((hit.t[:ENGINE_RAYS][both] - e_t[both]).abs()
+           / e_t[both].clamp(min=1e-3))
+    close = (rel < 0.01).double().mean().item()
+    say(f"  kernel: {int(valid.sum())} of {HAIR_RAYS} rays hit; on the "
+        f"engine's {ENGINE_RAYS} rays hit masks agree on {agree:.6f}, t "
+        f"within 1% on {close:.6f} of {int(both.sum())} rays both hit")
+    check(agree >= 0.97 and close >= 0.95,
+          "B8 and the engine disagree beyond the reference's bounds")
+    engine.update(kernel_agree=agree, kernel_t_close=close)
+    del hit, hd, occ, valid
+    torch.cuda.empty_cache()
+    inputs = sorted_inputs(tr, rays)
+    plain = {}
+    for base, o, a in KIND_VARIANTS:
+        name = tr.packed_variant(p, o, a, False)
+        errs[name] = max(errs.get(name, 0.0), compare(
+            tr, p, inputs, ROUND_COMPARE, o, a, name, plain=plain))
+    flat = rays.reshape(HAIR_RAYS)
+    total_ms = {
+        "closest": events_ms(
+            lambda: pt.intersect(cs, rays, differentiable=False), reps=3),
+        "occluded": events_ms(lambda: pt.occluded(cs, rays), reps=3),
+    }
+    torch.cuda.empty_cache()
+    time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p), card,
+                  total_ms=total_ms, plain=plain)
+    rec = record[tr.packed_variant(p, False, False, False)]
+    rec.update(commit_s=commit_k, table_mb=table_mb(p) / 1e6, engine=engine,
+               n_leaves=p.leaves.shape[0], n_nodes=p.nodes.shape[0])
+    del flat
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        " GB")
+    return launches
+
+
+def phase_engine_vs_kernel(pt, tr):
+    say("phase 16: the generic engine vs the kernel, the kind check scene "
+        "(test_pallas_kernel.py:69-93), 65,536 rays")
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    cs = mixed_check_scene(pt).commit(device=DEV)
+    rays = pt.make_rays(org, d, device=DEV)
+    tr.reset_launch_counts()
+    hk = pt.intersect(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    check(launches.get("closest_kinds", 0) > 0, "the kernel was not launched")
+    tr.reset_launch_counts()
+    hj = pt.intersect(cs, rays, backend="jnp")
+    oj = pt.occluded(cs, rays, backend="jnp")
+    torch.cuda.synchronize()
+    check(not tr.LAUNCHES, "backend='jnp' launched the kernel")
+    check(torch.equal(hk.valid, hj.valid) and torch.equal(oj, hj.valid),
+          "engine and kernel: hit masks differ")
+    m = hk.valid
+    differ = m & ((hk.prim_id != hj.prim_id) | (hk.geom_id != hj.geom_id))
+    ties = ((hk.t[differ] - hj.t[differ]).abs()
+            <= 1e-4 * hj.t[differ].abs().clamp(min=1.0))
+    check(bool(ties.all()), "engine and kernel: prims differ off near-ties")
+    rel = ((hk.t[m] - hj.t[m]).abs() / hj.t[m].abs().clamp(min=1.0)).max()
+    say(f"  {int(m.sum())} hits: masks equal, prim ids equal but "
+        f"{int(differ.sum())} near-ties, max |dt|/t {rel.item():.3e}")
+    return launches
+
+
+def phase_mixed_goldens(pt):
+    from embree_tpu_torch.models.camera import Camera
+    from embree_tpu_torch.models.viewer import render
+    from embree_tpu_torch.tools.viewer import build_scene
+    from embree_tpu_torch.utils.image import compare_images, load_pfm
+    say("phase 17: viewer, the mixed scene (generic engine) at 96x96 vs "
+        "tests/golden")
+    scene, eye = build_scene("mixed", pt)
+    cs = scene.commit(device=DEV)
+    check(cs.packed is None, "the mixed scene has a packed table")
+    cam = Camera(from_point=np.asarray(eye, np.float32),
+                 to_point=np.zeros(3, np.float32),
+                 up=np.array([0, 1, 0], np.float32))
+    for sh in ("eyelight", "primID", "uv"):
+        img = render(cs, cam, VIEW, VIEW, shader=sh).cpu().numpy()
+        check(img.shape == (VIEW, VIEW, 3) and np.isfinite(img).all(),
+              f"mixed/{sh}: bad image")
+        ref = load_pfm(os.path.join(ROOT, "tests", "golden",
+                                    f"mixed_{sh}.pfm"))
+        wrong = compare_images(img, ref)
+        say(f"  mixed/{sh}: {wrong} wrong px")
+        check(wrong <= 10, f"mixed/{sh}: {wrong} wrong pixels")
+
+
 def kernel_entries(record, launches, errs):
     """One entry of the kernels line per timed variant."""
     kernels = []
     for name, rec in record.items():
-        family = ("curves" if "curves" in name else
+        family = ("curves_round" if "curves_round" in name else
+                  "curves" if "curves" in name else
                   "motion_win" if "motion_win" in name else
                   "motion" if "motion" in name else
                   "kinds" if "kinds" in name else
@@ -1314,7 +1651,7 @@ def kernel_entries(record, launches, errs):
         check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
         kernels.append({
             "name": f"traverse_{name}", "route": "cuda",
-            "source": CURVE_SOURCE if family == "curves" else SOURCE,
+            "source": CURVE_SOURCE if "curves" in family else SOURCE,
             "replaces": REPLACES[family], "launches": launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -1360,6 +1697,10 @@ def main():
     launches.update(phase_multistep(pt, tr, sphere_mesh, errs, record))
     launches.update(phase_curves_check(pt, tr, errs, record))
     launches.update(phase_hair(pt, tr, errs, record))
+    launches.update(phase_round_check(pt, tr, errs, record))
+    launches.update(phase_round_hair(pt, tr, errs, record))
+    launches.update(phase_engine_vs_kernel(pt, tr))
+    phase_mixed_goldens(pt)
 
     kernels = kernel_entries(record, launches, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -8,11 +8,12 @@ unless the caller passes ``device="cpu"``; on the CPU every kernel is replaced
 by its plain PyTorch version.
 
 The port covers scenes of triangles, quads, points (sphere, disc, oriented
-disc), line segments (round, flat) and cubic curves (flat native ribbons of
-every basis; tessellated curves as line segments), static or moving, in
-normal and robust mode:
+disc), line segments (round, flat) and cubic curves of every basis (flat,
+round, oriented and distance native curves; tessellated curves as line
+segments), static or moving, in normal and robust mode, with min-width:
 Scene -> commit (native BVH8 build + record packing) -> intersect /
-occluded -> HitBatch, and the viewer.
+occluded -> HitBatch, and the viewer. Scenes the traversal kernel serves
+run it; the others run the generic engine (accel/traverse_generic.py).
 
 The package imports torch and numpy, never jax, and nothing of embree_tpu.
 """

@@ -10,8 +10,9 @@ id-table gathers, unsort) and returns the same values. Beneath it:
   port of ``_kernel`` (traverse_pallas.py:108): the triangle
   specialization (B1), robust mode (B2), per-slot kind tags (B3), points
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
-  per-slot time windows) and flat curves (B7: the ribbon test on 16-field
-  Bezier slots); ``LAUNCHES`` counts its launches per variant.
+  per-slot time windows), flat curves (B7: the ribbon test on 16-field
+  Bezier slots) and round curves (B8: cone candidates and a Newton polish
+  on the same slots); ``LAUNCHES`` counts its launches per variant.
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
@@ -36,7 +37,7 @@ import torch
 
 from .. import _build
 from ..core.math import morton_code, rcp_safe
-from ..geometry import KIND_CURVE_FLAT
+from ..geometry import KIND_CURVE_FLAT, KIND_CURVE_ROUND
 from .pack import INVALID_REC, LEAF_WIDTH, NODE_WORDS, PackedScene
 
 STACK = 64               # entries per ray (STACK_BLOCKS * 8, :65)
@@ -44,9 +45,10 @@ MAX_STEPS = 200_000      # runaway guard (:77)
 INF_BITS = 0x7F800000
 SORT_MIN_RAYS = 128      # the JAX wrapper sorts only batches above one lane row
 
-# kind classes the mixed kernel serves (traverse_pallas.py:525-857); quads
-# ride as triangle slots (class 0), class 8 is the flat curve
-KERNEL_CLASSES = (0, 2, 3, 4, 5, 6, KIND_CURVE_FLAT)
+# kind classes the mixed kernel serves (traverse_pallas.py:525-1046); quads
+# ride as triangle slots (class 0), class 8 is the flat curve, 9 the round
+KERNEL_CLASSES = (0, 2, 3, 4, 5, 6, KIND_CURVE_FLAT, KIND_CURVE_ROUND)
+CURVE_CLASSES = (KIND_CURVE_FLAT, KIND_CURVE_ROUND)
 N_TAGS = 16              # bins of the slot-test counts by kind tag
 # float32 constants of the leaf and slab tests, as the Pallas kernel
 # rounds them
@@ -55,6 +57,9 @@ ROBUST_UP = float(np.float32(1.0 + 3.0 * 1.19209290e-07))
 ULP1 = float(np.float32(1.19209290e-07))
 BIG = float(np.float32(3e38))
 RIBBON_EPS = float(np.float32(4.0 * 1.19209290e-07))   # :759
+SWEEP_ERR = float(np.float32(16.0 * 1.19209290e-07))   # :955, :998, :1020
+ROUND_MIN_RATE = 8       # the round curve's cone segments: max(rate, 8)
+ROUND_NEWTON = 5         # Newton steps per candidate (:962)
 
 # Kernel launches by variant, counted where the kernel is launched and
 # nowhere else (the smoke run zeroes them before a path and reads them
@@ -69,22 +74,26 @@ def reset_launch_counts() -> None:
 def variant_name(occlusion: bool, want_attrs: bool, robust: bool = False,
                  kinds: bool = False, masked: bool = False,
                  motion: bool = False, windows: bool = False,
-                 curves: bool = False) -> str:
+                 curves: bool = False, round_curves: bool = False) -> str:
     """closest | closest_attrs | occluded, then _robust (B2), _kinds (the
     mixed-class kernel, B3-B5) or _curves (the mixed-class kernel with
-    16-field slots and the ribbon, B7), _motion (B6, fields lerped by ray
-    time) or _motion_win (B6 with per-slot time windows, a uniform branch of
-    the same instantiation), and _masked (per-slot mask chunk)."""
+    16-field slots and the ribbon, B7) or _curves_round (the same
+    instantiation on a scene with round slots, B8), _motion (B6, fields
+    lerped by ray time) or _motion_win (B6 with per-slot time windows, a
+    uniform branch of the same instantiation), and _masked (per-slot mask
+    chunk)."""
     name = ("occluded" if occlusion else
             "closest_attrs" if want_attrs else "closest")
     return (name + ("_robust" if robust else "")
-            + ("_curves" if curves else "_kinds" if kinds else "")
+            + ("_curves_round" if round_curves else "_curves" if curves
+               else "_kinds" if kinds else "")
             + ("_motion_win" if windows else "_motion" if motion else "")
             + ("_masked" if masked else ""))
 
 
 def has_curves(packed: PackedScene) -> bool:
-    return KIND_CURVE_FLAT in packed.kind_classes
+    """Whether the scene's slots are the 16-field curve slots."""
+    return any(k in packed.kind_classes for k in CURVE_CLASSES)
 
 
 def packed_variant(packed: PackedScene, occlusion: bool, want_attrs: bool,
@@ -92,7 +101,8 @@ def packed_variant(packed: PackedScene, occlusion: bool, want_attrs: bool,
     """The variant name of a launch on ``packed``."""
     return variant_name(occlusion, want_attrs, robust, packed.has_kinds,
                         packed.has_mask, packed.has_motion, packed.has_win,
-                        has_curves(packed))
+                        has_curves(packed),
+                        KIND_CURVE_ROUND in packed.kind_classes)
 
 
 def ribbon_weights(rate: int) -> np.ndarray:
@@ -109,18 +119,34 @@ def ribbon_weights(rate: int) -> np.ndarray:
     return np.asarray(rows, np.float64).astype(np.float32)
 
 
+def round_segments(rate: int) -> int:
+    """The round curve's cone segments at the scene's rate (:865)."""
+    return max(int(rate), ROUND_MIN_RATE)
+
+
+def curve_weights(rate: int) -> np.ndarray:
+    """The kernel's knot table of a curve scene at ``rate``, flat: the
+    ribbon's ``ribbon_weights(rate)`` rows, then at each of the round
+    curve's R + 1 knots (R = ``round_segments(rate)``) the cubic Bernstein
+    weights of k / R (``bezw``, :870), float64 rounded to float32."""
+    n = round_segments(rate)
+    cubic = ribbon_weights(n)[:, :4]
+    return np.concatenate([ribbon_weights(rate).reshape(-1),
+                           cubic.reshape(-1)])
+
+
 _weights_cache: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
-def _ribbon_weights_on(packed: PackedScene, device) -> Optional[torch.Tensor]:
-    """The ribbon weights of the scene's rate on ``device`` (None without
+def _curve_weights_on(packed: PackedScene, device) -> Optional[torch.Tensor]:
+    """The knot table of the scene's rate on ``device`` (None without
     curves), made once per rate and device."""
     if not has_curves(packed):
         return None
     key = (int(packed.curve_rate), str(device))
     if key not in _weights_cache:
         _weights_cache[key] = torch.from_numpy(
-            ribbon_weights(packed.curve_rate).reshape(-1)).to(device)
+            curve_weights(packed.curve_rate)).to(device)
     return _weights_cache[key]
 
 
@@ -136,6 +162,9 @@ class TraceResult:
     # the scene's classes only (the plain version counts them; the
     # operation count of a bound needs them)
     class_slots: Optional[torch.Tensor] = None
+    # () int64 round-curve candidates polished over all leaf visits (the
+    # plain version counts them: the kernel polishes these only)
+    round_candidates: Optional[torch.Tensor] = None
 
 
 def _coherence_key(org, dir, tnear=None, tfar=None):
@@ -212,6 +241,8 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
     if packed.nf != (16 if has_curves(packed) else 9):
         raise ValueError(f"{packed.nf} fields per slot: curve scenes take "
                          "16, others 9")
+    if has_curves(packed) and not packed.has_kinds:
+        raise ValueError("curve scenes carry kind tags")
     if has_curves(packed) and packed.curve_rate < 1:
         raise ValueError(f"ribbon rate {packed.curve_rate} is below 1")
     if packed.nodes.shape[0] < 1 or packed.leaves.shape[0] < 1:
@@ -262,8 +293,8 @@ def _call_args(packed, org, dir, tnear, tfar, mask, time, outs, occlusion,
             int(packed.has_mask), int(robust), int(packed.has_kinds),
             sum(1 << k for k in packed.kind_classes),
             int(packed.has_motion), int(packed.has_win), int(packed.nf),
-            int(packed.curve_rate), _ptr(_ribbon_weights_on(packed,
-                                                            org.device))]
+            int(packed.curve_rate), _ptr(_curve_weights_on(packed,
+                                                           org.device))]
 
 
 # ---------------------------------------------------------------------------
@@ -696,6 +727,170 @@ def _leaf_ribbon(f, o, tn, tf, frame, weights):
     return rib_hit, rib_t
 
 
+def _leaf_round_curve(f, o, d, tn, tf, weights):
+    """B8: the round curve's swept circle (:858-1046) on 16-field Bezier
+    slots. Each of R cone segments between knots k / R gives a candidate
+    (the round line's tangent cone, no end spheres); every candidate seeds
+    a 5-step Jacobian-Newton polish of the exact sweep equations in the
+    frame recentred on the curve; the nearest root confirmed on a candidate
+    segment wins. ``weights``: (R + 1, 4) float32 tensor, the
+    ``curve_weights`` cubic rows of the round knots.
+
+    The R segments ride a trailing axis: each element's arithmetic is the
+    Pallas kernel's for its segment (the min over segments is exact), with
+    R times fewer operations launched."""
+    ox, oy, oz = (x[..., None] for x in o)
+    dx, dy, dz = (x[..., None] for x in d)
+    tn = tn[..., None]
+    tf = tf[..., None]
+    cpx = [f[4 * j][..., None] for j in range(4)]
+    cpy = [f[4 * j + 1][..., None] for j in range(4)]
+    cpz = [f[4 * j + 2][..., None] for j in range(4)]
+    cpr = [f[4 * j + 3][..., None] for j in range(4)]
+    n_seg = weights.shape[0] - 1
+    w = [weights[:, j] for j in range(4)]
+    ddot = dx * dx + dy * dy + dz * dz
+    rcpdd = 1.0 / _jmax(ddot, 1e-30)
+
+    def bez(w, c):
+        return w[0] * c[0] + w[1] * c[1] + w[2] * c[2] + w[3] * c[3]
+
+    qx, qy, qz, qr = (bez(w, c) for c in (cpx, cpy, cpz, cpr))
+    p0x, p0y, p0z, r0 = (q[..., :-1] for q in (qx, qy, qz, qr))
+    p1x, p1y, p1z, r1 = (q[..., 1:] for q in (qx, qy, qz, qr))
+    ccx = 0.5 * (p0x + p1x)
+    ccy = 0.5 * (p0y + p1y)
+    ccz = 0.5 * (p0z + p1z)
+    dtl = ((ccx - ox) * dx + (ccy - oy) * dy + (ccz - oz) * dz) * rcpdd
+    o2x = ox + dtl * dx
+    o2y = oy + dtl * dy
+    o2z = oz + dtl * dz
+    dpx = p1x - p0x
+    dpy = p1y - p0y
+    dpz = p1z - p0z
+    dpdp = dpx * dpx + dpy * dpy + dpz * dpz
+    drr = r1 - r0
+    r0dr = r0 * drr
+    gco = dpdp - drr * drr
+    oxx = o2x - p0x
+    oyy = o2y - p0y
+    ozz = o2z - p0z
+    odp = oxx * dpx + oyy * dpy + ozz * dpz
+    dodp = dx * dpx + dy * dpy + dz * dpz
+    ypc = odp + r0dr
+    oo = oxx * oxx + oyy * oyy + ozz * ozz
+    odo = dx * oxx + dy * oyy + dz * ozz
+    ac = gco * ddot - dodp * dodp
+    bc = 2.0 * (gco * odo - dodp * ypc)
+    cc = gco * oo - odp * odp - r0 * r0 * dpdp - 2.0 * r0dr * odp
+    dc = bc * bc - 4.0 * ac * cc
+    cone_ok = (dc >= 0.0) & (gco > 0.0) & (ac.abs() > 1e-18)
+    qc = _sqrt(_jmax(dc, 0.0))
+    rc2a = 1.0 / _where(cone_ok, 2.0 * ac, 1.0)
+    tcf = (-bc - qc) * rc2a
+    tcb = (-bc + qc) * rc2a
+    ycf = ypc + tcf * dodp
+    ycb = ypc + tcb * dodp
+    cf_ok = cone_ok & (ycf > 0.0) & (ycf <= gco)
+    cb_ok = cone_ok & (ycb > 0.0) & (ycb <= gco)
+    tlo = _where(cf_ok, tcf, BIG)
+    tup = _where(cb_ok, tcb, -BIG)
+    lo_ok = (tn <= dtl + tlo) & (dtl + tlo <= tf) & (tlo < BIG)
+    up_ok = (tn <= dtl + tup) & (dtl + tup <= tf) & (tup > -BIG)
+    t_i = dtl + torch.where(lo_ok, tlo, tup)
+    y_i = torch.where(lo_ok, ycf, ycb)
+    hit_i = lo_ok | up_ok
+    seg = torch.arange(n_seg, dtype=torch.float32, device=t_i.device)
+    # divided by a device tensor: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, inexact for R = 12
+    u_i = ((seg + _jmin(_jmax(y_i / _jmax(gco, 1e-30), 0.0), 1.0))
+           / torch.full((), float(n_seg), device=t_i.device))
+
+    # the Newton frame: the ray recentred at the curve's CP centroid
+    cenx = 0.25 * (cpx[0] + cpx[1] + cpx[2] + cpx[3])
+    ceny = 0.25 * (cpy[0] + cpy[1] + cpy[2] + cpy[3])
+    cenz = 0.25 * (cpz[0] + cpz[1] + cpz[2] + cpz[3])
+    dtc = ((cenx - ox) * dx + (ceny - oy) * dy + (cenz - oz) * dz) * rcpdd
+    relx = [c - (ox + dtc * dx) for c in cpx]
+    rely = [c - (oy + dtc * dy) for c in cpy]
+    relz = [c - (oz + dtc * dz) for c in cpz]
+    bmax = torch.zeros_like(relx[0])
+    for j in range(4):
+        for c in (relx[j], rely[j], relz[j], cpr[j]):
+            bmax = _jmax(bmax, c.abs())
+    p_err = SWEEP_ERR * bmax
+    len_dir = _sqrt(_jmax(ddot, 1e-36))
+
+    def d1(c, b0, b1, b2):
+        return 3.0 * (b0 * (c[1] - c[0]) + b1 * (c[2] - c[1])
+                      + b2 * (c[3] - c[2]))
+
+    def d2(c, un):
+        return 6.0 * ((1.0 - un) * (c[2] - 2 * c[1] + c[0])
+                      + un * (c[3] - 2 * c[2] + c[1]))
+
+    # a segment without a candidate seeds at the curve centre (finite
+    # arithmetic; its result is masked out)
+    un = u_i
+    t0w = torch.where(hit_i, t_i, dtc)
+    tn_ = t0w - dtc
+    ok = torch.zeros_like(hit_i)
+    t_p = t0w
+    for _ in range(ROUND_NEWTON):
+        sm = 1.0 - un
+        wn = (sm * sm * sm, 3.0 * sm * sm * un, 3.0 * sm * un * un,
+              un * un * un)
+        px, py, pz, pr = (bez(wn, c) for c in (relx, rely, relz, cpr))
+        b0 = sm * sm
+        b1 = 2.0 * sm * un
+        b2 = un * un
+        dpx, dpy, dpz, dpr = (d1(c, b0, b1, b2)
+                              for c in (relx, rely, relz, cpr))
+        ddx, ddy, ddz = (d2(c, un) for c in (relx, rely, relz))
+        rx = tn_ * dx - px
+        ry = tn_ * dy - py
+        rz = tn_ * dz - pz
+        len_r = _sqrt(_jmax(rx * rx + ry * ry + rz * rz, 0.0))
+        q_err = SWEEP_ERR * len_dir * tn_
+        r_err = _jmax(q_err, p_err)
+        dp2 = dpx * dpx + dpy * dpy + dpz * dpz
+        rl = 1.0 / _sqrt(_jmax(dp2, 1e-36))
+        tx, ty, tz = dpx * rl, dpy * rl, dpz * rl
+        dd = dpx * ddx + dpy * ddy + dpz * ddz
+        rl3 = rl * rl * rl
+        dtx = (ddx * dp2 - dpx * dd) * rl3
+        dty = (ddy * dp2 - dpy * dd) * rl3
+        dtz = (ddz * dp2 - dpz * dd) * rl3
+        cos_err = p_err * rl
+        fv = rx * tx + ry * ty + rz * tz
+        f_err = len_r * p_err + r_err + cos_err * (1.0 + len_r)
+        dfdu = (-dpx * tx - dpy * ty - dpz * tz
+                + rx * dtx + ry * dty + rz * dtz)
+        dfdt = dx * tx + dy * ty + dz * tz
+        k = _jmax(rx * rx + ry * ry + rz * rz - fv * fv, 0.0)
+        dkdu = (-rx * dpx - ry * dpy - rz * dpz) - fv * dfdu
+        dkdt = (rx * dx + ry * dy + rz * dz) - fv * dfdt
+        rsk = 1.0 / _sqrt(_jmax(k, 1e-36))
+        gv = _sqrt(k) - pr
+        g_err = r_err + f_err + SWEEP_ERR * bmax
+        dgdu = dkdu * rsk - dpr
+        dgdt = dkdt * rsk
+        det = dfdu * dgdt - dfdt * dgdu
+        rdet = _where(det.abs() > 1e-30, 1.0 / det, 0.0)
+        du = (dgdt * fv - dfdt * gv) * rdet
+        dt_ = (-dgdu * fv + dfdu * gv) * rdet
+        conv = (fv.abs() < f_err) & (gv.abs() < g_err)
+        tw = tn_ + dtc
+        okn = conv & (tn <= tw) & (tw <= tf) & (un >= 0.0) & (un <= 1.0)
+        t_p = torch.where(okn & ~ok, tw, t_p)
+        ok = ok | okn
+        un = torch.where(ok, un, un - du)
+        tn_ = torch.where(ok, tn_, tn_ - dt_)
+    okh = ok & hit_i
+    newt_t = _where(okh, t_p, float("inf")).amin(-1)
+    return hit_i.any(-1) & okh.any(-1), newt_t, hit_i.sum(-1)
+
+
 def _fields(rec, at, nf):
     """The nf fields of a record's field block at word ``at``, each
     (n, 8)."""
@@ -709,9 +904,10 @@ def _chunk(rec, at):
 
 def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
                   time=None):
-    """Per-slot (valid, t, u/v of class 0, kind tag, fields) of one leaf
-    record per ray, selected by the kind tag where the record carries one
-    (:1048-1057). Moving scenes first lerp every field A -> B as
+    """Per-slot (valid, t, u/v of class 0, kind tag, fields, round-curve
+    candidates per slot or None) of one leaf record per ray, selected by
+    the kind tag where the record carries one (:1048-1057). Moving scenes
+    first lerp every field A -> B as
     a + w * (b - a), with w the ray time or, in windowed scenes, the
     clipped window-local time, and reject slots whose window misses the
     ray time (:502-520, :1059-1060)."""
@@ -732,6 +928,7 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
     ddot = dx * dx + dy * dy + dz * dz
     results = []
     uv = None
+    cands = None
     f9 = f[:9]
     for k in packed.kind_classes:
         if k == 0:
@@ -747,9 +944,14 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
             v, t = _leaf_round_line(f9, o, d, tn, tf, ddot)
         elif k == 6:
             v, t = _leaf_flat_line(f9, o, d, tn, tf)
-        else:
+        elif k == KIND_CURVE_FLAT:
             weights = ribbon_weights(packed.curve_rate).tolist()
             v, t = _leaf_ribbon(f, o, tn, tf, curve_frame(d), weights)
+        else:
+            n_seg = round_segments(packed.curve_rate)
+            weights = torch.from_numpy(ribbon_weights(n_seg)[:, :4]).to(
+                tn.device)
+            v, t, cands = _leaf_round_curve(f, o, d, tn, tf, weights)
         results.append((k, v, t))
     if not packed.has_kinds:
         _, valid, tt = results[0]
@@ -764,7 +966,9 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
             tt = torch.where(sel, t, tt)
     if win_ok is not None:
         valid = valid & win_ok
-    return valid, tt, uv, tag, f
+    if cands is not None:
+        cands = torch.where(tag == KIND_CURVE_ROUND, cands, 0)
+    return valid, tt, uv, tag, f, cands
 
 
 def _bf16_pairs(words):
@@ -809,6 +1013,7 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
     cur = torch.zeros(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
     class_slots = torch.zeros(N_TAGS, dtype=torch.int64, device=dev)
+    round_cands = torch.zeros((), dtype=torch.int64, device=dev)
     live = tnear <= tfar
     if not packed.has_mask:
         # mask-free scenes fold the ray mask into activation (:1231-1235)
@@ -871,7 +1076,7 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             rec = leaves[lid.clamp(0, n_leaves - 1)]
             o = org[la]
             d = dir[la]
-            valid, tt, uv, tag, f = _leaf_classes(
+            valid, tt, uv, tag, f, cands = _leaf_classes(
                 packed, rec, (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
                 (d[:, 0:1], d[:, 1:2], d[:, 2:3]), tnear[la, None],
                 tf[la, None], robust,
@@ -880,6 +1085,8 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
                                    .clamp(0, N_TAGS - 1),
                                    torch.ones_like(tag.reshape(-1),
                                                    dtype=torch.int64))
+            if cands is not None:
+                round_cands += cands.sum()
             if packed.has_mask:
                 smask = _chunk(rec, packed.chunk_at("mask"))
                 valid = valid & ((smask & mask[la, None]) != 0)
@@ -920,7 +1127,8 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
     in_classes[list(packed.kind_classes)] = True
     return TraceResult(t=tf, best=best, visits=visits, attrs=attrs,
                        overflow=overflow.sum().to(torch.int32),
-                       class_slots=torch.where(in_classes, class_slots, 0))
+                       class_slots=torch.where(in_classes, class_slots, 0),
+                       round_candidates=round_cands)
 
 
 def trace(packed: PackedScene, org, dir, tnear, tfar, mask,

@@ -19,6 +19,15 @@ def cross(a, b):
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
+def sqrt_rn(x):
+    """float32 square root, correctly rounded on every device: CUDA's (and
+    XLA's) is, PyTorch's CPU kernel can be 1 ulp off, so on the CPU the
+    float64 root is rounded once. Differentiable."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def normalize(a, eps=1e-20):
     return a * torch.rsqrt(torch.clamp(dot(a, a), min=eps))[..., None]
 

@@ -1,6 +1,6 @@
 // The kernel entry and its launch dispatch over the template flags, shared
-// by traverse.cu (B1-B6 and the C entry point) and traverse_curves.cu (B7),
-// which nvcc compiles in parallel into objects of one library.
+// by traverse.cu (B1-B6 and the C entry point) and traverse_curves.cu (B7,
+// B8), which nvcc compiles in parallel into objects of one library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,8 +60,9 @@ void launch_motion(const Params& p, int has_mask, int robust, int has_motion,
   }
 }
 
-// The 16 flat-curve variants (traverse_curves.cu): {closest, occluded} x
-// {mask chunk or not} x {robust or not} x {static or moving}.
+// The 16 curve variants (traverse_curves.cu; flat and round slots):
+// {closest, occluded} x {mask chunk or not} x {robust or not} x {static or
+// moving}.
 void launch_curves(const Params& p, int occlusion, int has_mask, int robust,
                    int has_motion, int32_t* ovf, cudaStream_t s);
 

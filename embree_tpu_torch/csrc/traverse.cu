@@ -3,7 +3,8 @@
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
-// (B6); traverse_curves.cu holds flat curves (B7). The per-ray logic, what
+// (B6); traverse_curves.cu holds flat and round curves (B7, B8). The per-ray
+// logic, what
 // bounds it on the card and what this design does about it are in
 // traverse.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
@@ -20,7 +21,7 @@
 // Instantiated variants here (40): triangles-only x {closest with attrs,
 // closest, occluded} and mixed classes x {closest, occluded}, each x {mask
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
-// curve tag go to trav::launch_curves.
+// curve tags go to trav::launch_curves.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).
@@ -50,7 +51,7 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = has_motion;
   int32_t* ovf = out_overflow;
-  if ((kind_classes >> trav::kTagCurve) & 1) {
+  if ((kind_classes >> trav::kTagCurve) & 3) {
     trav::launch_curves(p, occlusion, has_mask, robust, m, ovf, s);
   } else if (has_kinds) {
     if (occlusion) {

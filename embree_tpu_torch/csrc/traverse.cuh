@@ -9,9 +9,10 @@
 // round cone-sphere with the begin-cap flag, flat ray-facing, :622-717),
 // motion blur (B6: every field lerped from step A to step B by the ray time,
 // or by the window-local time with per-slot [t0, t1] windows in time-sliced
-// scenes, :502-520, :1059-1060) and flat curves (B7: the ribbon on 16-field
+// scenes, :502-520, :1059-1060), flat curves (B7: the ribbon on 16-field
 // slots holding 4 Bezier CPs as x, y, z, r, with the per-ray curve frame,
-// :719-856, :194-221). Each ray walks the exact sequence of records the
+// :719-856, :194-221) and round curves (B8: the swept circle on the same
+// slots, :858-1046). Each ray walks the exact sequence of records the
 // Pallas kernel gives its lane: the same bf16 slab test, the same sort keys
 // (t bits with the low 3 bits replaced by the slot), the same push order,
 // the same strict `t < tfar` acceptance, and every leaf expression in the
@@ -42,6 +43,18 @@
 // leaf visit. Nothing else is done about the bound yet; later designs can
 // take the ribbons of one warp together.
 //
+// B8 is bound by operations too, more than B7: a round slot at rate 4 (8
+// cone segments) costs about 1,330 operations, and each candidate a
+// segment yields about 1,300 more for its 5 Newton steps (round_slot_ops
+// and ROUND_CANDIDATE_OPS in chip_smoke.py count them from this file).
+// The Pallas kernel computes all 8 candidates, then polishes each; here
+// each segment's candidate is polished as soon as it is found, and a
+// segment without one is not polished at all (its result is masked out in
+// Pallas), so only the slot's 16 CPs, its Newton frame and one knot pair
+// stay live. The knots' Bernstein weights come from the weight table after
+// the ribbon's (curve_w). Round slots share the CURVES variants with the
+// ribbon: the slot's tag picks the test at run time.
+//
 // The file is compiled by nvcc into the kernel (traverse.cu, and
 // traverse_curves.cu for the CURVES variants) and by g++ into a CPU twin
 // (traverse_cpu.cpp) that the tests hold against the plain PyTorch
@@ -69,7 +82,11 @@ constexpr int kNodeWords = 32;         // 8 child refs + 24 bf16 lo|hi words
 constexpr int kLeafFields = 72;        // 9 fields x 8 slots, field-major
 constexpr int kCurveFields = 16;       // per slot in curve scenes (B7)
 constexpr int kTagCurve = 8;           // KIND_CURVE_FLAT
+constexpr int kTagRound = 9;           // KIND_CURVE_ROUND
 constexpr int kKnotWeights = 7;        // per ribbon knot: 4 cubic + 3 quadratic
+constexpr int kRoundWeights = 4;       // per round knot: 4 cubic
+constexpr int kRoundMinRate = 8;       // round segments: max(rate, 8) (:865)
+constexpr int kRoundNewton = 5;        // Newton steps per candidate (:962)
 constexpr float kMinWindow = 1e-9f;    // the window-width floor (:511)
 // robust slab widening, rounded to float32 as the Pallas kernel does
 constexpr float kRobustDown = static_cast<float>(1.0 - 3.0 * 1.19209290e-07);
@@ -78,6 +95,8 @@ constexpr float kUlp1 = 1.19209290e-07f;
 constexpr float kBig = 3e38f;
 // the ribbon's small-derivative threshold factor (:759), rounded as Pallas
 constexpr float kRibbonEps = static_cast<float>(4.0 * 1.19209290e-07);
+// the sweep's error-bound factor (:955, :998, :1020)
+constexpr float kSweepErr = static_cast<float>(16.0 * 1.19209290e-07);
 
 struct Params {
   const int32_t* nodes;    // (n_nodes, 32)
@@ -100,7 +119,8 @@ struct Params {
   const float* time;       // (R,) ray times (MOTION)
   int32_t has_win;         // records carry per-slot windows (MOTION)
   int32_t curve_rate;      // ribbon segments per curve (CURVES)
-  const float* curve_w;    // (curve_rate + 1, 7) knot weights (CURVES)
+  const float* curve_w;    // (curve_rate + 1, 7) ribbon knot weights, then
+                           // (max(curve_rate, 8) + 1, 4) round (CURVES)
 };
 
 // A variant that does not exist: attributes with kind tags, windows
@@ -110,7 +130,7 @@ inline bool bad_variant(int occlusion, int want_attrs, int has_kinds,
                         int kind_classes, int has_motion, int has_win,
                         const float* time, int nf, int curve_rate,
                         const float* curve_w) {
-  const bool curves = (kind_classes >> kTagCurve) & 1;
+  const bool curves = ((kind_classes >> kTagCurve) & 3) != 0;
   return (has_kinds && want_attrs && !occlusion) || (has_win && !has_motion) ||
          (has_motion && time == nullptr) ||
          nf != (curves ? kCurveFields : 9) ||
@@ -593,10 +613,225 @@ TRAV_HD bool leaf_ribbon(const float* cf, const Ray& r, const CurveFrame& fr,
   return rib_hit;
 }
 
+// ---- class 9, B8: the round curve's swept circle (:858-1046) ----
+
+// A knot of the round curve in world space: position and radius.
+struct RoundKnot {
+  float x, y, z, r;
+};
+
+TRAV_HD RoundKnot round_knot(const float* w, const float* cx, const float* cy,
+                             const float* cz, const float* cr) {
+  const float w0 = load1f(w), w1 = load1f(w + 1), w2 = load1f(w + 2),
+              w3 = load1f(w + 3);
+  return RoundKnot{w0 * cx[0] + w1 * cx[1] + w2 * cx[2] + w3 * cx[3],
+                   w0 * cy[0] + w1 * cy[1] + w2 * cy[2] + w3 * cy[3],
+                   w0 * cz[0] + w1 * cz[1] + w2 * cz[2] + w3 * cz[3],
+                   w0 * cr[0] + w1 * cr[1] + w2 * cr[2] + w3 * cr[3]};
+}
+
+// The Newton frame of one round slot: the CPs relative to the ray origin
+// moved to the CP centroid's closest approach (dtc along the ray), the
+// radii, and the error scales (:941-956).
+struct Sweep {
+  float rx[4], ry[4], rz[4], cr[4];
+  float dtc, p_err, len_dir;
+};
+
+// The 5-step Jacobian-Newton polish of one candidate (:957-1035): from
+// (u0, t0w) on the exact sweep equations f = dot(R, T) = 0 and g = |R x T| -
+// r(u) = 0; returns whether a root converged inside [tnear, tf] and u in
+// [0, 1] (its t in t_out, the first such step's).
+TRAV_HD bool round_polish(const Sweep& s, const Ray& r, float tf, float un,
+                          float t0w, float& t_out) {
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  float tn = t0w - s.dtc;
+  bool ok = false;
+  t_out = t0w;
+  for (int it = 0; it < kRoundNewton; ++it) {
+    const float sm = 1.0f - un;
+    const float w0 = sm * sm * sm, w1 = 3.0f * sm * sm * un,
+                w2 = 3.0f * sm * un * un, w3 = un * un * un;
+    const float px = w0 * s.rx[0] + w1 * s.rx[1] + w2 * s.rx[2] +
+                     w3 * s.rx[3];
+    const float py = w0 * s.ry[0] + w1 * s.ry[1] + w2 * s.ry[2] +
+                     w3 * s.ry[3];
+    const float pz = w0 * s.rz[0] + w1 * s.rz[1] + w2 * s.rz[2] +
+                     w3 * s.rz[3];
+    const float pr = w0 * s.cr[0] + w1 * s.cr[1] + w2 * s.cr[2] +
+                     w3 * s.cr[3];
+    const float b0 = sm * sm, b1 = 2.0f * sm * un, b2 = un * un;
+    const float dpx = 3.0f * (b0 * (s.rx[1] - s.rx[0]) +
+                              b1 * (s.rx[2] - s.rx[1]) +
+                              b2 * (s.rx[3] - s.rx[2]));
+    const float dpy = 3.0f * (b0 * (s.ry[1] - s.ry[0]) +
+                              b1 * (s.ry[2] - s.ry[1]) +
+                              b2 * (s.ry[3] - s.ry[2]));
+    const float dpz = 3.0f * (b0 * (s.rz[1] - s.rz[0]) +
+                              b1 * (s.rz[2] - s.rz[1]) +
+                              b2 * (s.rz[3] - s.rz[2]));
+    const float dpr = 3.0f * (b0 * (s.cr[1] - s.cr[0]) +
+                              b1 * (s.cr[2] - s.cr[1]) +
+                              b2 * (s.cr[3] - s.cr[2]));
+    const float ddx =
+        6.0f * ((1.0f - un) * (s.rx[2] - 2.0f * s.rx[1] + s.rx[0]) +
+                un * (s.rx[3] - 2.0f * s.rx[2] + s.rx[1]));
+    const float ddy =
+        6.0f * ((1.0f - un) * (s.ry[2] - 2.0f * s.ry[1] + s.ry[0]) +
+                un * (s.ry[3] - 2.0f * s.ry[2] + s.ry[1]));
+    const float ddz =
+        6.0f * ((1.0f - un) * (s.rz[2] - 2.0f * s.rz[1] + s.rz[0]) +
+                un * (s.rz[3] - 2.0f * s.rz[2] + s.rz[1]));
+    const float rx = tn * dx - px, ry = tn * dy - py, rz = tn * dz - pz;
+    const float len_r = sqrtf(jmax(rx * rx + ry * ry + rz * rz, 0.0f));
+    const float q_err = kSweepErr * s.len_dir * tn;
+    const float r_err = jmax(q_err, s.p_err);
+    const float dp2 = dpx * dpx + dpy * dpy + dpz * dpz;
+    const float rl = 1.0f / sqrtf(jmax(dp2, 1e-36f));
+    const float tx = dpx * rl, ty = dpy * rl, tz = dpz * rl;
+    const float dd = dpx * ddx + dpy * ddy + dpz * ddz;
+    const float rl3 = rl * rl * rl;
+    const float dtx = (ddx * dp2 - dpx * dd) * rl3;
+    const float dty = (ddy * dp2 - dpy * dd) * rl3;
+    const float dtz = (ddz * dp2 - dpz * dd) * rl3;
+    const float cos_err = s.p_err * rl;
+    const float fv = rx * tx + ry * ty + rz * tz;
+    const float f_err = len_r * s.p_err + r_err + cos_err * (1.0f + len_r);
+    const float dfdu =
+        -dpx * tx - dpy * ty - dpz * tz + rx * dtx + ry * dty + rz * dtz;
+    const float dfdt = dx * tx + dy * ty + dz * tz;
+    const float k = jmax(rx * rx + ry * ry + rz * rz - fv * fv, 0.0f);
+    const float dkdu = (-rx * dpx - ry * dpy - rz * dpz) - fv * dfdu;
+    const float dkdt = (rx * dx + ry * dy + rz * dz) - fv * dfdt;
+    const float rsk = 1.0f / sqrtf(jmax(k, 1e-36f));
+    const float gv = sqrtf(k) - pr;
+    // the g bound's last term, 16 ulp of the box, is p_err itself
+    const float g_err = r_err + f_err + s.p_err;
+    const float dgdu = dkdu * rsk - dpr;
+    const float dgdt = dkdt * rsk;
+    const float det = dfdu * dgdt - dfdt * dgdu;
+    const float rdet = fabsf(det) > 1e-30f ? 1.0f / det : 0.0f;
+    const float du = (dgdt * fv - dfdt * gv) * rdet;
+    const float dt = (-dgdu * fv + dfdu * gv) * rdet;
+    const bool conv = fabsf(fv) < f_err && fabsf(gv) < g_err;
+    const float tw = tn + s.dtc;
+    const bool okn =
+        conv && r.tnear <= tw && tw <= tf && un >= 0.0f && un <= 1.0f;
+    if (okn && !ok) t_out = tw;
+    ok = ok || okn;
+    if (!ok) {
+      un = un - du;
+      tn = tn - dt;
+    }
+  }
+  return ok;
+}
+
+// The round curve of one slot: cf holds its 16 fields (CP j at 4j..4j+3 =
+// x, y, z, r), wt the round knots' weights. Each of the n cone segments
+// between knots i and i + 1 (the round line's tangent cone without end
+// spheres, recentred at the segment's midpoint) gives at most one
+// candidate, the front root if it lies in [tnear, tf], else the back one;
+// each candidate is polished at once. tt is the nearest polished root.
+TRAV_HD bool leaf_round_curve(const float* cf, const Ray& r, float tf, int n,
+                              const float* wt, float& tt) {
+  float cx[4], cy[4], cz[4], cr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    cx[j] = cf[4 * j];
+    cy[j] = cf[4 * j + 1];
+    cz[j] = cf[4 * j + 2];
+    cr[j] = cf[4 * j + 3];
+  }
+  const float dx = r.dx, dy = r.dy, dz = r.dz, ddot = r.ddot;
+  const float rcpdd = 1.0f / jmax(ddot, 1e-30f);
+  Sweep s;
+  {
+    const float cenx = 0.25f * (cx[0] + cx[1] + cx[2] + cx[3]);
+    const float ceny = 0.25f * (cy[0] + cy[1] + cy[2] + cy[3]);
+    const float cenz = 0.25f * (cz[0] + cz[1] + cz[2] + cz[3]);
+    s.dtc = ((cenx - r.ox) * dx + (ceny - r.oy) * dy + (cenz - r.oz) * dz) *
+            rcpdd;
+    float bmax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s.rx[j] = cx[j] - (r.ox + s.dtc * dx);
+      s.ry[j] = cy[j] - (r.oy + s.dtc * dy);
+      s.rz[j] = cz[j] - (r.oz + s.dtc * dz);
+      s.cr[j] = cr[j];
+      bmax = jmax(bmax, fabsf(s.rx[j]));
+      bmax = jmax(bmax, fabsf(s.ry[j]));
+      bmax = jmax(bmax, fabsf(s.rz[j]));
+      bmax = jmax(bmax, fabsf(cr[j]));
+    }
+    s.p_err = kSweepErr * bmax;
+    s.len_dir = sqrtf(jmax(ddot, 1e-36f));
+  }
+  bool newt_ok = false;
+  float newt_t = as_float(kInfBits);
+  RoundKnot k0 = round_knot(wt, cx, cy, cz, cr);
+  for (int i = 0; i < n; ++i) {
+    const RoundKnot k1 = round_knot(wt + kRoundWeights * (i + 1), cx, cy, cz,
+                                    cr);
+    const float ccx = 0.5f * (k0.x + k1.x), ccy = 0.5f * (k0.y + k1.y),
+                ccz = 0.5f * (k0.z + k1.z);
+    const float dtl =
+        ((ccx - r.ox) * dx + (ccy - r.oy) * dy + (ccz - r.oz) * dz) * rcpdd;
+    const float o2x = r.ox + dtl * dx, o2y = r.oy + dtl * dy,
+                o2z = r.oz + dtl * dz;
+    const float dpx = k1.x - k0.x, dpy = k1.y - k0.y, dpz = k1.z - k0.z;
+    const float dpdp = dpx * dpx + dpy * dpy + dpz * dpz;
+    const float drr = k1.r - k0.r;
+    const float r0dr = k0.r * drr;
+    const float gco = dpdp - drr * drr;
+    const float oxx = o2x - k0.x, oyy = o2y - k0.y, ozz = o2z - k0.z;
+    const float odp = oxx * dpx + oyy * dpy + ozz * dpz;
+    const float dodp = dx * dpx + dy * dpy + dz * dpz;
+    const float ypc = odp + r0dr;
+    const float oo = oxx * oxx + oyy * oyy + ozz * ozz;
+    const float odo = dx * oxx + dy * oyy + dz * ozz;
+    const float ac = gco * ddot - dodp * dodp;
+    const float bc = 2.0f * (gco * odo - dodp * ypc);
+    const float cc =
+        gco * oo - odp * odp - k0.r * k0.r * dpdp - 2.0f * r0dr * odp;
+    const float dc = bc * bc - 4.0f * ac * cc;
+    const bool cone_ok = dc >= 0.0f && gco > 0.0f && fabsf(ac) > 1e-18f;
+    const float qc = sqrtf(jmax(dc, 0.0f));
+    const float rc2a = 1.0f / (cone_ok ? 2.0f * ac : 1.0f);
+    const float tcf = (-bc - qc) * rc2a;
+    const float tcb = (-bc + qc) * rc2a;
+    const float ycf = ypc + tcf * dodp;
+    const float ycb = ypc + tcb * dodp;
+    const bool cf_ok = cone_ok && ycf > 0.0f && ycf <= gco;
+    const bool cb_ok = cone_ok && ycb > 0.0f && ycb <= gco;
+    const float tlo = cf_ok ? tcf : kBig;
+    const float tup = cb_ok ? tcb : -kBig;
+    const bool lo_ok = r.tnear <= dtl + tlo && dtl + tlo <= tf && tlo < kBig;
+    const bool up_ok =
+        r.tnear <= dtl + tup && dtl + tup <= tf && tup > -kBig;
+    if (lo_ok || up_ok) {
+      const float t_i = dtl + (lo_ok ? tlo : tup);
+      const float y_i = lo_ok ? ycf : ycb;
+      const float u_i =
+          (static_cast<float>(i) +
+           jmin(jmax(y_i / jmax(gco, 1e-30f), 0.0f), 1.0f)) /
+          static_cast<float>(n);
+      float t_p;
+      if (round_polish(s, r, tf, u_i, t_i, t_p)) {
+        newt_t = jmin(newt_t, t_p);
+        newt_ok = true;
+      }
+    }
+    k0 = k1;
+  }
+  tt = newt_t;
+  return newt_ok;
+}
+
 // Slot test of one class by its tag (the mixed-class kernel). Tags outside
 // the scene's classes stay invalid, as an unmatched tag does in Pallas.
-// Curve slots (tag 8) never come here: their 16 fields take the CURVES
-// leaf below.
+// Curve slots (tags 8 and 9) never come here: their 16 fields take the
+// CURVES leaf below.
 template <bool ROBUST>
 TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
                          const Ray& r, float tf, float& tt) {
@@ -665,11 +900,12 @@ TRAV_HD void lerp_fields(const int32_t* rec, int win_at, bool has_win,
   }
 }
 
-// B7: the slots of one leaf of a curve scene (16-field slots), into the
+// B7, B8: the slots of one leaf of a curve scene (16-field slots), into the
 // leaf's best key. No slot's fields are held past its own test: each test
 // reads its slot's words (field k of slot s is word 8k+s), lerps them by
-// the slot's weight (MOTION), and runs the ribbon for a curve slot or its
-// class test on the first 9 fields for any other.
+// the slot's weight (MOTION), and runs the ribbon for a flat curve slot,
+// the swept circle for a round one, or its class test on the first 9
+// fields for any other.
 template <bool HAS_MASK, bool ROBUST, bool MOTION>
 TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
                         float tf, float rtime, int32_t rmask,
@@ -679,6 +915,9 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
   constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
   constexpr int win_at = kind_at + 8;
   const CurveFrame fr = curve_frame(ray.dx, ray.dy, ray.dz);
+  const int n_round = p.curve_rate > kRoundMinRate ? p.curve_rate
+                                                    : kRoundMinRate;
+  const float* w_round = p.curve_w + kKnotWeights * (p.curve_rate + 1);
 #pragma unroll 1
   for (int s = 0; s < 8; ++s) {
     const int32_t tag = load1(rec + kind_at + s);
@@ -692,7 +931,8 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
     }
     float tt;
     bool valid;
-    if (tag == kTagCurve && ((p.kind_classes >> kTagCurve) & 1)) {
+    if ((tag == kTagCurve || tag == kTagRound) &&
+        ((p.kind_classes >> tag) & 1)) {
       float cf[kCurveFields];
 #pragma unroll
       for (int k = 0; k < kCurveFields; ++k) {
@@ -702,7 +942,9 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
                                cf[k]);
         }
       }
-      valid = leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt);
+      valid = tag == kTagCurve
+                  ? leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt)
+                  : leaf_round_curve(cf, ray, tf, n_round, w_round, tt);
     } else {
       float q[9];
 #pragma unroll
@@ -733,7 +975,8 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
 // one class test per slot (B3-B5); without it every slot is a triangle.
 // MOTION: B6, the leaf fields lerped by the ray time (p.has_win: per-slot
 // windows, a uniform branch); the slot tests then read the lerped fields.
-// CURVES: B7, 16-field slots read slot by slot (curve_leaf); implies KINDS.
+// CURVES: B7 and B8, 16-field slots read slot by slot (curve_leaf); implies
+// KINDS.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES>
 TRAV_HD bool trace_ray(const Params& p, int i) {

@@ -67,7 +67,7 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                         has_motion, has_win, time, nf, curve_rate, curve_w)) {
     return 1;
   }
-  const bool curves = (kind_classes >> trav::kTagCurve) & 1;
+  const bool curves = ((kind_classes >> trav::kTagCurve) & 3) != 0;
   const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
                        org,    dir,      tnear,      tfar,     mask,
                        n_rays, out_t,    out_best,   out_visits, out_attr,

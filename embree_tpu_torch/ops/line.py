@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ..core.math import dot
+from ..core.math import dot, sqrt_rn
 
 SELF_INTERSECTION_AVOIDANCE = 2.0   # the reference's CMake default
 _EPS = 1.19209290e-07
@@ -55,7 +55,7 @@ def intersect_round_line(org, dir, p0, r0, p1, r1, tnear, tfar,
     C = g * OO - OdP * OdP - r0 * r0 * dPdP - 2.0 * r0dr * OdP
     D = B * B - 4.0 * A * C
     cone_ok = (D >= 0.0) & (g > 0.0) & (A.abs() > 1e-18)
-    Q = torch.sqrt(torch.clamp(D, min=0.0))
+    Q = sqrt_rn(torch.clamp(D, min=0.0))
     rcp2A = 1.0 / torch.where(cone_ok, 2.0 * A, torch.ones_like(A))
     tcf = (-B - Q) * rcp2A
     tcb = (-B + Q) * rcp2A
@@ -68,7 +68,7 @@ def intersect_round_line(org, dir, p0, r0, p1, r1, tnear, tfar,
         O1 = o - c
         O1dO = dot(O1, dir)
         h2 = O1dO * O1dO - dOdO * (dot(O1, O1) - r * r)
-        rt = torch.sqrt(torch.clamp(h2, min=0.0))
+        rt = sqrt_rn(torch.clamp(h2, min=0.0))
         return h2 >= 0.0, (-O1dO - rt) * rcp_dOdO, (-O1dO + rt) * rcp_dOdO
 
     s0_ok, ts0f, ts0b = sphere(p0, r0)
@@ -169,7 +169,7 @@ def intersect_flat_line(org, dir, p0, r0, p1, r1, tnear, tfar):
     # self-intersection avoidance (line_intersector.h:77), with 1/sqrt as
     # the traversal kernel takes it, so re-intersecting the kernel's hit
     # passes the same threshold
-    t_min = SELF_INTERSECTION_AVOIDANCE * r * (1.0 / torch.sqrt(dOdO))
+    t_min = SELF_INTERSECTION_AVOIDANCE * r * (1.0 / sqrt_rn(dOdO))
     hit = ((d2 <= r * r) & (t >= tnear) & (t <= tfar) & (t > t_min)
            # degenerate segments never hit (line_intersector.h:82-84)
            & (v != 0.0).any(-1))

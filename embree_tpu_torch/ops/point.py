@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math import dot
+from ..core.math import dot, sqrt_rn
 
 
 def _safe_div(a, b, ok):
@@ -23,7 +23,7 @@ def intersect_sphere(org, dir, center, radius, tnear, tfar):
     c = dot(oc, oc) - radius * radius
     disc = b * b - 4 * a * c
     ok = disc >= 0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt_rn(torch.clamp(disc, min=0.0))
     inv2a = 1.0 / torch.clamp(2 * a, min=1e-30)
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a

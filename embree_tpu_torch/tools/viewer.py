@@ -1,8 +1,9 @@
 """Built-in procedural scenes of the viewer, the subset the port covers.
 
-Port of embree_tpu/tools/viewer.py::build_scene (:21-58): the cube + ground
-plane and the UV sphere, built with vectorized numpy. The ``mixed`` scene
-holds a round curve, which the port does not cover yet.
+Port of embree_tpu/tools/viewer.py::build_scene (:21-71): the cube + ground
+plane, the UV sphere (built with vectorized numpy) and the ``mixed`` scene
+(a quad floor, two spheres and a native round Bezier curve, which rides
+the generic engine).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ def cube_plane():
 
 def build_scene(name: str, et):
     """Returns (Scene, eye point) for a built-in scene; ``et`` is the package
-    whose Scene/TriangleGeometry to use."""
+    whose Scene and geometry classes to use."""
     if name == "cube":
         s = et.Scene()
         for v, i in cube_plane():
@@ -56,4 +57,18 @@ def build_scene(name: str, et):
         s = et.Scene()
         s.attach(et.TriangleGeometry(verts, idx))
         return s, (0.0, 0.8, 3.0)
+    if name == "mixed":
+        s = et.Scene()
+        s.attach(et.QuadGeometry(
+            np.array([[-4, -1, -4], [4, -1, -4], [4, -1, 4], [-4, -1, 4]],
+                     np.float32), np.array([[0, 1, 2, 3]], np.int32)))
+        s.attach(et.PointGeometry(
+            np.array([[-1, 0, 0, 0.5], [1, 0, 0.5, 0.4]], np.float32),
+            kind="sphere"))
+        s.attach(et.CurveGeometry(
+            np.array([[-1, 0.5, 0, 0.06], [-0.4, 1.4, 0, 0.06],
+                      [0.4, 1.4, 0, 0.06], [1, 0.5, 0.5, 0.06]], np.float32),
+            np.array([0], np.int32), basis="bezier", kind="round",
+            tessellation_rate=12))
+        return s, (0.0, 1.5, 4.5)
     raise NotImplementedError(f"scene '{name}' is not covered by the port")

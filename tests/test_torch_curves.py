@@ -679,11 +679,15 @@ def test_brute_matches_intersect():
     np.testing.assert_allclose(hb.t.numpy()[m], hr.t.numpy()[m], rtol=1e-4)
 
 
-def _refused(case):
+def _served(case):
     rng = np.random.default_rng(12)
     cp, idx = fat_curves(rng, 2)
     if case in ("round", "oriented"):
-        return [pt.CurveGeometry(cp, idx, basis="bspline", kind=case)]
+        # oriented curves need a normal spline (a zero one is a degenerate
+        # surface that no ray hits)
+        nrm = rng.normal(size=(cp.shape[0], 3)).astype(F32)
+        return [pt.CurveGeometry(cp, idx, basis="bspline", kind=case,
+                                 normals=nrm if case == "oriented" else None)]
     if case == "distance":
         return [pt.CurveGeometry(cp, idx, kind="flat", algorithm="distance")]
     if case == "mixed_rates":
@@ -694,17 +698,49 @@ def _refused(case):
                              tessellation_rate=16)]
 
 
-@pytest.mark.parametrize("case", ["round", "oriented", "distance",
-                                  "mixed_rates", "fat_joint"])
+CURVE_CASES = ["round", "oriented", "distance", "mixed_rates", "fat_joint"]
+# what each case is committed with, all of it still refused
+REFUSED_WITH = {"round": "filter", "oriented": "compact", "distance": "high",
+                "mixed_rates": "refit", "fat_joint": "two_level"}
+
+
+@pytest.mark.parametrize("case", CURVE_CASES)
 def test_refused_curves(case):
-    """What the JAX package serves with its generic engine raises
-    NotImplementedError: native round, oriented and distance curves,
-    flat curves of two rates, fat-jointed tessellated round curves."""
-    s = pt.Scene()
-    for g in _refused(case):
+    """The curve scenes the generic engine serves, committed with what the
+    port still refuses (an intersection filter, a compact scene, HIGH or
+    REFIT quality, a two-level scene), raise NotImplementedError."""
+    how = REFUSED_WITH[case]
+    s = pt.Scene(compact=how == "compact",
+                 quality={"high": pt.BuildQuality.HIGH,
+                          "refit": pt.BuildQuality.REFIT}.get(
+                              how, pt.BuildQuality.MEDIUM))
+    for g in _served(case):
+        if how == "filter":
+            g.filter = lambda *a: True
         s.attach(g)
     with pytest.raises(NotImplementedError):
-        s.commit(device="cpu")
+        s.commit(device="cpu", two_level=how == "two_level")
+
+
+@pytest.mark.parametrize("case", CURVE_CASES)
+def test_served_curves(case):
+    """Native round, oriented and distance curves, flat curves of two rates
+    and fat-jointed tessellated round curves commit without a packed table
+    (the generic engine answers them, as in the JAX package) and agree with
+    brute force."""
+    s = pt.Scene()
+    for g in _served(case):
+        s.attach(g)
+    cs = s.commit(device="cpu")
+    assert cs.packed is None
+    org, d, tn, tf, mask, time = rays_for("served", lambda et: _served(case))
+    r = pt.make_rays(org[32:], d[32:], device="cpu")
+    h = pt.intersect(cs, r)
+    hb = pt.intersect_brute(cs, r)
+    m = hb.valid.numpy()
+    assert m.sum() > 5
+    np.testing.assert_array_equal(h.valid.numpy(), m)
+    np.testing.assert_allclose(h.t.numpy()[m], hb.t.numpy()[m], rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -223,33 +223,51 @@ def _tri():
             np.array([[0, 1, 2]], np.int32))
 
 
+def _fat_chain():
+    # tests/test_geometries.py:414-421: joint radius 1 on unit segments
+    return pt.LineSegmentsGeometry(
+        np.array([[0, 1, 0, 1.0], [0, 2, 0, 1.0], [0, 2.8, 0, 0.1]],
+                 np.float32), np.array([0, 1], np.int32), kind="round")
+
+
+def _round_curve():
+    return pt.CurveGeometry(
+        np.array([[0, 0, 0, 0.1], [1, 0, 0, 0.1], [2, 0, 0, 0.1],
+                  [3, 0, 0, 0.1]], np.float32),
+        np.array([0], np.int32), basis="bezier", kind="round")
+
+
 @pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width",
                                   "moving_instance", "filter", "compact",
                                   "high", "refit", "two_level",
                                   "from_arrays_motion_curve"])
 def test_refused_scenes(case):
+    """What the port does not cover raises NotImplementedError: filters
+    (here on a native round curve), instances (here of a fat-jointed
+    chain, and moving), compact scenes, HIGH quality (here with min-width),
+    REFIT quality, two-level scenes, and scenes carried across with
+    filters."""
     v, i = _tri()
     kw = {}
     if case == "compact":
         kw = {case: True}
     if case == "min_width":
-        kw = {"min_width_factor": 1.0}
+        kw = {"min_width_factor": 1.0, "quality": BuildQuality.HIGH}
     if case == "high":
         kw = {"quality": BuildQuality.HIGH}
     if case == "refit":
         kw = {"quality": BuildQuality.REFIT}
     s = pt.Scene(**kw)
     if case == "curve":
-        # native round curves ride the JAX package's generic engine
-        s.attach(pt.CurveGeometry(
-            np.array([[0, 0, 0, 0.1], [1, 0, 0, 0.1], [2, 0, 0, 0.1],
-                      [3, 0, 0, 0.1]], np.float32),
-            np.array([0], np.int32), basis="bezier", kind="round"))
+        g = _round_curve()
+        g.filter = lambda *a: True
+        s.attach(g)
     elif case == "fat_joint":
-        # tests/test_geometries.py:414-421: joint radius 1 on unit segments
-        s.attach(pt.LineSegmentsGeometry(
-            np.array([[0, 1, 0, 1.0], [0, 2, 0, 1.0], [0, 2.8, 0, 0.1]],
-                     np.float32), np.array([0, 1], np.int32), kind="round"))
+        child = et.Scene()
+        child.attach(et.LineSegmentsGeometry(
+            np.asarray(_fat_chain().vertices), np.array([0, 1], np.int32),
+            kind="round"))
+        s.attach(et.InstanceGeometry(child, np.eye(3, 4, dtype=np.float32)))
     elif case == "moving_instance":
         # tests/test_geometries.py:252: a (2, 3, 4) transform lerped by time
         child = et.Scene()
@@ -266,12 +284,39 @@ def test_refused_scenes(case):
         if case == "two_level":
             s.commit(device="cpu", two_level=True)
         elif case == "from_arrays_motion_curve":
-            # a moving curve scene is carried across, but not one with
-            # round curves
+            # a moving round-curve scene is carried across, but not one
+            # with filters
             pt.from_arrays({}, {"has_motion": True, "has_windows": True,
-                                "kinds_present": (0, 9)}, "cpu")
+                                "kinds_present": (0, 9), "filters": True},
+                           "cpu")
         else:
             s.commit(device="cpu")
+
+
+@pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width"])
+def test_served_scenes(case):
+    """A native round curve, a fat-jointed chain and a min-width scene
+    commit without a packed table (the generic engine, as in the JAX
+    package), and the rays that graze them hit as brute force says."""
+    s = pt.Scene(min_width_factor=0.5 if case == "min_width" else 0.0,
+                 max_radius_scale=8.0)
+    if case == "curve":
+        s.attach(_round_curve())
+    else:
+        s.attach(_fat_chain())
+    cs = s.commit(device="cpu")
+    assert cs.packed is None
+    rng = np.random.default_rng(3)
+    org = rng.uniform(-2, 4, (256, 3)).astype(np.float32)
+    aim = np.asarray(s._geoms[0].vertices)[rng.integers(0, 3, 256), :3]
+    r = pt.make_rays(org, aim + rng.normal(0, 0.3, (256, 3)) - org,
+                     device="cpu")
+    h = pt.intersect(cs, r)
+    hb = pt.intersect_brute(cs, r)
+    m = hb.valid.numpy()
+    assert m.sum() > 20
+    np.testing.assert_array_equal(h.valid.numpy(), m)
+    np.testing.assert_allclose(h.t.numpy()[m], hb.t.numpy()[m], rtol=1e-5)
 
 
 def test_detach_and_disabled():
