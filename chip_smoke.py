@@ -4,15 +4,15 @@ Drives the port's main path through its public entry points and holds the
 Hopper traversal kernel against its plain PyTorch version:
 
 1. the card: name and power limit from nvidia-smi;
-2. build the kernel (nvcc, sm_90a: its two sources compile in parallel and
-   link into one library) and the native BVH builder (g++) from the sources
-   in this checkout, one compiler process each, in parallel;
+2. build the kernel (nvcc, sm_90a: its three sources compile in parallel
+   and link into one library) and the native BVH builder (g++) from the
+   sources in this checkout, one compiler process each, in parallel;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow;
 4. the main path at full size: the 2,097,152-triangle sphere committed by the
-   port, 16,777,216 incoherent rays through intersect(differentiable=False)
-   and occluded; a brute-force check on a few rays; kernel vs plain version
+   port, 16,777,216 incoherent rays through both intersect modes and
+   occluded; a brute-force check on a few rays; kernel vs plain version
    on 262,144 of the rays; kernel and wrapper times (CUDA events, median
    of 5 after a warm-up) and the plain version's time;
    then the same sphere with geometry mask 0x2 and random ray masks, to time
@@ -75,7 +75,8 @@ Hopper traversal kernel against its plain PyTorch version:
 18. the kernels line, then the result line.
 
 Launch counts are zeroed just before each driven path (4-17) and read just
-after; a variant the path uses that was never launched fails the run. Any
+after; a variant the path uses that was never launched fails the run, and
+the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
 line. It refuses to run without a CUDA device. To stay near its earlier
 length, phases 10 and 11 hold the kernel against the plain version on
@@ -162,6 +163,7 @@ VARIANTS = (("closest_attrs", False, True), ("closest", False, False),
 KIND_VARIANTS = (("closest", False, False), ("occluded", True, False))
 SOURCE = "embree_tpu_torch/csrc/traverse.cu"
 CURVE_SOURCE = "embree_tpu_torch/csrc/traverse_curves.cu"
+ROUND_SOURCE = "embree_tpu_torch/csrc/traverse_round.cu"
 DEV = "cuda"
 CHECK_MESH = (64, 128)       # the 16K-tri sphere (bench.py default)
 CHECK_RAYS = 1 << 20
@@ -366,10 +368,11 @@ def plain_run(tr, packed, inputs, occ, attrs, robust):
 
 
 def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
-                  robust=False, total_ms=None, plain=None):
+                  launches, robust=False, total_ms=None, plain=None):
     """Kernel time (CUDA events, median of 5 after a warm-up), step counts,
     bound and plain-version time of each variant at the inputs' shape; the
-    records go into ``record`` under the variant's launch-count name.
+    records go into ``record`` under the variant's launch-count name, each
+    with its count in ``launches``, those of the path driven on this cell.
     ``plain``: the plain runs ``compare`` already made, by variant name;
     where they saw a sample of the rays (scenes whose plain run is too long
     for all rays), their slot tests by kind tag are scaled to this run by
@@ -378,6 +381,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
     total_ms = total_ms or {}
     for base, o, a in variants:
         name = tr.packed_variant(packed, o, a, robust)
+        check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
         res = {}
 
         def run():
@@ -447,7 +451,8 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                    n_rays=n_rays, plain_rays=plain_rays,
                    steps_per_ray=(node_v + leaf_v) / n_rays,
                    max_steps=max_steps,
-                   mrays_per_s=n_rays / ms / 1e3, card=card)
+                   mrays_per_s=n_rays / ms / 1e3, card=card,
+                   launches=launches[name])
         if base in total_ms:
             rec["entry_point_ms"] = total_ms[base]
             rec["wrapper_ms"] = total_ms[base] - ms
@@ -503,13 +508,16 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
     # ---- the main path, launch counts zeroed just before, read after ----
     tr.reset_launch_counts()
     hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
     occ = pt.occluded(cs, rays)
     torch.cuda.synchronize()
     launches = dict(tr.LAUNCHES)
     say(f"  launches on the main path: {launches}")
-    check(launches.get("closest_attrs", 0) > 0
-          and launches.get("occluded", 0) > 0,
-          "the main path did not launch the kernel")
+    check(all(launches.get(n, 0) > 0 for n, _, _ in VARIANTS),
+          "the main path did not launch every variant")
+    check(torch.equal(hd.valid, hit.valid) and torch.equal(hd.t, hit.t),
+          "the two intersect modes disagree")
+    del hd
     valid = hit.valid
     n_hit = int(valid.sum())
     say(f"  intersect: {n_hit} of {n_rays} rays hit; occluded: "
@@ -549,7 +557,7 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
     time_variants(tr, packed, inputs, VARIANTS, record, table_bytes, card,
-                  total_ms=total_ms)
+                  launches, total_ms=total_ms)
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
     del cs, rays, inputs, packed
@@ -592,9 +600,7 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
-                  table_mb(cs.packed), card, total_ms=total_ms)
-    launches.update(masked)
-    return launches
+                  table_mb(cs.packed), card, masked, total_ms=total_ms)
 
 
 def phase_viewer(pt, tr):
@@ -621,8 +627,8 @@ def phase_viewer(pt, tr):
             check(wrong <= 10, f"{sc}/{sh}: {wrong} wrong pixels")
     launches = dict(tr.LAUNCHES)
     say(f"  launches on the viewer path: {launches}")
-    check(launches["closest"] > 0, "the viewer did not launch the kernel")
-    return launches
+    check(launches.get("closest", 0) > 0,
+          "the viewer did not launch the kernel")
 
 
 def moving(a, shift, steps):
@@ -699,19 +705,19 @@ def phase_kinds_check(pt, tr, errs, record):
         hit = pt.intersect(cs, rays)
         occ = pt.occluded(cs, rays)
         torch.cuda.synchronize()
-        launches.update(tr.LAUNCHES)
+        got = dict(tr.LAUNCHES)
+        launches.update(got)
         check(torch.equal(occ, hit.valid), "occluded disagrees with intersect")
         inputs = sorted_inputs(tr, rays)
         for base, o, a in KIND_VARIANTS:
             name = tr.variant_name(o, a, robust, True, masked)
-            check(launches.get(name, 0) > 0, f"{name} was not launched")
+            check(got.get(name, 0) > 0, f"{name} was not launched")
             errs[name] = max(errs.get(name, 0.0), compare(
                 tr, cs.packed, inputs, KINDS_RAYS, o, a, name, robust))
         if masked or robust:
             time_variants(tr, cs.packed, inputs, KIND_VARIANTS, record,
-                          table_mb(cs.packed), card, robust=robust)
+                          table_mb(cs.packed), card, got, robust=robust)
     say(f"  launches on the check paths: {launches}")
-    return launches
 
 
 def phase_robust(pt, tr, sphere_mesh, errs, record):
@@ -765,8 +771,8 @@ def phase_robust(pt, tr, sphere_mesh, errs, record):
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
-                  table_mb(cs.packed), card, robust=True, total_ms=total_ms)
-    return launches
+                  table_mb(cs.packed), card, launches, robust=True,
+                  total_ms=total_ms)
 
 
 def prim_sphere_quads(center, radius, num_phi):
@@ -934,7 +940,8 @@ def phase_mixed(pt, tr, errs, record):
     # the plain version timed on the compare sample (on all 16M rays it
     # took over two minutes of the run)
     time_variants(tr, cs.packed, inputs, KIND_VARIANTS, record,
-                  table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
+                  table_mb(cs.packed), card, launches, total_ms=total_ms,
+                  plain=plain)
     rec = record["closest_kinds"]
     rec.update(select_ms=select_ms, reconstruct_ms=recon_ms,
                differentiable_entry_ms=diff_ms, commit_s=commit_s,
@@ -946,7 +953,6 @@ def phase_mixed(pt, tr, errs, record):
         f"_reconstruct_hits {recon_ms:.3f} ms [{card}]")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
-    return launches
 
 
 def ray_times(n, seed=2):
@@ -1024,14 +1030,14 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
     # walk thousands of overlapping boxes: it is timed on the compare
     # sample only
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
-                  table_mb(cs.packed), card, total_ms=total_ms, plain=plain)
+                  table_mb(cs.packed), card, launches, total_ms=total_ms,
+                  plain=plain)
     for base, o, a in VARIANTS:
         record[tr.packed_variant(cs.packed, o, a, False)].update(
             commit_s=commit_s, table_mb=table_mb(cs.packed) / 1e6,
             hit_fraction=frac)
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
-    return launches
 
 
 def phase_motion(pt, tr, sphere_mesh, errs, record):
@@ -1046,8 +1052,8 @@ def phase_motion(pt, tr, sphere_mesh, errs, record):
         c = torch.zeros(t.shape + (3,), dtype=torch.float64, device=t.device)
         c[:, 0] = MOTION_SHIFT * t.double()
         return c
-    return motion_cell(pt, tr, "2-step motion", s, 2 * MAIN_MESH[0]
-                       * MAIN_MESH[1], MAIN_MESH, center, errs, record)
+    motion_cell(pt, tr, "2-step motion", s, 2 * MAIN_MESH[0]
+                * MAIN_MESH[1], MAIN_MESH, center, errs, record)
 
 
 def phase_multistep(pt, tr, sphere_mesh, errs, record):
@@ -1068,9 +1074,8 @@ def phase_multistep(pt, tr, sphere_mesh, errs, record):
         k = x.floor().clamp(0, MSTEP_STEPS - 2)
         w = (x - k)[:, None]
         return (1 - w) * off[k.long()] + w * off[k.long() + 1]
-    launches = motion_cell(pt, tr, "multi-step motion", s, MSTEP_PRIMS,
-                           MSTEP_MESH, center, errs, record)
-    return launches
+    motion_cell(pt, tr, "multi-step motion", s, MSTEP_PRIMS, MSTEP_MESH,
+                center, errs, record)
 
 
 def phase_motion_check(pt, tr, sphere_mesh, errs, record):
@@ -1126,9 +1131,8 @@ def phase_motion_check(pt, tr, sphere_mesh, errs, record):
             errs[name] = max(errs.get(name, 0.0), compare(
                 tr, cs.packed, inputs, KINDS_RAYS, o, a, name, robust))
         time_variants(tr, cs.packed, inputs, variants, record,
-                      table_mb(cs.packed), card, robust=robust)
+                      table_mb(cs.packed), card, got, robust=robust)
     say(f"  launches on the motion check paths: {launches}")
-    return launches
 
 
 def fat_curves(rng, n, step=0.15, r0=0.02, dr=0.002, wiggle=0.05):
@@ -1240,9 +1244,8 @@ def phase_curves_check(pt, tr, errs, record):
         # the static as-is variants are timed in the hair cell
         if masked or robust or steps > 1:
             time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p),
-                          card, robust=robust, plain=plain)
+                          card, got, robust=robust, plain=plain)
     say(f"  launches on the curve check paths: {launches}")
-    return launches
 
 
 def hair_scene(pt, kind="flat"):
@@ -1338,7 +1341,7 @@ def phase_hair(pt, tr, errs, record):
     del best, select
     torch.cuda.empty_cache()
     time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p), card,
-                  total_ms=total_ms, plain=plain)
+                  launches, total_ms=total_ms, plain=plain)
     rec = record[tr.packed_variant(p, False, False, False)]
     rec.update(select_ms=select_ms, reconstruct_ms=recon_ms,
                differentiable_entry_ms=diff_ms, commit_s=commit_s,
@@ -1351,7 +1354,6 @@ def phase_hair(pt, tr, errs, record):
         f"_reconstruct_hits {recon_ms:.3f} ms [{card}]")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
-    return launches
 
 
 @contextlib.contextmanager
@@ -1445,9 +1447,8 @@ def phase_round_check(pt, tr, errs, record):
         # the static as-is variants are timed in the round hair cell
         if masked or robust or steps > 1:
             time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p),
-                          card, robust=robust, plain=plain)
+                          card, got, robust=robust, plain=plain)
     say(f"  launches on the round check paths: {launches}")
-    return launches
 
 
 def host_ms(fn):
@@ -1574,17 +1575,19 @@ def phase_round_hair(pt, tr, errs, record):
     }
     torch.cuda.empty_cache()
     time_variants(tr, p, inputs, KIND_VARIANTS, record, table_mb(p), card,
-                  total_ms=total_ms, plain=plain)
+                  launches, total_ms=total_ms, plain=plain)
     rec = record[tr.packed_variant(p, False, False, False)]
     rec.update(commit_s=commit_k, table_mb=table_mb(p) / 1e6, engine=engine,
                n_leaves=p.leaves.shape[0], n_nodes=p.nodes.shape[0])
     del flat
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
-    return launches
 
 
 def phase_engine_vs_kernel(pt, tr):
+    """The engine against the kernel on the kind check scene. Its launches
+    are checked here and not reported: the kernels line counts each variant
+    on the path that timed it."""
     say("phase 16: the generic engine vs the kernel, the kind check scene "
         "(test_pallas_kernel.py:69-93), 65,536 rays")
     org, d = incoherent_rays(KINDS_RAYS, 0)
@@ -1593,8 +1596,8 @@ def phase_engine_vs_kernel(pt, tr):
     tr.reset_launch_counts()
     hk = pt.intersect(cs, rays)
     torch.cuda.synchronize()
-    launches = dict(tr.LAUNCHES)
-    check(launches.get("closest_kinds", 0) > 0, "the kernel was not launched")
+    check(tr.LAUNCHES.get("closest_kinds", 0) > 0,
+          "the kernel was not launched")
     tr.reset_launch_counts()
     hj = pt.intersect(cs, rays, backend="jnp")
     oj = pt.occluded(cs, rays, backend="jnp")
@@ -1610,7 +1613,6 @@ def phase_engine_vs_kernel(pt, tr):
     rel = ((hk.t[m] - hj.t[m]).abs() / hj.t[m].abs().clamp(min=1.0)).max()
     say(f"  {int(m.sum())} hits: masks equal, prim ids equal but "
         f"{int(differ.sum())} near-ties, max |dt|/t {rel.item():.3e}")
-    return launches
 
 
 def phase_mixed_goldens(pt):
@@ -1637,8 +1639,9 @@ def phase_mixed_goldens(pt):
         check(wrong <= 10, f"mixed/{sh}: {wrong} wrong pixels")
 
 
-def kernel_entries(record, launches, errs):
-    """One entry of the kernels line per timed variant."""
+def kernel_entries(record, errs):
+    """One entry of the kernels line per timed variant, with the launches
+    of the path that timed it."""
     kernels = []
     for name, rec in record.items():
         family = ("curves_round" if "curves_round" in name else
@@ -1648,11 +1651,11 @@ def kernel_entries(record, launches, errs):
                   "kinds" if "kinds" in name else
                   "robust" if "robust" in name else
                   "masked" if "masked" in name else "")
-        check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
         kernels.append({
             "name": f"traverse_{name}", "route": "cuda",
-            "source": CURVE_SOURCE if "curves" in family else SOURCE,
-            "replaces": REPLACES[family], "launches": launches[name],
+            "source": (ROUND_SOURCE if family == "curves_round" else
+                       CURVE_SOURCE if family == "curves" else SOURCE),
+            "replaces": REPLACES[family], "launches": rec["launches"],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
@@ -1687,28 +1690,26 @@ def main():
     errs = {name: 0.0 for name, _, _ in VARIANTS}
     phase_kernel_check(pt, tr, sphere_mesh, errs)
     record = {}
-    launches = phase_main(pt, tr, sphere_mesh, errs, record)
-    launches["closest"] = phase_viewer(pt, tr)["closest"]
-    launches.update(phase_kinds_check(pt, tr, errs, record))
-    launches.update(phase_robust(pt, tr, sphere_mesh, errs, record))
-    launches.update(phase_mixed(pt, tr, errs, record))
-    launches.update(phase_motion_check(pt, tr, sphere_mesh, errs, record))
-    launches.update(phase_motion(pt, tr, sphere_mesh, errs, record))
-    launches.update(phase_multistep(pt, tr, sphere_mesh, errs, record))
-    launches.update(phase_curves_check(pt, tr, errs, record))
-    launches.update(phase_hair(pt, tr, errs, record))
-    launches.update(phase_round_check(pt, tr, errs, record))
-    launches.update(phase_round_hair(pt, tr, errs, record))
-    launches.update(phase_engine_vs_kernel(pt, tr))
+    phase_main(pt, tr, sphere_mesh, errs, record)
+    phase_viewer(pt, tr)
+    phase_kinds_check(pt, tr, errs, record)
+    phase_robust(pt, tr, sphere_mesh, errs, record)
+    phase_mixed(pt, tr, errs, record)
+    phase_motion_check(pt, tr, sphere_mesh, errs, record)
+    phase_motion(pt, tr, sphere_mesh, errs, record)
+    phase_multistep(pt, tr, sphere_mesh, errs, record)
+    phase_curves_check(pt, tr, errs, record)
+    phase_hair(pt, tr, errs, record)
+    phase_round_check(pt, tr, errs, record)
+    phase_round_hair(pt, tr, errs, record)
+    phase_engine_vs_kernel(pt, tr)
     phase_mixed_goldens(pt)
 
-    kernels = kernel_entries(record, launches, errs)
+    kernels = kernel_entries(record, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
-                   "launches": launches,
-                   "ptxas": ptxas}, f,
-                  indent=1)
+                   "ptxas": ptxas}, f, indent=1)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     # the run drives one card

@@ -4,9 +4,10 @@ Three shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``traverse_cuda``: the Hopper traversal kernel, built with ``nvcc`` for
   ``sm_90a`` (only where a CUDA toolkit exists): ``csrc/traverse.cu``
-  (scenes without curves, and the entry point) and
-  ``csrc/traverse_curves.cu`` (scenes with flat curves) compile to objects
-  in parallel, one process each, and link into one library;
+  (scenes without curves, and the entry point), ``csrc/traverse_curves.cu``
+  (scenes with flat curves only) and ``csrc/traverse_round.cu`` (scenes
+  with round curves) compile to objects in parallel, one process each, and
+  link into one library;
 - ``bvh_builder``: the OpenMP binned-SAH BVH8 builder,
   ``native/bvh_builder.cpp``, built with ``g++``;
 - ``traverse_twin``: the kernel's per-ray logic (``csrc/traverse.cuh``)
@@ -72,7 +73,8 @@ def _targets() -> Dict[str, Target]:
         "traverse_cuda": Target(
             "libtraverse_cuda.so",
             (os.path.join(CSRC, "traverse.cu"),
-             os.path.join(CSRC, "traverse_curves.cu")), (launch, cuh),
+             os.path.join(CSRC, "traverse_curves.cu"),
+             os.path.join(CSRC, "traverse_round.cu")), (launch, cuh),
             (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
                                  "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
             link=(_nvcc(),) + arch + ("-shared",)),

@@ -6,7 +6,8 @@ keeps the JAX wrapper's contract (coherence sort, launch, ``pid_map`` and
 id-table gathers, unsort) and returns the same values. Beneath it:
 
 - ``traverse_kernel`` launches ``csrc/traverse.cu`` (flat curves:
-  ``csrc/traverse_curves.cu``, linked into it) on CUDA tensors. It is the
+  ``csrc/traverse_curves.cu``, round curves: ``csrc/traverse_round.cu``,
+  linked into it) on CUDA tensors. It is the
   port of ``_kernel`` (traverse_pallas.py:108): the triangle
   specialization (B1), robust mode (B2), per-slot kind tags (B3), points
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,

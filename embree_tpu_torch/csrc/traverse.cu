@@ -3,25 +3,25 @@
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
-// (B6); traverse_curves.cu holds flat and round curves (B7, B8). The per-ray
-// logic, what
-// bounds it on the card and what this design does about it are in
-// traverse.cuh.
+// (B6); traverse_curves.cu holds flat curves (B7), traverse_round.cu round
+// curves (B8). The per-ray logic, what bounds it on the card and what this
+// design does about it are in traverse.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
 // (traverse_pallas.py:347-426): global loads through L2 serve a table of any
 // size, so there is no tile cache to manage.
 //
-// Build (the two sources compile in parallel, then link into one library):
+// Build (the three sources compile in parallel, then link into one library):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-//        -Xcompiler -fPIC -c traverse.cu -o traverse.o   (and traverse_curves)
+//        -Xcompiler -fPIC -c traverse.cu -o traverse.o   (and traverse_curves,
+//        traverse_round)
 //   nvcc -gencode arch=compute_90a,code=sm_90a -shared traverse.o
-//        traverse_curves.o -o libtraverse_cuda.so
+//        traverse_curves.o traverse_round.o -o libtraverse_cuda.so
 #include "launch.cuh"
 
 // Instantiated variants here (40): triangles-only x {closest with attrs,
 // closest, occluded} and mixed classes x {closest, occluded}, each x {mask
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
-// curve tags go to trav::launch_curves.
+// curve tags go to trav::launch_curves (flat only) or trav::launch_round.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).
@@ -51,7 +51,9 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = has_motion;
   int32_t* ovf = out_overflow;
-  if ((kind_classes >> trav::kTagCurve) & 3) {
+  if ((kind_classes >> trav::kTagRound) & 1) {
+    trav::launch_round(p, occlusion, has_mask, robust, m, ovf, s);
+  } else if ((kind_classes >> trav::kTagCurve) & 1) {
     trav::launch_curves(p, occlusion, has_mask, robust, m, ovf, s);
   } else if (has_kinds) {
     if (occlusion) {

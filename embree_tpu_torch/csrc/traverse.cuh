@@ -52,11 +52,16 @@
 // segment without one is not polished at all (its result is masked out in
 // Pallas), so only the slot's 16 CPs, its Newton frame and one knot pair
 // stay live. The knots' Bernstein weights come from the weight table after
-// the ribbon's (curve_w). Round slots share the CURVES variants with the
-// ribbon: the slot's tag picks the test at run time.
+// the ribbon's (curve_w). Scenes with round slots run 16 instantiations of
+// their own (ROUND, traverse_round.cu), chosen from kind_classes bit 9, in
+// which the slot's tag picks the ribbon or the swept circle. As a runtime
+// branch of the flat variants the round test took their registers from
+// 89-94 to 111-121 and slowed the flat hair kernel by 19% on an H100
+// (chip_smoke.py), though no flat scene runs it.
 //
 // The file is compiled by nvcc into the kernel (traverse.cu, and
-// traverse_curves.cu for the CURVES variants) and by g++ into a CPU twin
+// traverse_curves.cu and traverse_round.cu for the CURVES variants) and by
+// g++ into a CPU twin
 // (traverse_cpu.cpp) that the tests hold against the plain PyTorch
 // version. Both builds forbid FMA contraction, and both take 1/sqrt for the
 // Pallas kernel's rsqrt, correctly rounded.
@@ -904,9 +909,9 @@ TRAV_HD void lerp_fields(const int32_t* rec, int win_at, bool has_win,
 // leaf's best key. No slot's fields are held past its own test: each test
 // reads its slot's words (field k of slot s is word 8k+s), lerps them by
 // the slot's weight (MOTION), and runs the ribbon for a flat curve slot,
-// the swept circle for a round one, or its class test on the first 9
-// fields for any other.
-template <bool HAS_MASK, bool ROBUST, bool MOTION>
+// the swept circle for a round one (ROUND), or its class test on the first
+// 9 fields for any other.
+template <bool HAS_MASK, bool ROBUST, bool MOTION, bool ROUND>
 TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
                         float tf, float rtime, int32_t rmask,
                         int32_t& best_key, int32_t& best_tb) {
@@ -931,7 +936,7 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
     }
     float tt;
     bool valid;
-    if ((tag == kTagCurve || tag == kTagRound) &&
+    if ((tag == kTagCurve || (ROUND && tag == kTagRound)) &&
         ((p.kind_classes >> tag) & 1)) {
       float cf[kCurveFields];
 #pragma unroll
@@ -942,9 +947,13 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
                                cf[k]);
         }
       }
-      valid = tag == kTagCurve
-                  ? leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt)
-                  : leaf_round_curve(cf, ray, tf, n_round, w_round, tt);
+      if constexpr (ROUND) {
+        valid = tag == kTagCurve
+                    ? leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt)
+                    : leaf_round_curve(cf, ray, tf, n_round, w_round, tt);
+      } else {
+        valid = leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt);
+      }
     } else {
       float q[9];
 #pragma unroll
@@ -975,13 +984,14 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
 // one class test per slot (B3-B5); without it every slot is a triangle.
 // MOTION: B6, the leaf fields lerped by the ray time (p.has_win: per-slot
 // windows, a uniform branch); the slot tests then read the lerped fields.
-// CURVES: B7 and B8, 16-field slots read slot by slot (curve_leaf); implies
-// KINDS.
+// CURVES: B7, 16-field slots read slot by slot (curve_leaf); implies
+// KINDS. ROUND: B8 beside B7, for scenes with round slots; implies CURVES.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES>
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND = false>
 TRAV_HD bool trace_ray(const Params& p, int i) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
   static_assert(!CURVES || KINDS, "curve scenes carry kind tags");
+  static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
   const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   const float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
   const float rdx = rcp_safe(dx), rdy = rcp_safe(dy), rdz = rcp_safe(dz);
@@ -1079,8 +1089,8 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
       int32_t best_key = 0x7FFFFFFF, best_tb = 0;
       float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
       if constexpr (CURVES) {
-        curve_leaf<HAS_MASK, ROBUST, MOTION>(p, rec, ray, tf, rtime, rmask,
-                                             best_key, best_tb);
+        curve_leaf<HAS_MASK, ROBUST, MOTION, ROUND>(p, rec, ray, tf, rtime,
+                                                    rmask, best_key, best_tb);
       } else {
         float f[kLeafFields];
 #pragma unroll

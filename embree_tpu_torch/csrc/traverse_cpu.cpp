@@ -12,12 +12,12 @@
 namespace {
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES>
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 int run(const trav::Params& p) {
   int overflow = 0;
   for (int i = 0; i < p.n_rays; ++i) {
     overflow += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
-                                KINDS, MOTION, CURVES>(p, i)
+                                KINDS, MOTION, CURVES, ROUND>(p, i)
                     ? 1
                     : 0;
   }
@@ -25,25 +25,26 @@ int run(const trav::Params& p) {
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION,
-          bool CURVES>
+          bool CURVES, bool ROUND>
 int run_flags(const trav::Params& p, int has_mask, int robust) {
   constexpr bool O = OCCLUSION, A = WANT_ATTRS, K = KINDS, M = MOTION,
-                 C = CURVES;
+                 C = CURVES, R = ROUND;
   if (has_mask) {
-    return robust ? run<O, A, true, true, K, M, C>(p)
-                  : run<O, A, true, false, K, M, C>(p);
+    return robust ? run<O, A, true, true, K, M, C, R>(p)
+                  : run<O, A, true, false, K, M, C, R>(p);
   }
-  return robust ? run<O, A, false, true, K, M, C>(p)
-                : run<O, A, false, false, K, M, C>(p);
+  return robust ? run<O, A, false, true, K, M, C, R>(p)
+                : run<O, A, false, false, K, M, C, R>(p);
 }
 
-template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool CURVES = false>
+template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool CURVES = false,
+          bool ROUND = false>
 int run_motion(const trav::Params& p, int has_mask, int robust,
                int has_motion) {
   return has_motion
-             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES>(
+             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES, ROUND>(
                    p, has_mask, robust)
-             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES>(
+             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES, ROUND>(
                    p, has_mask, robust);
 }
 
@@ -67,14 +68,19 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                         has_motion, has_win, time, nf, curve_rate, curve_w)) {
     return 1;
   }
-  const bool curves = ((kind_classes >> trav::kTagCurve) & 3) != 0;
   const trav::Params p{nodes,  n_nodes,  leaves,     n_leaves, leaf_stride,
                        org,    dir,      tnear,      tfar,     mask,
                        n_rays, out_t,    out_best,   out_visits, out_attr,
                        kind_classes, time, has_win, curve_rate, curve_w};
   const int m = has_motion;
   int ovf;
-  if (curves) {
+  if ((kind_classes >> trav::kTagRound) & 1) {
+    ovf = occlusion
+              ? run_motion<true, false, true, true, true>(p, has_mask, robust,
+                                                          m)
+              : run_motion<false, false, true, true, true>(p, has_mask,
+                                                           robust, m);
+  } else if ((kind_classes >> trav::kTagCurve) & 1) {
     ovf = occlusion
               ? run_motion<true, false, true, true>(p, has_mask, robust, m)
               : run_motion<false, false, true, true>(p, has_mask, robust, m);

@@ -1,15 +1,14 @@
 // Hopper kernel for BVH8 traversal, one ray per thread: the variants of
-// scenes with native flat or round curves (16-field slots).
+// scenes with native flat curves and no round ones (16-field slots).
 //
-// Replaces embree_tpu/accel/traverse_pallas.py::_kernel's curve
-// specializations (B7: the ribbon, :719-856, with the curve ray frame,
-// :194-221; B8: the round curve's swept circle, :858-1046, a runtime tag
-// branch of the same instantiations), with every other class of a
-// kind-tagged scene beside them.
+// Replaces embree_tpu/accel/traverse_pallas.py::_kernel's flat curve
+// specialization (B7: the ribbon, :719-856, with the curve ray frame,
+// :194-221), with every other class of a kind-tagged scene beside it;
+// traverse_round.cu holds the variants of scenes with round curves (B8).
 // What bounds it on the card and what this design does about it are in
 // traverse.cuh. A source of its own so that nvcc compiles it beside
-// traverse.cu; both objects link into one library (build line there), whose
-// traverse_launch calls launch_curves for curve scenes.
+// traverse.cu; the objects link into one library (build line there), whose
+// traverse_launch calls launch_curves for flat curve scenes.
 #include "launch.cuh"
 
 namespace trav {
