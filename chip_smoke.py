@@ -5,7 +5,8 @@ Hopper traversal kernel against its plain PyTorch version:
 
 1. the card: name and power limit from nvidia-smi;
 2. build the kernel (nvcc, sm_90a: its three sources compile in parallel
-   and link into one library) and the native BVH builder (g++) from the
+   and link into one library), the ablation kernels (two more nvcc
+   processes, one library) and the native BVH builder (g++) from the
    sources in this checkout, one compiler process each, in parallel;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
@@ -72,9 +73,17 @@ Hopper traversal kernel against its plain PyTorch version:
    65,536 rays: equal hit masks, prim ids equal but at near-ties;
 17. the viewer's mixed scene (a round curve: the generic engine) at 96x96
    against tests/golden/mixed_*.pfm;
-18. the kernels line, then the result line.
+18. the traversal ablations (perf/ablate_v7.py, perf/kernel_ablate.py) at
+   the harnesses' size, the 16,384-triangle sphere and 1,048,576 sorted
+   rays: each harness's variants (12 v7, pinned at 24 steps; 9 v5) timed
+   through its entry point, every kernel held against its plain version
+   on 65,536 of the rays (t bits, ids, step row, each ray's steps), the
+   full variants against B1 on the same rays (hit masks, t within 1e-4,
+   prim ids but at near-ties), then the v7 variants again on the main
+   cell's 2,097,152-triangle sphere and 16,777,216 rays beside B1;
+19. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-17) and read just
+Launch counts are zeroed just before each driven path (4-18) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -90,6 +99,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -196,6 +206,23 @@ HAIR_COMPARE = 1 << 18
 ROUND_CHECK = (2048, 512, 32)   # round Bezier, round B-spline, tessellated
 ENGINE_RAYS = 1 << 20           # the generic engine's share of the hair rays
 ROUND_COMPARE = 1 << 16
+# phase 18, the traversal ablations (perf/ablate_v7.py, perf/kernel_ablate.py)
+ABLATE_SOURCES = {"v7": "embree_tpu_torch/csrc/ablate_v7.cu",
+                  "v5": "embree_tpu_torch/csrc/ablate_v5.cu"}
+ABLATE_REPLACES = {"v7": "perf/ablate_v7.py:336",
+                   "v5": "perf/kernel_ablate.py:310"}
+ABLATE_COMPARE = 1 << 16
+# bytes of one record each variant reads per visit
+ABLATE_LEAF_BYTES = {"v7": 288, "v5": 192}
+# operations of one visit by phase, counted from csrc/ablate.cuh as NODE_OPS
+# and LEAF_OPS are from traverse.cuh: the slab test 8 x 26, keys without it
+# 8 x 2; the sort 19 compare-exchanges; per Moeller slot 55, and v5's
+# count, mask and first-minimum tests 4 per slot
+ABLATE_SLAB_OPS = 8 * 26
+ABLATE_REFS_OPS = 8 * 2
+ABLATE_SORT_OPS = 19
+ABLATE_SLOT_OPS = {"v7": 55, "v5": 55 + 4}
+ABLATE_SLOTS = {"v7": 8, "v5": 4}
 
 
 def say(*a):
@@ -1639,11 +1666,214 @@ def phase_mixed_goldens(pt):
         check(wrong <= 10, f"mixed/{sh}: {wrong} wrong pixels")
 
 
+def ablate_bound(unit, flags, node_v, leaf_v, n_rays, tabs):
+    """Least time of one ablation variant on this run's data: the larger of
+    the bytes it must move (each record table it reads once, each ray's
+    inputs once, its outputs once) over the memory rate and its operations
+    (this run's node and leaf visits times each enabled phase's count) over
+    the fp32 rate. Also the time of the bytes its record reads come to,
+    visit by visit (node visits x 128 B + leaf visits x 288 or 192 B)."""
+    f_node, f_leaf, m_node, m_leaf, sort = flags
+    nbytes = (4 * (tabs.nodes.numel() * f_node + tabs.leaves.numel() * f_leaf)
+              + n_rays * (RAY_IN_BYTES + 16))
+    node_ops = ((ABLATE_SLAB_OPS if m_node == "slab" else
+                 ABLATE_REFS_OPS if m_node == "refs" else 0)
+                + (ABLATE_SORT_OPS if sort and m_node != "none" else 0))
+    leaf_ops = ABLATE_SLOTS[unit] * ABLATE_SLOT_OPS[unit] if m_leaf else 0
+    ops = node_v * node_ops + leaf_v * leaf_ops
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    visit_bytes = (node_v * 128 * f_node
+                   + leaf_v * ABLATE_LEAF_BYTES[unit] * f_leaf)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", visit_bytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def ablate_registers(ptxas):
+    """Registers of each ablation instantiation by (unit, flags word), from
+    the ptxas lines of the build (entries v7_kernel<F>, v5_kernel<F>)."""
+    regs, cur = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"(v[57])_kernelILi(\d+)E", line)
+        if m:
+            cur = (m.group(1), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            regs[cur] = int(m.group(1))
+            cur = None
+    return regs
+
+
+def b1_on(tr, packed, rays, card):
+    """B1 closest on the ablation's rays: (ms, its record: ms, ray steps
+    at nodes and leaves, the most steps of a ray)."""
+    ms = events_ms(lambda: tr.traverse_kernel(packed, *rays))
+    v = tr.traverse_kernel(packed, *rays).visits
+    rec = dict(ms=ms, node_visits=int(v[0].sum(dtype=torch.int64)),
+               leaf_visits=int(v[1].sum(dtype=torch.int64)),
+               max_steps=int((v[0] + v[1]).max()), card=card)
+    say(f"  B1 closest on the same rays: {ms:.3f} ms, "
+        f"{rec['node_visits']} node + {rec['leaf_visits']} leaf steps, "
+        f"max {rec['max_steps']} [{card}]")
+    return ms, rec
+
+
+def phase_ablations(pt, tr, record, regs):
+    """The two traversal ablations (perf/) at the harnesses' size, the v7
+    variants again on the main cell; ``regs``: ablate_registers."""
+    from embree_tpu_torch.perf import ablate_v7 as v7
+    from embree_tpu_torch.perf import harness, scenes, tables
+    from embree_tpu_torch.perf import kernel_ablate as v5
+    say("phase 18: traversal ablations (perf/ablate_v7.py, "
+        "perf/kernel_ablate.py): 16K-tri sphere, 1,048,576 sorted rays")
+    card = card_line()
+    cs = scenes.sphere_scene(device=DEV)
+    tabs = {"v7": tables.v7_tables(cs.packed).to(DEV),
+            "v5": tables.pack_v5(cs).to(DEV)}
+    for unit, t in tabs.items():
+        say(f"  {unit} tables: {t.n_node_tiles} node tiles, "
+            f"{t.n_leaf_tiles} leaf tiles, {t.table_bytes / 1e6:.3f} MB")
+    rays = scenes.harness_rays(device=DEV)
+    n = rays[0].shape[0]
+    b1_check_ms, b1_check = b1_on(tr, cs.packed, rays, card)
+    record["ablate_b1"] = dict(check_cell=b1_check)
+
+    # ---- the harnesses' main loops (each variant: a warm-up and 5 timed
+    # calls), launch counts zeroed just before, read just after ----
+    harness.reset_launch_counts()
+    runs = {"v7": v7.run_variants(tabs["v7"], rays),
+            "v5": v5.run_variants(tabs["v5"], rays)}
+    torch.cuda.synchronize()
+    launches = dict(harness.LAUNCHES)
+    say(f"  launches on the ablation path: {launches}")
+    for unit, recs in runs.items():
+        for rec in recs:
+            check(launches.get(rec["kernel"], 0) > 0,
+                  f"{rec['kernel']}: no launch on its path")
+
+    # ---- kernel vs plain version on every 16th ray ----
+    k = n // ABLATE_COMPARE
+    sample = [x[::k][:ABLATE_COMPARE].contiguous() for x in rays]
+    mods = {"v7": v7, "v5": v5}
+    plain = {}
+    for unit, mod in mods.items():
+        for name, kw in mod.VARIANTS:
+            kw = dict(kw)
+            args = (kw.pop("UGRP"),) if unit == "v5" else ()
+            a = mod.traverse_kernel(tabs[unit], *sample, *args, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            b = mod.traverse_plain(tabs[unit], *sample, *args, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            plain[(unit, name)] = e0.elapsed_time(e1)
+            label = f"{unit} {name}"
+            check(torch.equal(a.t.view(torch.int32), b.t.view(torch.int32)),
+                  f"{label}: t bits differ")
+            check(torch.equal(a.best, b.best), f"{label}: ids differ")
+            check(torch.equal(a.steps[:, 0], b.steps[:, 0]),
+                  f"{label}: step row differs")
+            check(torch.equal(a.visits, b.visits),
+                  f"{label}: ray steps differ")
+            say(f"  {label}: {ABLATE_COMPARE} rays, "
+                f"{int((a.best >= 0).sum())} hits, kernel == plain (t bits, "
+                f"ids, steps); plain {plain[(unit, name)]:.1f} ms")
+
+    # ---- the full variants against B1 on the same rays ----
+    b1 = tr.traverse_kernel(cs.packed, *sample)
+    pid = cs.packed.pid_map
+    b1_prim = torch.where(b1.best >= 0, pid[b1.best.clamp(min=0).long()], -1)
+    a7 = v7.traverse_kernel(tabs["v7"], *sample, max_steps=harness.MAX_STEPS)
+    check(int(a7.visits.sum(0).max()) < harness.MAX_STEPS,
+          "v7 did not finish")
+    slot = a7.best.reshape(-1)[:ABLATE_COMPARE].long()
+    p7 = torch.where(slot >= 0, tabs["v7"].pid_map[slot.clamp(min=0)], -1)
+    a5 = v5.traverse_kernel(tabs["v5"], *sample, 16)
+    for unit, t, prim in (("v7", a7.t, p7),
+                          ("v5", a5.t, a5.best.reshape(-1)[:ABLATE_COMPARE])):
+        t = t.reshape(-1)[:ABLATE_COMPARE]
+        hit = b1_prim >= 0
+        check(torch.equal(prim >= 0, hit), f"{unit} full vs B1: hit masks")
+        rel = ((t[hit] - b1.t[hit]).abs() / b1.t[hit].abs().clamp(min=1e-30))
+        same = (prim[hit] == b1_prim[hit]).double().mean().item()
+        exact = int((t.view(torch.int32) == b1.t.view(torch.int32)).sum())
+        say(f"  {unit} full vs B1: masks equal ({int(hit.sum())} hits), max "
+            f"|dt|/t {rel.max().item():.3e}, prim ids equal on {same:.6f}, "
+            f"t bit-equal on {exact} of {ABLATE_COMPARE}")
+        check(rel.max().item() <= 1e-4, f"{unit} full vs B1: t differs")
+        check(same > 0.99, f"{unit} full vs B1: prim ids differ")
+        record.setdefault("ablate_vs_b1", {})[unit] = dict(
+            rays=ABLATE_COMPARE, hits=int(hit.sum()),
+            max_rel_dt=rel.max().item(), prim_equal=same, t_bit_equal=exact)
+
+    # ---- records: time, launches, bound, plain time ----
+    for unit, recs in runs.items():
+        for rec in recs:
+            fl = rec["flags"]
+            if unit == "v7":
+                flags = (fl["f_node"], fl["f_leaf"],
+                         "slab" if fl["m_node"] else "refs", fl["m_leaf"],
+                         fl["sort"])
+            else:
+                flags = (fl["do_fetch"], fl["do_fetch"],
+                         "slab" if fl["do_node"] else "none", fl["do_leaf"],
+                         fl["do_sort"])
+            bound, by, visit_ms = ablate_bound(unit, flags, rec["node_visits"],
+                                               rec["leaf_visits"], n,
+                                               tabs[unit])
+            rec.update(unit=unit, plain_ms=plain[(unit, rec["name"])],
+                       registers=regs.get((unit, rec["flag_bits"])),
+                       b1_ms=b1_check_ms,
+                       plain_rays=ABLATE_COMPARE, n_rays=n, bound_ms=bound,
+                       bound_by=by, visit_bytes_ms=visit_ms, card=card,
+                       launches=launches[rec["kernel"]])
+            key = f"ablate_{unit}_{rec['name'].replace(' ', '_')}"
+            record[key] = rec
+            say(f"  {key}: {rec['ms']:.3f} ms, {rec['registers']} "
+                f"registers, bound {bound:.4f} ms ({by}), "
+                f"record reads {visit_ms:.4f} ms, plain {rec['plain_ms']:.1f}"
+                f" ms on {ABLATE_COMPARE} rays, {rec['launches']} launches "
+                f"[{card}]")
+    del cs, tabs, rays, sample
+    torch.cuda.empty_cache()
+
+    # ---- the v7 variants on the main cell, beside B1 ----
+    say("  v7 on the main cell: sphere_mesh(1024, 1024), 16,777,216 sorted "
+        "rays")
+    cs = scenes.sphere_scene(*MAIN_MESH, device=DEV)
+    t7 = tables.v7_tables(cs.packed).to(DEV)
+    rays = scenes.harness_rays(MAIN_RAYS, device=DEV)
+    b1_ms, record["ablate_b1"]["main_cell"] = b1_on(tr, cs.packed, rays,
+                                                    card)
+    main_cell = v7.run_variants(t7, rays)
+    for rec in main_cell:
+        rec.update(card=card, b1_ms=b1_ms, n_rays=MAIN_RAYS)
+    record["ablate_v7_main_cell"] = dict(b1_ms=b1_ms, card=card,
+                                         table_mb=t7.table_bytes / 1e6,
+                                         variants=main_cell)
+    del cs, t7, rays
+    torch.cuda.empty_cache()
+
+
 def kernel_entries(record, errs):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it."""
     kernels = []
     for name, rec in record.items():
+        if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
+            continue
+        if name.startswith("ablate_"):
+            unit = rec["unit"]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": ABLATE_SOURCES[unit],
+                "replaces": ABLATE_REPLACES[unit],
+                "launches": rec["launches"], "max_abs_err": 0.0,
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": None, "kernel": rec["kernel"]})
+            continue
         family = ("curves_round" if "curves_round" in name else
                   "curves" if "curves" in name else
                   "motion_win" if "motion_win" in name else
@@ -1680,12 +1910,16 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     say("phase 2: build")
-    secs = _build.build_all(["traverse_cuda", "bvh_builder"])
+    secs = _build.build_all(["traverse_cuda", "ablate_cuda", "bvh_builder"])
     say(f"  built in {secs:.2f} s")
     ptxas = _build.BUILD_LOGS.get("traverse_cuda", "")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())
+    ptxas_ablate = _build.BUILD_LOGS.get("ablate_cuda", "")
+    for line in ptxas_ablate.splitlines():
+        if any(k in line for k in ("Compiling entry", "registers", "spill")):
+            say("  ptxas (ablate): " + line.strip())
 
     errs = {name: 0.0 for name, _, _ in VARIANTS}
     phase_kernel_check(pt, tr, sphere_mesh, errs)
@@ -1704,12 +1938,14 @@ def main():
     phase_round_hair(pt, tr, errs, record)
     phase_engine_vs_kernel(pt, tr)
     phase_mixed_goldens(pt)
+    phase_ablations(pt, tr, record, ablate_registers(ptxas_ablate))
 
     kernels = kernel_entries(record, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
-                   "ptxas": ptxas}, f, indent=1)
+                   "ptxas": ptxas, "ptxas_ablate": ptxas_ablate}, f,
+                  indent=1)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     # the run drives one card

@@ -1,6 +1,6 @@
 """Build the port's native code at first use.
 
-Three shared libraries, each with a plain C interface loaded through ctypes:
+Shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``traverse_cuda``: the Hopper traversal kernel, built with ``nvcc`` for
   ``sm_90a`` (only where a CUDA toolkit exists): ``csrc/traverse.cu``
@@ -12,7 +12,11 @@ Three shared libraries, each with a plain C interface loaded through ctypes:
   ``native/bvh_builder.cpp``, built with ``g++``;
 - ``traverse_twin``: the kernel's per-ray logic (``csrc/traverse.cuh``)
   compiled for the host with ``g++``. Tests use it to check the kernel's
-  arithmetic where there is no GPU; it is never on the main path.
+  arithmetic where there is no GPU; it is never on the main path;
+- ``ablate_cuda``: the two traversal ablation kernels of ``perf/``
+  (``csrc/ablate_v7.cu``, ``csrc/ablate_v5.cu``, compiled in parallel and
+  linked into one library), and ``ablate_twin``, their per-ray step
+  (``csrc/ablate.cuh``) compiled for the host for the tests.
 
 Every library goes into one build directory inside the package (``_build/``,
 listed in ``.gitignore``) and is rebuilt when it is missing or older than one
@@ -78,6 +82,15 @@ def _targets() -> Dict[str, Target]:
             (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
                                  "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
             link=(_nvcc(),) + arch + ("-shared",)),
+        # the two traversal ablations (perf/), one library
+        "ablate_cuda": Target(
+            "libablate_cuda.so",
+            (os.path.join(CSRC, "ablate_v7.cu"),
+             os.path.join(CSRC, "ablate_v5.cu")),
+            (os.path.join(CSRC, "ablate.cuh"), cuh),
+            (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
+                                 "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
+            link=(_nvcc(),) + arch + ("-shared",)),
         # the same flags as the JAX package's copy of the builder, so both
         # build the same tree from the same bounds
         "bvh_builder": Target(
@@ -89,6 +102,11 @@ def _targets() -> Dict[str, Target]:
             "libtraverse_twin.so", (os.path.join(CSRC, "traverse_cpu.cpp"),),
             (cuh,), ("g++", "-O2", "-std=c++17", "-ffp-contract=off",
                      "-shared", "-fPIC")),
+        "ablate_twin": Target(
+            "libablate_twin.so", (os.path.join(CSRC, "ablate_cpu.cpp"),),
+            (os.path.join(CSRC, "ablate.cuh"), cuh),
+            ("g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+             "-fPIC")),
     }
 
 

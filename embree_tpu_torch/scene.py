@@ -246,10 +246,14 @@ class _Merger:
         for k, v in cols.items():
             self.tab[k].append(np.asarray(v, np.float32))
 
-    def _steps(self, buf, name):
-        """The buffer at the current window's two ends (scene.py:385-388)."""
+    def _steps(self, buf, name, flags_motion=True):
+        """The buffer at the current window's two ends (scene.py:385-388).
+        ``flags_motion``: a moving buffer sets the scene's motion flag; the
+        JAX merger drops the flag of normal derivatives (scene.py:628-630),
+        so a scene whose only moving buffer they are stays static."""
         a, b, moving = _split_timesteps(buf, name, self._window, self._trange)
-        self.has_motion |= moving
+        if flags_motion:
+            self.has_motion |= moving
         return a, b
 
     def _segmented(self, knots, fn):
@@ -386,7 +390,8 @@ class _Merger:
                     # zero when absent (scene.py:623-637)
                     if g.normal_derivatives is not None:
                         dn, dnb = self._steps(g.normal_derivatives,
-                                              "normal_derivatives")
+                                              "normal_derivatives",
+                                              flags_motion=False)
                     else:
                         dn = dnb = np.zeros_like(nr)
                     ncp = np.stack([nr[idx], dn[idx], nr[idx + 1],
@@ -1198,13 +1203,14 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
                     chunk: int = 256) -> HitBatch:
     """Ground-truth O(R*T) intersector for testing (no BVH). The nearest
     hit wins; among exact ties the lowest prim id (the JAX package's
-    ascending scan with strict improvement). Round lines take the neighbor
-    clip where the scene rides the generic engine."""
+    ascending scan with strict improvement). Round lines always take the
+    neighbor clip, as the JAX package's brute force does (its
+    ``_make_prim_test``, scene.py:1369-1380), whatever route the scene's
+    queries take."""
     shape, flat = _flat(scene, rays)
     T = scene.num_prims
     R = flat.shape[0]
     dev = flat.device
-    clip = scene.packed is None
     t_far = flat.tfar.clone()
     best = torch.full((R,), -1, dtype=torch.int64, device=dev)
     with torch.no_grad():
@@ -1217,7 +1223,7 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
                 .reshape(-1)
             hit, t, _, _, _ = _kinds_select(
                 scene, pr, flat.org[rep], flat.dir[rep], flat.time[rep],
-                flat.tnear[rep], t_far[rep], clip)
+                flat.tnear[rep], t_far[rep], clip=True)
             hit = (hit & ((flat.mask[rep] & scene.prim_mask[pr]) != 0)) \
                 .reshape(R, n)
             t = t.reshape(R, n)
@@ -1229,4 +1235,4 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
             better = any_hit & ((tmin < t_far) | (best < 0))
             t_far = torch.where(better, tmin, t_far)
             best = torch.where(better, first, best)
-    return _reconstruct_hits(scene, flat, best, clip=clip).reshape(*shape)
+    return _reconstruct_hits(scene, flat, best, clip=True).reshape(*shape)
