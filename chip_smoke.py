@@ -6,8 +6,10 @@ Hopper traversal kernel against its plain PyTorch version:
 1. the card: name and power limit from nvidia-smi;
 2. build the kernel (nvcc, sm_90a: its three sources compile in parallel
    and link into one library), the ablation kernels (two more nvcc
-   processes, one library) and the native BVH builder (g++) from the
-   sources in this checkout, one compiler process each, in parallel;
+   processes, one library), the loop-probe kernels (three more, one
+   library) and the native BVH builder (g++) from the sources in this
+   checkout, one compiler process each, in parallel; print each
+   instantiation's registers, spills and stack;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow;
@@ -81,9 +83,21 @@ Hopper traversal kernel against its plain PyTorch version:
    full variants against B1 on the same rays (hit masks, t within 1e-4,
    prim ids but at near-ties), then the v7 variants again on the main
    cell's 2,097,152-triangle sphere and 16,777,216 rays beside B1;
-19. the kernels line, then the result line.
+19. the loop probes (perf/micro_ops.py, perf/micro_expand.py,
+   perf/micro_v8.py) at the harnesses' size: 14, 12 and 19 probes, each
+   one CUDA block carrying an (8,128), (8,128) or (128,128) int32 tile over
+   x of (512,128), (128,128) and (512,128); every kernel bit-equal to its
+   plain version on the harnesses' x and on x with distinct rows at 64 and
+   67 iterations (and the (8,128) probes at 1,000), then each timed through
+   its entry point at the harness's ITERS (20,000, 3,000, 20,000) on the
+   harness's x: ms, ns/iter and ns/iter over the harness's base probe,
+   launches, the per-SM bound, the least work over implementations (a
+   probe timed below it fails the run: its loop was folded; a fold too
+   small to take it below is not caught), registers and stack frame, and
+   the plain version's time at 64 iterations;
+20. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-18) and read just
+Launch counts are zeroed just before each driven path (4-19) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -223,6 +237,19 @@ ABLATE_REFS_OPS = 8 * 2
 ABLATE_SORT_OPS = 19
 ABLATE_SLOT_OPS = {"v7": 55, "v5": 55 + 4}
 ABLATE_SLOTS = {"v7": 8, "v5": 4}
+# phase 19, the loop probes (perf/micro_ops.py, perf/micro_expand.py,
+# perf/micro_v8.py)
+# the harness function each kernel replaces (its def line: run, bench, run)
+MICRO_REPLACES = {"micro_ops": "perf/micro_ops.py:41",
+                  "micro_expand": "perf/micro_expand.py:23",
+                  "micro_v8": "perf/micro_v8.py:21"}
+# kernel vs plain version at 64 iterations (the tests' count), at 67 (not a
+# multiple of 8: a roll of 8 rows taken 8k times is the identity, so at 64
+# and 1,000 the roll probe cannot tell its direction) and, for the (8,128)
+# probes, at 1,000, where `it` passes the values the comparisons test
+MICRO_CHECK_ITERS = (64, 67)
+MICRO_LONG_ITERS = 1000
+MICRO_PLAIN_ITERS = 64
 
 
 def say(*a):
@@ -1689,19 +1716,32 @@ def ablate_bound(unit, flags, node_v, leaf_v, n_rays, tabs):
             "operations", visit_bytes / PEAK_BYTES_PER_S * 1e3)
 
 
-def ablate_registers(ptxas):
-    """Registers of each ablation instantiation by (unit, flags word), from
-    the ptxas lines of the build (entries v7_kernel<F>, v5_kernel<F>)."""
-    regs, cur = {}, None
+def ptxas_info(ptxas, entry):
+    """Registers, stack frame (its local memory) and spill bytes of each
+    kernel instantiation in a build's ptxas lines whose entry name matches
+    ``entry``, a pattern with two groups (a name, the template's int
+    argument), keyed (name, int)."""
+    out, cur = {}, None
     for line in ptxas.splitlines():
-        m = re.search(r"(v[57])_kernelILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = (m.group(1), int(m.group(2)))
+            m = re.search(entry, m.group(1))
+            cur = (m.group(1), int(m.group(2))) if m else None
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                            spill_ld=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            regs[cur] = int(m.group(1))
+        if m:
+            out[cur]["registers"] = int(m.group(1))
             cur = None
-    return regs
+    return out
 
 
 def b1_on(tr, packed, rays, card):
@@ -1720,9 +1760,10 @@ def b1_on(tr, packed, rays, card):
 
 def phase_ablations(pt, tr, record, regs):
     """The two traversal ablations (perf/) at the harnesses' size, the v7
-    variants again on the main cell; ``regs``: ablate_registers."""
+    variants again on the main cell; ``regs``: ptxas_info of the
+    ablation kernels."""
     from embree_tpu_torch.perf import ablate_v7 as v7
-    from embree_tpu_torch.perf import harness, scenes, tables
+    from embree_tpu_torch.perf import device, harness, scenes, tables
     from embree_tpu_torch.perf import kernel_ablate as v5
     say("phase 18: traversal ablations (perf/ablate_v7.py, "
         "perf/kernel_ablate.py): 16K-tri sphere, 1,048,576 sorted rays")
@@ -1740,11 +1781,11 @@ def phase_ablations(pt, tr, record, regs):
 
     # ---- the harnesses' main loops (each variant: a warm-up and 5 timed
     # calls), launch counts zeroed just before, read just after ----
-    harness.reset_launch_counts()
+    device.reset_launch_counts()
     runs = {"v7": v7.run_variants(tabs["v7"], rays),
             "v5": v5.run_variants(tabs["v5"], rays)}
     torch.cuda.synchronize()
-    launches = dict(harness.LAUNCHES)
+    launches = dict(device.LAUNCHES)
     say(f"  launches on the ablation path: {launches}")
     for unit, recs in runs.items():
         for rec in recs:
@@ -1823,7 +1864,8 @@ def phase_ablations(pt, tr, record, regs):
                                                rec["leaf_visits"], n,
                                                tabs[unit])
             rec.update(unit=unit, plain_ms=plain[(unit, rec["name"])],
-                       registers=regs.get((unit, rec["flag_bits"])),
+                       registers=regs.get((unit, rec["flag_bits"]),
+                                              {}).get("registers"),
                        b1_ms=b1_check_ms,
                        plain_rays=ABLATE_COMPARE, n_rays=n, bound_ms=bound,
                        bound_by=by, visit_bytes_ms=visit_ms, card=card,
@@ -1856,12 +1898,118 @@ def phase_ablations(pt, tr, record, regs):
     torch.cuda.empty_cache()
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def phase_micro(record, ptx):
+    """The three loop probes at their harnesses' size: every kernel held
+    bit for bit against its plain version, then each timed through its
+    entry point at the harness's ITERS on the harness's x; ``ptx``:
+    ptxas_info of the probe kernels, keyed (unit, probe id)."""
+    from embree_tpu_torch.perf import device, micro, micro_expand, micro_ops
+    from embree_tpu_torch.perf import micro_v8
+    mods = (micro_ops, micro_expand, micro_v8)
+    say("phase 19: loop probes (perf/micro_ops.py, perf/micro_expand.py, "
+        "perf/micro_v8.py): 14 + 12 + 19 probes")
+    card = card_line()
+    clock = sm_clock_hz()
+    say(f"  SM clock (max) {clock / 1e6:.0f} MHz [{card}]")
+
+    # ---- kernel vs plain version, both inputs ----
+    plain_ms = {}
+    for mod in mods:
+        h = mod.HARNESS
+        xs = {"harness": micro.harness_x(h, DEV),
+              "distinct": micro.distinct_x(h, DEV)}
+        counts = MICRO_CHECK_ITERS + (
+            (MICRO_LONG_ITERS,) if h.rows_acc == 8 else ())
+        for p in mod.PROBES:
+            for tag, x in xs.items():
+                for iters in counts:
+                    k = micro.launch(h, p, x, iters)
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    q = micro.run_plain(p.body, x, iters, h.rows_acc)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    if (tag, iters) == ("harness", MICRO_PLAIN_ITERS):
+                        plain_ms[(h.unit, p.name)] = e0.elapsed_time(e1)
+                    check(torch.equal(k, q), f"{h.unit}:{p.name}: kernel "
+                          f"!= plain on the {tag} x at {iters} iterations")
+        say(f"  {h.unit}: {len(mod.PROBES)} kernels == plain (int32 bits) "
+            f"on both inputs at {', '.join(map(str, counts))} iterations")
+
+    # ---- the harnesses' loops (each probe: a warm-up, then 5 timed
+    # windows of 5 launches), launch counts zeroed just before, read just
+    # after ----
+    device.reset_launch_counts()
+    timed = {}
+    for mod in mods:
+        h = mod.HARNESS
+        x = micro.harness_x(h, DEV)
+        for p in mod.PROBES:
+            timed[(h.unit, p.name)], _ = device.time_call(
+                lambda: mod.run(p.name, x, h.iters))
+    torch.cuda.synchronize()
+    launches = dict(device.LAUNCHES)
+
+    # ---- records ----
+    for mod in mods:
+        h = mod.HARNESS
+        x = micro.harness_x(h, DEV)
+        base_ns = timed[(h.unit, mod.PROBES[0].name)] * 1e6 / h.iters
+        for p in mod.PROBES:
+            key = f"{h.unit}:{p.name}"
+            ms = timed[(h.unit, p.name)]
+            ns = ms * 1e6 / h.iters
+            cost = micro.cost_of(p, x, h.iters)
+            bound, by = micro.bound_ms(cost, h.iters, clock)
+            ptxas = ptx.get((h.unit, p.kid), {})
+            rec = dict(unit=h.unit, probe=p.name, kid=p.kid, ms=ms,
+                       iters=h.iters, ns_per_iter=ns,
+                       ns_over_base=ns - base_ns,
+                       launches=launches.get(key, 0), bound_ms=bound,
+                       bound_by=by, cost=cost._asdict(),
+                       sm_clock_mhz=clock / 1e6,
+                       plain_ms=plain_ms[(h.unit, p.name)],
+                       plain_iters=MICRO_PLAIN_ITERS, card=card, **ptxas)
+            record.setdefault("micro", {})[key] = rec
+            say(f"  {key}: {ms:.4f} ms, {ns:.2f} ns/iter (+{ns - base_ns:.2f}"
+                f" over base), bound {bound:.4f} ms ({by}), "
+                f"{rec['launches']} launches, {ptxas.get('registers')} "
+                f"registers, {ptxas.get('stack')} B stack (local memory); "
+                f"plain {rec['plain_ms']:.1f} ms "
+                f"at {MICRO_PLAIN_ITERS} iterations [{card}]")
+            check(rec["launches"] > 0, f"{key}: no launch on its path")
+            check("registers" in ptxas, f"{key}: no ptxas line")
+            check(ms >= bound, f"{key}: {ms:.4f} ms is below its bound "
+                  f"{bound:.4f} ms: the loop was folded away")
+
+
 def kernel_entries(record, errs):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it."""
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
+            continue
+        if name == "micro":
+            for key, r in rec.items():
+                kernels.append({
+                    "name": key, "route": "cuda",
+                    "source": f"embree_tpu_torch/csrc/{r['unit']}.cu",
+                    "replaces": MICRO_REPLACES[r["unit"]],
+                    "launches": r["launches"], "max_abs_err": 0.0,
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": None})
             continue
         if name.startswith("ablate_"):
             unit = rec["unit"]
@@ -1910,7 +2058,8 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     say("phase 2: build")
-    secs = _build.build_all(["traverse_cuda", "ablate_cuda", "bvh_builder"])
+    secs = _build.build_all(["traverse_cuda", "ablate_cuda", "micro_cuda",
+                             "bvh_builder"])
     say(f"  built in {secs:.2f} s")
     ptxas = _build.BUILD_LOGS.get("traverse_cuda", "")
     for line in ptxas.splitlines():
@@ -1920,6 +2069,14 @@ def main():
     for line in ptxas_ablate.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas (ablate): " + line.strip())
+    ptxas_micro = _build.BUILD_LOGS.get("micro_cuda", "")
+    units = {"Ops": "micro_ops", "Expand": "micro_expand", "V8": "micro_v8"}
+    micro_ptx = {(units[u], k): v for (u, k), v in ptxas_info(
+        ptxas_micro, r"(Ops|Expand|V8)ELi(\d+)E").items()}
+    for (unit, kid), info in sorted(micro_ptx.items()):
+        say(f"  ptxas (micro): {unit} probe {kid}: {info.get('registers')} "
+            f"registers, {info.get('stack')} B stack frame (local memory), "
+            f"spill {info.get('spill_st')} / {info.get('spill_ld')} B")
 
     errs = {name: 0.0 for name, _, _ in VARIANTS}
     phase_kernel_check(pt, tr, sphere_mesh, errs)
@@ -1938,13 +2095,16 @@ def main():
     phase_round_hair(pt, tr, errs, record)
     phase_engine_vs_kernel(pt, tr)
     phase_mixed_goldens(pt)
-    phase_ablations(pt, tr, record, ablate_registers(ptxas_ablate))
+    phase_ablations(pt, tr, record,
+                    ptxas_info(ptxas_ablate, r"(v[57])_kernelILi(\d+)E"))
+    phase_micro(record, micro_ptx)
 
     kernels = kernel_entries(record, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
-                   "ptxas": ptxas, "ptxas_ablate": ptxas_ablate}, f,
+                   "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
+                   "ptxas_micro": ptxas_micro}, f,
                   indent=1)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -16,7 +16,11 @@ Shared libraries, each with a plain C interface loaded through ctypes:
 - ``ablate_cuda``: the two traversal ablation kernels of ``perf/``
   (``csrc/ablate_v7.cu``, ``csrc/ablate_v5.cu``, compiled in parallel and
   linked into one library), and ``ablate_twin``, their per-ray step
-  (``csrc/ablate.cuh``) compiled for the host for the tests.
+  (``csrc/ablate.cuh``) compiled for the host for the tests;
+- ``micro_cuda``: the three loop-probe kernels of ``perf/``
+  (``csrc/micro_ops.cu``, ``csrc/micro_expand.cu``, ``csrc/micro_v8.cu``
+  over ``csrc/micro.cuh``, compiled in parallel and linked into one
+  library).
 
 Every library goes into one build directory inside the package (``_build/``,
 listed in ``.gitignore``) and is rebuilt when it is missing or older than one
@@ -88,6 +92,15 @@ def _targets() -> Dict[str, Target]:
             (os.path.join(CSRC, "ablate_v7.cu"),
              os.path.join(CSRC, "ablate_v5.cu")),
             (os.path.join(CSRC, "ablate.cuh"), cuh),
+            (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
+                                 "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
+            link=(_nvcc(),) + arch + ("-shared",)),
+        # the three loop probes (perf/), one library
+        "micro_cuda": Target(
+            "libmicro_cuda.so",
+            tuple(os.path.join(CSRC, f"micro_{u}.cu")
+                  for u in ("ops", "expand", "v8")),
+            (os.path.join(CSRC, "micro.cuh"),),
             (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
                                  "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
             link=(_nvcc(),) + arch + ("-shared",)),

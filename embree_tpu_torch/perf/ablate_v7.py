@@ -19,8 +19,9 @@ and its plain version still agree on them bit for bit.
   (tests only).
 - ``main()`` runs the harness's 12 variants (ablate_v7.py:386-401) on the
   16,384-triangle sphere and 1,048,576 sorted rays and prints ms, steps,
-  ns per program step and ns per ray step, timed with CUDA events after a
-  synchronize (median of 5 after a warm-up).
+  ns per program step and ns per ray step, timed with CUDA events around
+  5 calls queued behind a spin kernel (median of 5 windows after a
+  warm-up: ``device.time_call``).
 
 Usage: python -m embree_tpu_torch.perf.ablate_v7 [--rays N] [--device cpu]
 """
@@ -33,7 +34,8 @@ import torch
 
 from ..accel.traverse import _jmax, _leaf_moeller
 from . import harness
-from .harness import INF_BITS, AblateResult, LAUNCHES
+from .device import LAUNCHES, time_call
+from .harness import INF_BITS, AblateResult
 from .scenes import HARNESS_RAYS, harness_rays, sphere_scene
 from .tables import V7_LEAF_WORDS, AblateTables, v7_tables
 
@@ -174,11 +176,12 @@ def traverse(tables: AblateTables, org, dir, tnear, tfar, mask, *,
 
 def run_variants(tables: AblateTables, rays, variants=VARIANTS, reps: int = 5,
                  max_steps: int = MAX_STEPS):
-    """Time each variant through ``traverse`` (median of ``reps`` after a
-    warm-up) and print its line; returns the records."""
+    """Time each variant through ``traverse`` (``device.time_call``: the
+    median of ``reps`` windows after a warm-up) and print its line; returns
+    the records."""
     out = []
     for name, kw in variants:
-        ms, res = harness.time_call(
+        ms, res = time_call(
             lambda: traverse(tables, *rays, max_steps=max_steps, **kw), reps,
             rays[0].is_cuda)
         rec = harness.report(name, ms, res, UGRP)

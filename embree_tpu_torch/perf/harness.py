@@ -1,6 +1,6 @@
 """What the two ablation harnesses share: programs and padding, the
-result, the plain PyTorch walk, the kernels' loader and launch counts, and
-the timing of ``main()``.
+result, the plain PyTorch walk, the kernels' launcher and the report of
+``main()`` (their loader, launch counts and timing: ``device``).
 
 Both TPU harnesses run their rays in programs of UGRP x 128 rays (the
 Pallas grid), each program in lockstep until its step limit (v7, and v5
@@ -30,34 +30,21 @@ as 0). Plain version and kernel reproduce this exactly.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
-import statistics
-import threading
-import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .. import _build
 from ..accel.traverse import _bf16_pairs, _jmax, _jmin
 from ..accel.pack import INVALID_REC
 from ..core.math import rcp_safe
+from .device import load
 from .tables import LANE, NODE_WORDS, AblateTables
 
 INF_BITS = 0x7F800000
 STACK = 64               # STACK_BLOCKS * 8 (v7), STACK_ROWS (v5)
 STACK_REACH = 72         # the clamped ninth block: entries 64-71 alias 56-63
 MAX_STEPS = 200_000      # traverse_pallas.MAX_STEPS, v5's runaway guard
-
-# Kernel launches by variant name, counted where a kernel is launched and
-# nowhere else.
-LAUNCHES: Dict[str, int] = collections.defaultdict(int)
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-
 
 class AblateResult(NamedTuple):
     """The harness's outputs, (B, UGRP, 128) each, and the rays' steps."""
@@ -321,18 +308,10 @@ def walk_plain(tables: AblateTables, rays, prog: int, *, fetch_node: bool,
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
          + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
          + [ctypes.c_int])
-_libs: Dict[str, ctypes.CDLL] = {}
-_libs_lock = threading.Lock()
 
 
 def _load(target: str, fn: str, extra=()):
-    with _libs_lock:
-        if target not in _libs:
-            _libs[target] = ctypes.CDLL(_build.ensure(target))
-        f = getattr(_libs[target], fn)
-        f.restype = ctypes.c_int
-        f.argtypes = _ARGS + list(extra)
-        return f
+    return load(target, fn, _ARGS + list(extra))
 
 
 def _ptr(x):
@@ -372,32 +351,8 @@ def run_native(unit: str, tables: AblateTables, rays, prog: int,
 
 
 # ---------------------------------------------------------------------------
-# timing for main()
+# the report of main()
 # ---------------------------------------------------------------------------
-
-def time_call(fn, reps: int, cuda: bool):
-    """Median ms of ``reps`` calls after one warm-up: CUDA events after a
-    synchronize on the card; on the CPU the host clock (a CPU time, not a
-    device metric). Returns (ms, the last call's result)."""
-    out = fn()
-    if cuda:
-        torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if cuda:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            out = fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), out
-
 
 def report(name: str, ms: float, res: AblateResult, ugrp: int) -> dict:
     """One variant's line of ``main()``: ms, the programs' lockstep steps

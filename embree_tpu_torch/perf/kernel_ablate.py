@@ -17,8 +17,9 @@ itself (``tables.pack_v5``).
   code compiled for the host (tests only).
 - ``main()`` runs the harness's 9 variants (kernel_ablate.py:374-385) on
   the 16,384-triangle sphere and 1,048,576 sorted rays and prints ms,
-  steps, ns per program step and ns per ray step (CUDA events after a
-  synchronize, median of 5 after a warm-up).
+  steps, ns per program step and ns per ray step (CUDA events around 5
+  calls queued behind a spin kernel, median of 5 windows after a warm-up:
+  ``device.time_call``).
 
 Usage: python -m embree_tpu_torch.perf.kernel_ablate [--rays N]
        [--device cpu]
@@ -33,7 +34,8 @@ import torch
 
 from ..accel.traverse import _leaf_moeller
 from . import harness
-from .harness import MAX_STEPS, AblateResult, LAUNCHES
+from .device import LAUNCHES, time_call
+from .harness import MAX_STEPS, AblateResult
 from .scenes import HARNESS_RAYS, harness_rays, sphere_scene
 from .tables import V5_LEAF_WORDS, V5_SLOTS, AblateTables, pack_v5
 
@@ -183,13 +185,14 @@ def traverse(tables: AblateTables, org, dir, tnear, tfar, mask, UGRP,
 
 def run_variants(tables: AblateTables, rays, variants=VARIANTS,
                  reps: int = 5):
-    """Time each variant through ``traverse`` (median of ``reps`` after a
-    warm-up) and print its line; returns the records."""
+    """Time each variant through ``traverse`` (``device.time_call``: the
+    median of ``reps`` windows after a warm-up) and print its line; returns
+    the records."""
     out = []
     for name, kw in variants:
         kw = dict(kw)
         ugrp = kw.pop("UGRP")
-        ms, res = harness.time_call(
+        ms, res = time_call(
             lambda: traverse(tables, *rays, ugrp, **kw), reps,
             rays[0].is_cuda)
         rec = harness.report(name, ms, res, ugrp)
