@@ -9,7 +9,10 @@ Hopper traversal kernel against its plain PyTorch version:
    processes, one library), the loop-probe kernels (three more, one
    library) and the native BVH builder (g++) from the sources in this
    checkout, one compiler process each, in parallel; print each
-   instantiation's registers, spills and stack;
+   instantiation's registers, spills and stack; the 20 persistent
+   instantiations of the moving variants (B6) must use no local memory
+   (0 B stack frame, no spill) and the 12 for triangles at most 128
+   registers;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow;
@@ -38,12 +41,20 @@ Hopper traversal kernel against its plain PyTorch version:
    65,536 rays with times U[0,1): the kind check scene with every kind
    moving (as is, masked, robust, robust + masked, and over 3 steps, which
    gives windows), a moving 16K-tri sphere (masked, robust, robust +
-   masked) and the static robust + masked triangle variants;
+   masked) and the static robust + masked triangle variants; every
+   launch of a moving variant finishes each ray once (its rays-finished
+   count);
 10. 2-step motion at full size: the 2,097,152-triangle sphere moving a
    quarter of its radius along x (Embree's motion_blur_geometry tutorial
    at bench.py:56's size), 16,777,216 rays with times through both
    intersect modes and occluded, held against the exact moving sphere and
-   brute force; kernel vs plain version on 262,144 of the rays;
+   brute force; kernel vs plain version on 65,536 of the rays, and the
+   full-size launch's outputs on those rays (its warps refill) held
+   against the same plain run, bit for bit; with each
+   variant's time, the share of lane slots that did work in the
+   persistent warps beside one ray per thread's (from the rays' steps in
+   launch order, in warps of 32 and blocks of 128), rays finished, the
+   longest ray's steps, registers and resident warps per SM;
 11. time-sliced motion at full size: sphere_mesh(512, 1024) over 4 time
    steps, accelerating along x by 0.25 in all, 3,145,728 windowed prims,
    the same rays and checks;
@@ -118,6 +129,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -317,9 +329,10 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
     attributes (0.0 when equal). ``plain``: a dict that gets, under the
     variant's name, the plain run's time (CUDA events, ``ms``), its slot
     tests by kind tag, its leaf visits and its ray count ``n``, for
-    ``time_variants``."""
-    k = max(inputs[0].shape[0] // n, 1)
-    x = [t[::k][:n].contiguous() for t in inputs]
+    ``time_variants``, and its outputs with the sample's stride, against
+    which ``time_variants`` holds the same rays of its full-size launch."""
+    stride = max(inputs[0].shape[0] // n, 1)
+    x = [t[::stride][:n].contiguous() for t in inputs]
     k = run_kernel(tr, packed, x, occlusion=occ, want_attrs=attrs,
                    robust=robust)
     a0 = torch.cuda.Event(enable_timing=True)
@@ -333,9 +346,22 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
         plain[tr.packed_variant(packed, occ, attrs, robust)] = dict(
             ms=a0.elapsed_time(a1), slots=p.class_slots.double(),
             cands=float(p.round_candidates),
-            leaf_visits=int(p.visits[1].sum(dtype=torch.int64)), n=n)
+            leaf_visits=int(p.visits[1].sum(dtype=torch.int64)), n=n,
+            stride=stride, out=p)
     check(int(k.overflow) == 0 and int(p.overflow) == 0,
           f"{label}: stack overflow")
+    if k.sched is not None:
+        check_sched(k, n, label)
+    err = check_bits(k, p, attrs, label)
+    hits = int((k.best >= 0).sum())
+    say(f"  {label}: {n} rays, {hits} hits, kernel == plain (bits, steps)")
+    return err
+
+
+def check_bits(k, p, attrs, label):
+    """Kernel outputs ``k`` equal the plain version's ``p`` bit for bit:
+    prim ids, step counts, t and (``attrs``) u/v/Ng. Returns the max
+    |difference| over t and attributes (0.0 when equal)."""
     check(torch.equal(k.best, p.best), f"{label}: prim ids differ")
     check(torch.equal(k.visits, p.visits), f"{label}: step counts differ")
     check(torch.equal(k.t.view(torch.int32), p.t.view(torch.int32)),
@@ -346,8 +372,6 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
                           p.attrs.view(torch.int32)),
               f"{label}: u/v/Ng bits differ")
         err = max(err, (k.attrs - p.attrs).abs().max().item())
-    hits = int((k.best >= 0).sum())
-    say(f"  {label}: {n} rays, {hits} hits, kernel == plain (bits, steps)")
     return err
 
 
@@ -436,11 +460,12 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
     for base, o, a in variants:
         name = tr.packed_variant(packed, o, a, robust)
         check(launches.get(name, 0) > 0, f"{name}: no launch on its path")
-        res = {}
+        res, scheds = {}, []
 
         def run():
             res["r"] = run_kernel(tr, packed, inputs, occlusion=o,
                                   want_attrs=a, robust=robust)
+            scheds.append(res["r"].sched)
         ms = events_ms(run)
         r = res["r"]
         node_v = int(r.visits[0].sum(dtype=torch.int64))
@@ -448,6 +473,34 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
         max_steps = int((r.visits[0] + r.visits[1]).max())
         torch.cuda.synchronize()
         check(int(r.overflow) == 0, f"{name}: stack overflow")
+        inst = tr.kernel_instantiation(packed, o, a, robust)
+        check(inst in TRAVERSE_PTXAS, f"{name}: no ptxas line for {inst}")
+        ptx = TRAVERSE_PTXAS[inst]
+        lanes = {}
+        if r.sched is not None:
+            # every launch of the timing finished every ray once
+            check(all(int(c[2]) == n_rays for c in scheds),
+                  f"{name}: a launch did not finish every ray")
+            check_sched(r, n_rays, name)
+            if plain is not None and plain[name]["n"] < n_rays:
+                # the full-size launch refills its lanes (more rays than
+                # resident lanes): its outputs on the compare sample's rays
+                # equal the plain version's there, bit for bit
+                k, m = plain[name]["stride"], plain[name]["n"]
+                sample = types.SimpleNamespace(
+                    t=r.t[::k][:m], best=r.best[::k][:m],
+                    visits=r.visits[:, ::k][:, :m],
+                    attrs=None if r.attrs is None else r.attrs[:, ::k][:, :m])
+                check_bits(sample, plain[name]["out"], a,
+                           f"{name} (full size)")
+                say(f"  {name}: the full-size launch's outputs on the {m} "
+                    "compared rays == plain (bits, steps)")
+            one32, one128 = lane_shares(r.visits)
+            lanes = dict(useful_lane_steps=int(r.sched[1]) / int(r.sched[0]),
+                         one_ray_per_thread_warps=one32,
+                         one_ray_per_thread_blocks=one128,
+                         rays_finished=int(r.sched[2]),
+                         warps_per_sm=int(r.sched[3]))
         del res, r
         torch.cuda.empty_cache()
         if plain is None:
@@ -506,7 +559,9 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                    steps_per_ray=(node_v + leaf_v) / n_rays,
                    max_steps=max_steps,
                    mrays_per_s=n_rays / ms / 1e3, card=card,
-                   launches=launches[name])
+                   launches=launches[name],
+                   registers=ptx.get("registers"), stack=ptx.get("stack"),
+                   **lanes)
         if base in total_ms:
             rec["entry_point_ms"] = total_ms[base]
             rec["wrapper_ms"] = total_ms[base] - ms
@@ -520,6 +575,12 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
             + (f" on {plain_rays} rays" if plain_rays != n_rays else "")
             + (f", entry point {total_ms[base]:.3f} ms, wrapper "
                f"{rec['wrapper_ms']:.3f} ms" if base in total_ms else "")
+            + f", {rec['registers']} registers"
+            + (f"; useful lane-steps {lanes['useful_lane_steps']:.4f} "
+               f"(one ray per thread: {one32:.4f} in warps of 32, "
+               f"{one128:.4f} in blocks of 128), "
+               f"{lanes['rays_finished']} rays finished, "
+               f"{lanes['warps_per_sm']} warps per SM" if lanes else "")
             + f" [{card}]")
 
 
@@ -1018,8 +1079,8 @@ def motion_cell(pt, tr, label, scene, n_prims, mesh, center, errs, record):
     """A full-size moving sphere: commit, the three entry points at
     16,777,216 rays with times U[0, 1), checks (entry points agree, the
     exact moving sphere, brute force), kernel vs plain version on a
-    262,144-ray sample, times. ``center(time)``: the sphere's exact
-    center at each time."""
+    65,536-ray sample (launched at that size and at full size), times.
+    ``center(time)``: the sphere's exact center at each time."""
     cs, commit_s = commit_timed(scene, label)
     check(cs.num_prims == n_prims, "wrong prim count")
     check(cs.has_motion and cs.packed.tri_attrs, "not a moving tri scene")
@@ -1716,17 +1777,18 @@ def ablate_bound(unit, flags, node_v, leaf_v, n_rays, tabs):
             "operations", visit_bytes / PEAK_BYTES_PER_S * 1e3)
 
 
-def ptxas_info(ptxas, entry):
+def ptxas_info(ptxas, entry, key=None):
     """Registers, stack frame (its local memory) and spill bytes of each
     kernel instantiation in a build's ptxas lines whose entry name matches
     ``entry``, a pattern with two groups (a name, the template's int
-    argument), keyed (name, int)."""
+    argument), keyed (name, int); or keyed ``key(match)``."""
     out, cur = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             m = re.search(entry, m.group(1))
-            cur = (m.group(1), int(m.group(2))) if m else None
+            cur = None if m is None else key(m) if key else (
+                m.group(1), int(m.group(2)))
             if cur is not None:
                 out[cur] = {}
             continue
@@ -1742,6 +1804,65 @@ def ptxas_info(ptxas, entry):
             out[cur]["registers"] = int(m.group(1))
             cur = None
     return out
+
+
+# the traversal library's ptxas lines by instantiation, filled after the
+# build: {(entry, template flags): registers, stack, spills}
+TRAVERSE_PTXAS = {}
+TRAVERSE_ENTRY = r"(traverse_kernel|persistent_kernel)I((?:Lb[01]E)+)E"
+
+
+def traverse_ptxas(ptxas):
+    return ptxas_info(ptxas, TRAVERSE_ENTRY, key=lambda m: (
+        m.group(1), tuple(int(b) for b in re.findall(r"Lb([01])E",
+                                                     m.group(2)))))
+
+
+def check_traverse_ptxas(ptxas):
+    """Fill TRAVERSE_PTXAS; the 20 persistent instantiations (B6) keep
+    their stacks in shared memory and spill nothing, and the 12 of them
+    for triangles fit 16 resident warps per SM (128 registers)."""
+    TRAVERSE_PTXAS.update(traverse_ptxas(ptxas))
+    moving = {f: v for (e, f), v in TRAVERSE_PTXAS.items()
+              if e == "persistent_kernel"}
+    check(len(moving) == 20, f"{len(moving)} persistent instantiations")
+    bad = []
+    for flags, info in sorted(moving.items()):
+        say(f"  persistent kernel (occlusion, attrs, mask, robust, kinds) "
+            f"{flags}: {info.get('registers')} registers, "
+            f"{info.get('stack')} B stack frame, spill "
+            f"{info.get('spill_st')} / {info.get('spill_ld')} B")
+        if (info.get("stack") != 0 or info.get("spill_st") != 0
+                or info.get("spill_ld") != 0):
+            bad.append(f"{flags}: local memory in use")
+        if not flags[4] and info.get("registers", 999) > 128:
+            bad.append(f"{flags}: over 128 registers")
+    check(not bad, "persistent kernels: " + "; ".join(bad))
+
+
+def lane_shares(visits):
+    """Useful lane-steps of one ray per thread over the rays in launch
+    order: the share of lane slots that did work when each warp of 32 runs
+    as long as its longest ray, and when each block of 128 holds its slot
+    until its longest ray is done."""
+    steps = (visits[0] + visits[1]).to(torch.int64)
+    total = steps.sum().item()
+    out = []
+    for width in (32, 128):
+        pad = torch.nn.functional.pad(steps, (0, -steps.numel() % width))
+        out.append(total / max(width * pad.view(-1, width).amax(1).sum()
+                               .item(), 1))
+    return out
+
+
+def check_sched(res, n, label):
+    """The moving variants' counts of one launch: every ray finished once,
+    and the lane steps are the rays' steps."""
+    slots, steps, finished, _ = (int(v) for v in res.sched)
+    check(finished == n, f"{label}: {finished} rays finished of {n}")
+    check(steps == int(res.visits.sum(dtype=torch.int64)),
+          f"{label}: lane steps differ from the rays' steps")
+    check(slots >= steps, f"{label}: more lane steps than slots")
 
 
 def b1_on(tr, packed, rays, card):
@@ -2065,6 +2186,7 @@ def main():
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())
+    check_traverse_ptxas(ptxas)
     ptxas_ablate = _build.BUILD_LOGS.get("ablate_cuda", "")
     for line in ptxas_ablate.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):

@@ -36,7 +36,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -142,11 +142,10 @@ def _run(cmd):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _start(name: str):
+def _start(t: Target):
     """Start compiling one target's units, all at once; returns (the
     processes, their outputs, the library's temporary path) or None when
     the library is up to date."""
-    t = TARGETS[name]
     if not _stale(t):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -159,9 +158,8 @@ def _start(name: str):
     return procs, objs, tmp
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, t: Target, started) -> None:
     procs, outs, tmp = started
-    t = TARGETS[name]
     logs = [p.communicate()[0] for p in procs]
     codes = [p.returncode for p in procs]
     if t.link and not any(codes):
@@ -184,24 +182,27 @@ def _finish(name: str, started) -> None:
 def ensure(name: str) -> str:
     """Path of the named library, built first if needed."""
     with _lock:
-        started = _start(name)
+        started = _start(TARGETS[name])
         if started is not None:
-            _finish(name, started)
+            _finish(name, TARGETS[name], started)
     return TARGETS[name].path
 
 
-def build_all(names: Iterable[str]) -> float:
-    """Build the named libraries in parallel, one compiler process per
-    unit. Returns the wall seconds spent."""
+def build_all(names: Iterable[str],
+              targets: Optional[Dict[str, Target]] = None) -> float:
+    """Build the named libraries of ``targets`` (default ``TARGETS``) in
+    parallel, one compiler process per unit. Returns the wall seconds
+    spent."""
+    targets = TARGETS if targets is None else targets
     t0 = time.perf_counter()
     with _lock:
-        started = {n: _start(n) for n in names}
+        started = {n: _start(targets[n]) for n in names}
         errors = []
         for n, s in started.items():
             if s is None:
                 continue
             try:
-                _finish(n, s)
+                _finish(n, targets[n], s)
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:

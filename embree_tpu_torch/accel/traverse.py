@@ -13,13 +13,17 @@ id-table gathers, unsort) and returns the same values. Beneath it:
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
   per-slot time windows), flat curves (B7: the ribbon test on 16-field
   Bezier slots) and round curves (B8: cone candidates and a Newton polish
-  on the same slots); ``LAUNCHES`` counts its launches per variant.
+  on the same slots); ``LAUNCHES`` counts its launches per variant. B6
+  (``uses_scheduler``) runs persistent warps that refill finished lanes
+  from a ray counter the wrapper zeroes; its work counts come back in
+  ``TraceResult.sched``.
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
   the CPU through it, and the smoke run holds the kernel against it on the
   card.
-- ``traverse_twin`` runs the kernel's per-ray logic compiled for the host
+- ``traverse_twin`` runs the kernel's per-ray logic, and B6's scheduler
+  over 32 emulated lanes, compiled for the host
   (``csrc/traverse_cpu.cpp``). Test-only: never on the main path.
 
 ``trace`` picks by device: CPU tensors take the plain version, CUDA tensors
@@ -166,6 +170,10 @@ class TraceResult:
     # () int64 round-curve candidates polished over all leaf visits (the
     # plain version counts them: the kernel polishes these only)
     round_candidates: Optional[torch.Tensor] = None
+    # (4,) int64 of the moving variants' persistent warps (kernel and twin;
+    # ``uses_scheduler``): lane slots (warp passes x 32), lane steps that
+    # did work, rays finished, warps resident per SM (the twin: 1)
+    sched: Optional[torch.Tensor] = None
 
 
 def _coherence_key(org, dir, tnear=None, tfar=None):
@@ -250,13 +258,50 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
         raise ValueError("packed scene has no records")
 
 
-def _outputs(R, dev, want_attrs):
-    return (torch.empty(R, dtype=torch.float32, device=dev),
-            torch.empty(R, dtype=torch.int32, device=dev),
-            torch.empty((2, R), dtype=torch.int32, device=dev),
-            torch.empty((5, R), dtype=torch.float32, device=dev)
-            if want_attrs else None,
-            torch.zeros((), dtype=torch.int32, device=dev))
+def uses_scheduler(packed: PackedScene) -> bool:
+    """Whether the scene's variants run the persistent warps that refill
+    finished lanes (B6: moving scenes without curves)."""
+    return packed.has_motion and not has_curves(packed)
+
+
+def kernel_instantiation(packed: PackedScene, occlusion: bool,
+                         want_attrs: bool, robust: bool):
+    """The kernel a launch on ``packed`` runs, as ``csrc/launch.cuh``'s
+    dispatch picks it: (entry, its template flags), for its ptxas line.
+    ``persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>``
+    or ``traverse_kernel<..., MOTION, CURVES, ROUND>``."""
+    flags = (occlusion, want_attrs and not occlusion, packed.has_mask,
+             robust, packed.has_kinds)
+    if uses_scheduler(packed):
+        return "persistent_kernel", tuple(int(f) for f in flags)
+    flags += (packed.has_motion, has_curves(packed),
+              KIND_CURVE_ROUND in packed.kind_classes)
+    return "traverse_kernel", tuple(int(f) for f in flags)
+
+
+# the twin's outputs start as values no traversal writes (a NaN payload, a
+# prim id below -1), so a ray it never finished shows in any comparison
+_UNWRITTEN_F32 = 0x7FC0DEAD
+_UNWRITTEN_I32 = -2
+
+
+def _outputs(R, dev, want_attrs, sched, unwritten=False):
+    """t, best, visits, attrs, overflow count; then, where ``sched``, the
+    scheduler's ray counter and counts (``TraceResult.sched``), both zero,
+    else None (null pointers for the one-ray-per-thread kernel)."""
+    def i32(*shape, fill=_UNWRITTEN_I32):
+        if unwritten:
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    def f32(*shape):
+        return i32(*shape, fill=_UNWRITTEN_F32).view(torch.float32)
+
+    def zeros(n, dtype):
+        return torch.zeros(n, dtype=dtype, device=dev) if sched else None
+    return (f32(R), i32(R), i32(2, R), f32(5, R) if want_attrs else None,
+            torch.zeros((), dtype=torch.int32, device=dev),
+            zeros(1, torch.int32), zeros(4, torch.int64))
 
 
 def _ptr(x):
@@ -283,7 +328,7 @@ def _load(target: str, fn: str, extra_args=()):
 
 def _call_args(packed, org, dir, tnear, tfar, mask, time, outs, occlusion,
                want_attrs, robust):
-    out_t, out_best, out_visits, out_attr, out_ovf = outs
+    out_t, out_best, out_visits, out_attr, out_ovf = outs[:5]
     return [_ptr(packed.nodes), packed.nodes.shape[0],
             _ptr(packed.leaves), packed.leaves.shape[0],
             packed.leaves.shape[1],
@@ -322,16 +367,18 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     for name, x in (("nodes", packed.nodes), ("leaves", packed.leaves)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    launch = _load("traverse_cuda", "traverse_launch", [ctypes.c_void_p])
-    outs = _outputs(org.shape[0], org.device, want_attrs)
+    launch = _load("traverse_cuda", "traverse_launch",
+                   [ctypes.c_void_p] * 3)
+    outs = _outputs(org.shape[0], org.device, want_attrs,
+                    uses_scheduler(packed))
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                              occlusion, want_attrs, robust),
-                 ctypes.c_void_p(stream))
+                 _ptr(outs[5]), _ptr(outs[6]), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
     LAUNCHES[packed_variant(packed, occlusion, want_attrs, robust)] += 1
-    return TraceResult(*outs)
+    return TraceResult(*outs[:5], sched=outs[6])
 
 
 def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
@@ -343,11 +390,13 @@ def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
     want_attrs = _want_attrs(packed, occlusion, want_attrs)
     time = _time(packed, org, time)
     _check(packed, org, dir, tnear, tfar, mask, time)
-    run = _load("traverse_twin", "traverse_twin")
-    outs = _outputs(org.shape[0], org.device, want_attrs)
-    run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
-                    occlusion, want_attrs, robust))
-    return TraceResult(*outs)
+    run = _load("traverse_twin", "traverse_twin", [ctypes.c_void_p])
+    outs = _outputs(org.shape[0], org.device, want_attrs,
+                    uses_scheduler(packed), unwritten=True)
+    if run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
+                       occlusion, want_attrs, robust), _ptr(outs[6])) != 0:
+        raise ValueError("the twin has no such variant")
+    return TraceResult(*outs[:5], sched=outs[6])
 
 
 # ---------------------------------------------------------------------------

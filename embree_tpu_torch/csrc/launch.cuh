@@ -1,7 +1,20 @@
-// The kernel entry and its launch dispatch over the template flags, shared
-// by traverse.cu (B1-B6 and the C entry point), traverse_curves.cu (B7) and
-// traverse_round.cu (B8 beside B7), which nvcc compiles in parallel into
-// objects of one library.
+// The kernel entries and their launch dispatch over the template flags,
+// shared by traverse.cu (B1-B6 and the C entry point), traverse_curves.cu
+// (B7) and traverse_round.cu (B8 beside B7), which nvcc compiles in
+// parallel into objects of one library.
+//
+// Two kernels. The static and curve variants run one ray per thread to its
+// end (traverse_kernel): the baseline, which does nothing yet about the
+// latency of each dependent record read or about lanes that idle behind
+// the warp's longest ray. The moving variants of scenes without curves (B6,
+// 20 instantiations) run persistent warps (persistent_kernel, the scheduler
+// in traverse.cuh): as many blocks as stay resident, lanes refilled from a
+// global ray counter as their rays finish, leaves postponed until enough
+// lanes wait at one, and each lane's stack in a column of shared memory
+// instead of local memory. Moving rays are U[0,1) in time, which the
+// coherence sort does not see, so their step counts spread far (p99.9 657
+// steps against a mean of 19 on the 2-step sphere): one ray per thread
+// left 85-91% of lane-steps idle there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,41 +37,151 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// The scheduler's lane bookkeeping on the card (run_warp's WARP): a thread
+// is one lane; its stack is column threadIdx.x of the block's shared
+// memory, kStack rows of kBlock entries.
+struct CudaWarp {
+  static constexpr int kLanes = 1;
+  int32_t* column;
+  int lane;
+
+  TRAV_HD Stack<kBlock> stack(int) const { return Stack<kBlock>{column}; }
+
+  template <class F>
+  TRAV_HD void each(F f) const {
+    f(0, lane);
+  }
+
+  template <class F>
+  TRAV_HD uint32_t ballot(F pred) const {
+#ifdef __CUDA_ARCH__
+    return __ballot_sync(0xFFFFFFFFu, pred(0));
+#else
+    return 0;
+#endif
+  }
+
+  // one fetch-add for the warp, by its lowest idle lane, broadcast
+  TRAV_HD int take(int32_t* next_ray, uint32_t idle) const {
+#ifdef __CUDA_ARCH__
+    const int leader = __ffs(idle) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(next_ray, __popc(idle));
+    return __shfl_sync(0xFFFFFFFFu, base, leader);
+#else
+    return 0;
+#endif
+  }
+
+  TRAV_HD void overflow(int32_t* out_overflow) const {
+#ifdef __CUDA_ARCH__
+    atomicAdd(out_overflow, 1);
+#endif
+  }
+
+  TRAV_HD void add_counts(unsigned long long* counts, uint32_t passes,
+                          uint32_t steps, const uint32_t* finished) const {
+#ifdef __CUDA_ARCH__
+    const unsigned n = __reduce_add_sync(0xFFFFFFFFu, finished[0]);
+    if (lane == 0) {
+      atomicAdd(counts, 32ull * passes);
+      atomicAdd(counts + 1, static_cast<unsigned long long>(steps));
+      atomicAdd(counts + 2, static_cast<unsigned long long>(n));
+    }
+#endif
+  }
+};
+
+// counts: see run_warp; [3] gets the warps resident per SM. At least
+// kMinBlocks resident blocks (16 warps per SM, 128 KB of stacks): ptxas
+// then allocates up to 128 registers. Without the bound its occupancy
+// heuristic stopped at 96 and spilled in some variants
+// (perf/sched_sweep.py times both).
+constexpr int kMinBlocks = 4;
+
+template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
+          bool KINDS>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    persistent_kernel(Params p, int32_t* out_overflow, int32_t* next_ray,
+                      unsigned long long* counts, int warps_per_sm) {
+  extern __shared__ int32_t stacks[];  // kStack x kBlock, column-major
+  if (blockIdx.x == 0 && threadIdx.x == 0) counts[3] = warps_per_sm;
+  const CudaWarp w{stacks + threadIdx.x, static_cast<int>(threadIdx.x & 31)};
+  run_warp<CudaWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(
+      p, w, next_ray, out_overflow, counts);
+}
+
+// The launch's outputs beside the per-ray ones: the stack overflow count,
+// and for the persistent kernel its ray counter (zeroed) and work counts.
+struct Counters {
+  int32_t* overflow;
+  int32_t* next_ray;
+  unsigned long long* counts;
+};
+
+// Resident blocks per SM x SMs, or fewer when the rays fill fewer. A failed
+// occupancy query leaves its error for traverse_launch to return.
+template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
+          bool KINDS>
+void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
+  constexpr size_t smem = sizeof(int32_t) * kStack * kBlock;
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm,
+          persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>,
+          kBlock, smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return;
+  }
+  const int need = (p.n_rays + kBlock - 1) / kBlock;
+  const int grid = per_sm * sms < need ? per_sm * sms : need;
+  persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>
+      <<<grid, kBlock, smem, s>>>(p, c.overflow, c.next_ray, c.counts,
+                                  per_sm * (kBlock / 32));
+}
+
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
-void launch(const Params& p, int32_t* ovf, cudaStream_t s) {
-  const dim3 grid((p.n_rays + kBlock - 1) / kBlock), block(kBlock);
-  traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
-                  CURVES, ROUND><<<grid, block, 0, s>>>(p, ovf);
+void launch(const Params& p, Counters c, cudaStream_t s) {
+  if constexpr (MOTION && !CURVES) {
+    launch_persistent<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(p, c,
+                                                                       s);
+  } else {
+    const dim3 grid((p.n_rays + kBlock - 1) / kBlock), block(kBlock);
+    traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
+                    CURVES, ROUND><<<grid, block, 0, s>>>(p, c.overflow);
+  }
 }
 
 // {mask chunk or not} x {robust or not}; time windows are a uniform
 // runtime branch of the moving variants (Params::has_win).
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION,
           bool CURVES, bool ROUND>
-void launch_flags(const Params& p, int has_mask, int robust, int32_t* ovf,
+void launch_flags(const Params& p, int has_mask, int robust, Counters c,
                   cudaStream_t s) {
   constexpr bool O = OCCLUSION, A = WANT_ATTRS, K = KINDS, M = MOTION,
                  C = CURVES, R = ROUND;
   if (has_mask) {
-    if (robust) launch<O, A, true, true, K, M, C, R>(p, ovf, s);
-    else launch<O, A, true, false, K, M, C, R>(p, ovf, s);
+    if (robust) launch<O, A, true, true, K, M, C, R>(p, c, s);
+    else launch<O, A, true, false, K, M, C, R>(p, c, s);
   } else {
-    if (robust) launch<O, A, false, true, K, M, C, R>(p, ovf, s);
-    else launch<O, A, false, false, K, M, C, R>(p, ovf, s);
+    if (robust) launch<O, A, false, true, K, M, C, R>(p, c, s);
+    else launch<O, A, false, false, K, M, C, R>(p, c, s);
   }
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool CURVES,
           bool ROUND = false>
 void launch_motion(const Params& p, int has_mask, int robust, int has_motion,
-                   int32_t* ovf, cudaStream_t s) {
+                   Counters c, cudaStream_t s) {
   if (has_motion) {
     launch_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES, ROUND>(
-        p, has_mask, robust, ovf, s);
+        p, has_mask, robust, c, s);
   } else {
     launch_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES, ROUND>(
-        p, has_mask, robust, ovf, s);
+        p, has_mask, robust, c, s);
   }
 }
 
@@ -66,8 +189,8 @@ void launch_motion(const Params& p, int has_mask, int robust, int has_motion,
 // (traverse_round.cu, scenes with round slots): {closest, occluded} x {mask
 // chunk or not} x {robust or not} x {static or moving}.
 void launch_curves(const Params& p, int occlusion, int has_mask, int robust,
-                   int has_motion, int32_t* ovf, cudaStream_t s);
+                   int has_motion, Counters c, cudaStream_t s);
 void launch_round(const Params& p, int occlusion, int has_mask, int robust,
-                  int has_motion, int32_t* ovf, cudaStream_t s);
+                  int has_motion, Counters c, cudaStream_t s);
 
 }  // namespace trav

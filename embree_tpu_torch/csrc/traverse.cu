@@ -1,11 +1,13 @@
-// Hopper kernel for BVH8 traversal, one ray per thread: the C entry point
-// and the variants of scenes without curves.
+// Hopper kernels for BVH8 traversal: the C entry point and the variants of
+// scenes without curves.
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
 // (B6); traverse_curves.cu holds flat curves (B7), traverse_round.cu round
-// curves (B8). The per-ray logic, what bounds it on the card and what this
-// design does about it are in traverse.cuh.
+// curves (B8). The static variants run one ray per thread, the moving ones
+// persistent warps that refill finished lanes (launch.cuh); the per-ray
+// logic, what bounds it on the card and what each design does about it are
+// in traverse.cuh and launch.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
 // (traverse_pallas.py:347-426): global loads through L2 serve a table of any
 // size, so there is no tile cache to manage.
@@ -22,6 +24,10 @@
 // closest, occluded} and mixed classes x {closest, occluded}, each x {mask
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
 // curve tags go to trav::launch_curves (flat only) or trav::launch_round.
+// next_ray: one int32, zero before the launch (the moving variants' ray
+// counter); counts: four int64, zero before the launch, which the moving
+// variants fill (run_warp in traverse.cuh, persistent_kernel in launch.cuh);
+// both are read by the moving variants only, and null for the others.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).
@@ -37,6 +43,7 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
                                int robust, int has_kinds, int kind_classes,
                                int has_motion, int has_win, int nf,
                                int curve_rate, const float* curve_w,
+                               int32_t* next_ray, int64_t* counts,
                                void* stream) {
   using trav::launch_motion;
   if (n_rays <= 0) return 0;
@@ -50,24 +57,25 @@ extern "C" int traverse_launch(const int32_t* nodes, int n_nodes,
                        kind_classes, time, has_win, curve_rate, curve_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = has_motion;
-  int32_t* ovf = out_overflow;
+  const trav::Counters c{out_overflow, next_ray,
+                           reinterpret_cast<unsigned long long*>(counts)};
   if ((kind_classes >> trav::kTagRound) & 1) {
-    trav::launch_round(p, occlusion, has_mask, robust, m, ovf, s);
+    trav::launch_round(p, occlusion, has_mask, robust, m, c, s);
   } else if ((kind_classes >> trav::kTagCurve) & 1) {
-    trav::launch_curves(p, occlusion, has_mask, robust, m, ovf, s);
+    trav::launch_curves(p, occlusion, has_mask, robust, m, c, s);
   } else if (has_kinds) {
     if (occlusion) {
-      launch_motion<true, false, true, false>(p, has_mask, robust, m, ovf, s);
+      launch_motion<true, false, true, false>(p, has_mask, robust, m, c, s);
     } else {
-      launch_motion<false, false, true, false>(p, has_mask, robust, m, ovf,
+      launch_motion<false, false, true, false>(p, has_mask, robust, m, c,
                                                s);
     }
   } else if (occlusion) {
-    launch_motion<true, false, false, false>(p, has_mask, robust, m, ovf, s);
+    launch_motion<true, false, false, false>(p, has_mask, robust, m, c, s);
   } else if (want_attrs) {
-    launch_motion<false, true, false, false>(p, has_mask, robust, m, ovf, s);
+    launch_motion<false, true, false, false>(p, has_mask, robust, m, c, s);
   } else {
-    launch_motion<false, false, false, false>(p, has_mask, robust, m, ovf, s);
+    launch_motion<false, false, false, false>(p, has_mask, robust, m, c, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

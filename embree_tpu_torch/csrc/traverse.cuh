@@ -27,11 +27,30 @@
 // each mask or kind chunk, +64 B for the windows) through L2, dependent on
 // the step before; rays of one warp diverge in depth, in record kind and,
 // with kind tags, in primitive class (a round line costs ~190 operations, a
-// disc ~30). This design does nothing about either yet: one ray per thread,
-// a 64-entry stack in local memory, records read with 16-byte __ldg loads,
-// a switch per slot. It is the baseline that later designs (warp-cooperative
-// node tests, a treelet queue, shared-memory top levels, class-sorted leaf
-// work) are measured against.
+// disc ~30).
+//
+// The static and curve variants do nothing about either yet: one ray per
+// thread, a 64-entry stack in local memory, records read with 16-byte __ldg
+// loads, a switch per slot. They are the baseline that later designs
+// (warp-cooperative node tests, a treelet queue, shared-memory top levels,
+// class-sorted leaf work) are measured against.
+//
+// The moving variants of scenes without curves (B6) run the same per-ray
+// steps under a scheduler (run_warp, at the end of this file; the kernel in
+// launch.cuh). Their ray times are not part of the coherence key, so a
+// warp's rays differ in length by hundreds of steps (a ray grazing the
+// swept boxes walks thousands). Against divergence: persistent warps whose
+// lanes take a new ray as soon as enough of them are done, and leaves
+// postponed until enough lanes wait at one, so the long leaf code runs
+// converged. Against latency: 16-20 resident warps per SM instead of 12,
+// since no whole leaf is held in registers (motion_leaf reads, lerps and
+// tests kSlotGroup = 4 slots at a time, and closest + attrs recomputes the
+// winner's u, v and Ng after the leaf), and the stack in shared memory (a
+// column per lane, no bank conflicts), where a pop does not wait on an L1
+// that leaf loads keep evicting. Four slots share each 16-byte load: one
+// slot at a time reads every field with a 4-byte load of its own, each a
+// wavefront of the L1 per lane, and ran about 3x slower
+// (perf/sched_sweep.py).
 //
 // B7 is bound by operations, not bytes: a ribbon slot at rate 4 costs 884
 // operations, 16x a triangle's (curve_slot_ops in chip_smoke.py counts them
@@ -862,49 +881,6 @@ TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
   }
 }
 
-// B6: lerp the leaf's 72 A fields in f[] toward its B fields, a + w * (b -
-// a), with w the ray time, or each slot's clipped window-local time when
-// the records carry windows; win_ok[s] tells whether the ray time lies in
-// slot s's window (both ends inclusive). The window words are read first,
-// then the B words 16 bytes at a time, so only f[] and w[] stay live.
-TRAV_HD void lerp_fields(const int32_t* rec, int win_at, bool has_win,
-                         float rtime, float* f, bool* win_ok) {
-  float w[8];
-  if (has_win) {
-    float t0[8], t1[8];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      I4 a = load4(rec + win_at + 4 * q), b = load4(rec + win_at + 8 + 4 * q);
-      t0[4 * q] = as_float(a.x); t0[4 * q + 1] = as_float(a.y);
-      t0[4 * q + 2] = as_float(a.z); t0[4 * q + 3] = as_float(a.w);
-      t1[4 * q] = as_float(b.x); t1[4 * q + 1] = as_float(b.y);
-      t1[4 * q + 2] = as_float(b.z); t1[4 * q + 3] = as_float(b.w);
-    }
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      w[s] = jmin(jmax((rtime - t0[s]) / jmax(t1[s] - t0[s], kMinWindow),
-                       0.0f),
-                  1.0f);
-      win_ok[s] = rtime >= t0[s] && rtime <= t1[s];
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      w[s] = rtime;
-      win_ok[s] = true;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kLeafFields / 4; ++q) {
-    I4 v = load4(rec + kLeafFields + 4 * q);
-    const int k = 4 * q;  // word k + j is field (k + j) / 8 of slot k + j % 8
-    f[k] = f[k] + w[k & 7] * (as_float(v.x) - f[k]);
-    f[k + 1] = f[k + 1] + w[(k + 1) & 7] * (as_float(v.y) - f[k + 1]);
-    f[k + 2] = f[k + 2] + w[(k + 2) & 7] * (as_float(v.z) - f[k + 2]);
-    f[k + 3] = f[k + 3] + w[(k + 3) & 7] * (as_float(v.w) - f[k + 3]);
-  }
-}
-
 // B7, B8: the slots of one leaf of a curve scene (16-field slots), into the
 // leaf's best key. No slot's fields are held past its own test: each test
 // reads its slot's words (field k of slot s is word 8k+s), lerps them by
@@ -978,244 +954,555 @@ TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
   }
 }
 
-// Trace ray i. Returns true when its stack grew past kStack (must not
-// happen: the caller counts it).
-// ROBUST: B2 slabs and leaf. KINDS: per-slot kind tags after the mask words,
-// one class test per slot (B3-B5); without it every slot is a triangle.
-// MOTION: B6, the leaf fields lerped by the ray time (p.has_win: per-slot
-// windows, a uniform branch); the slot tests then read the lerped fields.
-// CURVES: B7, 16-field slots read slot by slot (curve_leaf); implies
-// KINDS. ROUND: B8 beside B7, for scenes with round slots; implies CURVES.
+// ---- the per-ray state machine: the one-ray-per-thread kernel, the
+// persistent warps of the moving variants (B6) and the twin all walk a ray
+// through these functions, so each ray takes the same steps in each ----
+
+// A ray's stack: entry k at base[k * STRIDE]. A local array (STRIDE 1) in
+// the one-ray-per-thread kernel and the twin; a column of the block's
+// shared memory (STRIDE = the block's threads, so lanes at any depths hit
+// distinct banks) in the persistent kernel.
+template <int STRIDE>
+struct Stack {
+  int32_t* base;
+  TRAV_HD int32_t& operator[](int k) const { return base[k * STRIDE]; }
+};
+
+// One ray between two steps.
+struct RayState {
+  Ray ray;
+  float rdx, rdy, rdz;
+  float rtime;             // MOTION
+  float tf;                // t of the best hit so far, else tfar
+  int32_t rmask;
+  int32_t i;               // the ray's index
+  int32_t best;            // 8 * leaf + slot of the best hit, else -1
+  int32_t sp;              // stack depth (entries past kStack are dropped)
+  int32_t cur;             // the record: node >= 0, leaf -1 - id
+  int32_t n_node, n_leaf;  // records visited
+  float a_u, a_v, a_nx, a_ny, a_nz;  // u, v, Ng of the best hit (WANT_ATTRS)
+  bool live;               // false once the stack ran dry or a hit ended it
+  bool overflow;           // the stack grew past kStack (must not happen)
+};
+
+template <bool HAS_MASK, bool MOTION>
+TRAV_HD void start_ray(const Params& p, int i, RayState& st) {
+  const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
+  const float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
+  st.rdx = rcp_safe(dx);
+  st.rdy = rcp_safe(dy);
+  st.rdz = rcp_safe(dz);
+  const float tnear = p.tnear[i];
+  st.ray = Ray{ox, oy, oz, dx, dy, dz, tnear, dx * dx + dy * dy + dz * dz};
+  st.rmask = p.mask[i];
+  st.rtime = MOTION ? p.time[i] : 0.0f;
+  st.tf = p.tfar[i];
+  st.i = i;
+  st.best = -1;
+  st.sp = 0;
+  st.cur = 0;  // the root
+  st.n_node = 0;
+  st.n_leaf = 0;
+  st.a_u = st.a_v = st.a_nx = st.a_ny = st.a_nz = 0.0f;
+  // mask-free scenes fold the ray mask into activation
+  st.live = tnear <= st.tf;
+  if (!HAS_MASK) st.live = st.live && st.rmask != 0;
+  st.overflow = false;
+}
+
+TRAV_HD bool ray_running(const RayState& st) {
+  return st.live && st.n_node + st.n_leaf < kMaxSteps;
+}
+
+// One node: the 8-wide slab test on outward-rounded bf16 bounds, the hit
+// children sorted by entry t, all but the nearest pushed farthest first (so
+// the second nearest ends on top). Returns true when it descends into the
+// nearest; false when no child was hit (the caller pops).
+template <bool ROBUST, class STACK>
+TRAV_HD bool node_step(const Params& p, RayState& st, STACK stack) {
+  ++st.n_node;
+  const float ox = st.ray.ox, oy = st.ray.oy, oz = st.ray.oz;
+  const float tnear = st.ray.tnear, tf = st.tf;
+  const int32_t* rec =
+      p.nodes +
+      static_cast<size_t>(clampi(st.cur, 0, p.n_nodes - 1)) * kNodeWords;
+  int32_t w[kNodeWords];
+#pragma unroll
+  for (int q = 0; q < kNodeWords / 4; ++q) {
+    I4 v = load4(rec + 4 * q);
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+  int32_t key[8], ref[8];
+  int h = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float tx0 = (bf16_lo(w[8 + c]) - ox) * st.rdx;
+    const float tx1 = (bf16_hi(w[8 + c]) - ox) * st.rdx;
+    const float ty0 = (bf16_lo(w[16 + c]) - oy) * st.rdy;
+    const float ty1 = (bf16_hi(w[16 + c]) - oy) * st.rdy;
+    const float tz0 = (bf16_lo(w[24 + c]) - oz) * st.rdz;
+    const float tz1 = (bf16_hi(w[24 + c]) - oz) * st.rdz;
+    float tent, tex;
+    if (ROBUST) {
+      // +-3-ulp widened slabs; tnear and tf stay unscaled
+      tent = jmax(jmax(jmin(tx0, tx1) * kRobustDown,
+                       jmin(ty0, ty1) * kRobustDown),
+                  jmax(jmin(tz0, tz1) * kRobustDown, tnear));
+      tex = jmin(jmin(jmax(tx0, tx1) * kRobustUp, jmax(ty0, ty1) * kRobustUp),
+                 jmin(jmax(tz0, tz1) * kRobustUp, tf));
+    } else {
+      tent = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
+                  jmax(jmin(tz0, tz1), tnear));
+      tex = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
+                 jmin(jmax(tz0, tz1), tf));
+    }
+    const bool hit = tent <= tex && w[c] != kInvalidRec;
+    const int32_t kd = as_int(jmax(tent, 0.0f));
+    key[c] = hit ? ((kd & ~7) | c) : (kInfBits | c);
+    ref[c] = w[c];
+    h += hit ? 1 : 0;
+  }
+  sort8(key, ref);
+#pragma unroll
+  for (int j = 7; j >= 1; --j) {
+    if (j < h) {
+      if (st.sp < kStack) stack[st.sp] = ref[j];
+      ++st.sp;
+    }
+  }
+  if (st.sp > kStack) st.overflow = true;
+  if (h > 0) {
+    st.cur = ref[0];
+    return true;
+  }
+  return false;
+}
+
+// The next record from the stack (a dropped entry reads as the root), or
+// the end of the ray when it is empty.
+template <class STACK>
+TRAV_HD void pop(RayState& st, STACK stack) {
+  if (st.sp > 0) {
+    --st.sp;
+    st.cur = st.sp < kStack ? stack[st.sp] : 0;
+  } else {
+    st.live = false;
+  }
+}
+
+// B6: the fields of G slots of a moving leaf, from slot g on, lerped by
+// each slot's weight, a + w * (b - a): the weight is the ray time or, when
+// the records carry windows, the clipped window-local time, and win_ok
+// tells whether the ray time lies in the slot's window (both ends
+// inclusive). Field k of slot s is word 8k + s of step A's block and word
+// kLeafFields + 8k + s of step B's, so G = 4 reads each field of the group
+// with one 16-byte load.
+template <int G>
+TRAV_HD void load_words(const int32_t* w, int32_t* out) {
+  if constexpr (G % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < G; j += 4) {
+      const I4 v = load4(w + j);
+      out[j] = v.x;
+      out[j + 1] = v.y;
+      out[j + 2] = v.z;
+      out[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) out[j] = load1(w + j);
+  }
+}
+
+template <int G>
+TRAV_HD void lerp_group(const Params& p, const int32_t* rec, int win_at,
+                        int g, float rtime, float (*q)[G], bool* win_ok) {
+  float w[G];
+  if (p.has_win) {
+    int32_t t0[G], t1[G];
+    load_words<G>(rec + win_at + g, t0);
+    load_words<G>(rec + win_at + 8 + g, t1);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float a = as_float(t0[j]), b = as_float(t1[j]);
+      w[j] = jmin(jmax((rtime - a) / jmax(b - a, kMinWindow), 0.0f), 1.0f);
+      win_ok[j] = rtime >= a && rtime <= b;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      w[j] = rtime;
+      win_ok[j] = true;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    int32_t a[G], b[G];
+    load_words<G>(rec + 8 * k + g, a);
+    load_words<G>(rec + kLeafFields + 8 * k + g, b);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float fa = as_float(a[j]);
+      q[k][j] = fa + w[j] * (as_float(b[j]) - fa);
+    }
+  }
+}
+
+template <int G>
+TRAV_HD Slot group_slot(const float (*q)[G], int j) {
+  return Slot{q[0][j], q[1][j], q[2][j], q[3][j], q[4][j],
+              q[5][j], q[6][j], q[7][j], q[8][j]};
+}
+
+// B6: the slots of one moving leaf of 9-field slots, into the leaf's best
+// key, kSlotGroup slots at a time: no other slot's fields are live while a
+// group is tested. Closest + attrs recomputes the winner's u, v and Ng
+// afterwards (motion_attrs).
+constexpr int kSlotGroup = 4;
+
+template <bool HAS_MASK, bool ROBUST, bool KINDS>
+TRAV_HD void motion_leaf(const Params& p, const int32_t* rec,
+                         const RayState& st, int32_t& best_key,
+                         int32_t& best_tb) {
+  constexpr int G = kSlotGroup;
+  constexpr int mask_at = 2 * kLeafFields;
+  constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+  constexpr int win_at = kind_at + (KINDS ? 8 : 0);
+#pragma unroll 1
+  for (int g = 0; g < 8; g += G) {
+    float q[9][G];
+    bool win_ok[G];
+    lerp_group<G>(p, rec, win_at, g, st.rtime, q, win_ok);
+    int32_t tag[G], smask[G];
+    if (KINDS) load_words<G>(rec + kind_at + g, tag);
+    if (HAS_MASK) load_words<G>(rec + mask_at + g, smask);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const Slot sq = group_slot<G>(q, j);
+      float tt, uu, vv;
+      bool valid;
+      if (KINDS) {
+        valid = leaf_by_tag<ROBUST>(tag[j], p.kind_classes, sq, st.ray, st.tf,
+                                    tt);
+      } else if (ROBUST) {
+        valid = leaf_pluecker(sq, st.ray, st.tf, tt, uu, vv);
+      } else {
+        valid = leaf_moeller(sq, st.ray, st.tf, tt, uu, vv);
+      }
+      valid = valid && win_ok[j];
+      if (HAS_MASK) valid = valid && (smask[j] & st.rmask) != 0;
+      const int32_t tb = as_int(jmax(tt, 0.0f));
+      const int32_t k = valid ? ((tb & ~7) | (g + j)) : (kInfBits | (g + j));
+      if (k < best_key) {
+        best_key = k;
+        best_tb = tb;
+      }
+    }
+  }
+}
+
+// B6 closest + attrs: u, v and Ng of the winning slot sl, from its lerped
+// fields by the expressions of its test, so the same bits as if they had
+// been kept through the slot loop.
+template <bool HAS_MASK, bool ROBUST>
+TRAV_HD void motion_attrs(const Params& p, const int32_t* rec, int sl,
+                          RayState& st) {
+  constexpr int win_at = 2 * kLeafFields + (HAS_MASK ? 8 : 0);
+  float q[9][1];
+  bool win_ok;
+  lerp_group<1>(p, rec, win_at, sl, st.rtime, q, &win_ok);
+  const Slot sq = group_slot<1>(q, 0);
+  float tt;
+  if (ROBUST) {
+    leaf_pluecker(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  } else {
+    leaf_moeller(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  }
+  st.a_nx = sq.f4 * sq.f8 - sq.f5 * sq.f7;
+  st.a_ny = sq.f5 * sq.f6 - sq.f3 * sq.f8;
+  st.a_nz = sq.f3 * sq.f7 - sq.f4 * sq.f6;
+}
+
+// One leaf: the 8 slots' tests, the best slot key, and the winner accepted
+// only if its exact (clamped) t is strictly nearer than the best so far.
+// Returns true when the hit ends the ray (OCCLUSION).
+// ROBUST: B2's leaf. KINDS: per-slot kind tags after the mask words, one
+// class test per slot (B3-B5); without it every slot is a triangle.
+// MOTION: B6, each slot's fields lerped by the ray time (p.has_win:
+// per-slot windows, a uniform branch), kSlotGroup slots at a time in scenes
+// without curves (motion_leaf), as the tests read them. CURVES: B7,
+// 16-field slots read slot by slot (curve_leaf); implies KINDS. ROUND: B8
+// beside B7, for scenes with round slots; implies CURVES.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES, bool ROUND = false>
-TRAV_HD bool trace_ray(const Params& p, int i) {
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
+TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
   static_assert(!CURVES || KINDS, "curve scenes carry kind tags");
   static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
-  const float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
-  const float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
-  const float rdx = rcp_safe(dx), rdy = rcp_safe(dy), rdz = rcp_safe(dz);
-  const float tnear = p.tnear[i];
-  const Ray ray{ox, oy, oz, dx, dy, dz, tnear, dx * dx + dy * dy + dz * dz};
-  const int32_t rmask = p.mask[i];
-  const float rtime = MOTION ? p.time[i] : 0.0f;
-  // chunk offsets after the field blocks (accel/pack.py)
-  const int mask_at = kLeafFields * (MOTION ? 2 : 1);
-  const int kind_at = mask_at + (HAS_MASK ? 8 : 0);
-  const int win_at = kind_at + (KINDS ? 8 : 0);
-  float tf = p.tfar[i];
-  int32_t best = -1;
-  float a_u = 0.0f, a_v = 0.0f, a_nx = 0.0f, a_ny = 0.0f, a_nz = 0.0f;
-
-  // mask-free scenes fold the ray mask into activation
-  bool live = tnear <= tf;
-  if (!HAS_MASK) live = live && rmask != 0;
-
-  int32_t stack[kStack];
-  int sp = 0;
-  int32_t cur = 0;  // the root
-  int n_node = 0, n_leaf = 0;
-  bool overflow = false;
-
-  while (live && n_node + n_leaf < kMaxSteps) {
-    if (cur >= 0) {
-      // ---- node: 8-wide slab test on outward-rounded bf16 bounds ----
-      ++n_node;
-      const int32_t* rec =
-          p.nodes + static_cast<size_t>(clampi(cur, 0, p.n_nodes - 1)) *
-                        kNodeWords;
-      int32_t w[kNodeWords];
+  ++st.n_leaf;
+  const int32_t lid = -st.cur - 1;
+  const int32_t* rec =
+      p.leaves +
+      static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
+  int32_t best_key = 0x7FFFFFFF, best_tb = 0;
+  float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
+  if constexpr (CURVES) {
+    curve_leaf<HAS_MASK, ROBUST, MOTION, ROUND>(
+        p, rec, st.ray, st.tf, st.rtime, st.rmask, best_key, best_tb);
+  } else if constexpr (MOTION) {
+    motion_leaf<HAS_MASK, ROBUST, KINDS>(p, rec, st, best_key, best_tb);
+  } else {
+    // chunk offsets after the field block (accel/pack.py)
+    const int mask_at = kLeafFields;
+    const int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+    const float ox = st.ray.ox, oy = st.ray.oy, oz = st.ray.oz;
+    const float dx = st.ray.dx, dy = st.ray.dy, dz = st.ray.dz;
+    const float tnear = st.ray.tnear, tf = st.tf;
+    float f[kLeafFields];
 #pragma unroll
-      for (int q = 0; q < kNodeWords / 4; ++q) {
-        I4 v = load4(rec + 4 * q);
-        w[4 * q] = v.x;
-        w[4 * q + 1] = v.y;
-        w[4 * q + 2] = v.z;
-        w[4 * q + 3] = v.w;
-      }
-      int32_t key[8], ref[8];
-      int h = 0;
+    for (int q = 0; q < kLeafFields / 4; ++q) {
+      I4 v = load4(rec + 4 * q);
+      f[4 * q] = as_float(v.x);
+      f[4 * q + 1] = as_float(v.y);
+      f[4 * q + 2] = as_float(v.z);
+      f[4 * q + 3] = as_float(v.w);
+    }
+    int32_t smask[8];
+    if (HAS_MASK) {
+      I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
+      smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
+      smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
+    }
+    int32_t ktag[8];
+    if (KINDS) {
+      I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
+      ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
+      ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
+    }
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float tx0 = (bf16_lo(w[8 + c]) - ox) * rdx;
-        const float tx1 = (bf16_hi(w[8 + c]) - ox) * rdx;
-        const float ty0 = (bf16_lo(w[16 + c]) - oy) * rdy;
-        const float ty1 = (bf16_hi(w[16 + c]) - oy) * rdy;
-        const float tz0 = (bf16_lo(w[24 + c]) - oz) * rdz;
-        const float tz1 = (bf16_hi(w[24 + c]) - oz) * rdz;
-        float tent, tex;
-        if (ROBUST) {
-          // +-3-ulp widened slabs; tnear and tf stay unscaled
-          tent = jmax(jmax(jmin(tx0, tx1) * kRobustDown,
-                           jmin(ty0, ty1) * kRobustDown),
-                      jmax(jmin(tz0, tz1) * kRobustDown, tnear));
-          tex = jmin(jmin(jmax(tx0, tx1) * kRobustUp,
-                          jmax(ty0, ty1) * kRobustUp),
-                     jmin(jmax(tz0, tz1) * kRobustUp, tf));
-        } else {
-          tent = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
-                      jmax(jmin(tz0, tz1), tnear));
-          tex = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
-                     jmin(jmax(tz0, tz1), tf));
+    for (int s = 0; s < 8; ++s) {
+      if (!KINDS && !ROBUST) {
+        // B1's slot body, kept as it was: written through leaf_moeller
+        // and Slot it computes the same bits but ptxas allocates up to 2
+        // more registers, and the triangle variants must compile as before
+        const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
+        const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
+        const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
+        const float pvx = dy * e2z - dz * e2y;
+        const float pvy = dz * e2x - dx * e2z;
+        const float pvz = dx * e2y - dy * e2x;
+        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+        const bool det_ok = fabsf(det) > 1e-24f;
+        const float inv_det = det_ok ? 1.0f / det : 0.0f;
+        const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+        const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+        const float qvx = tvy * e1z - tvz * e1y;
+        const float qvy = tvz * e1x - tvx * e1z;
+        const float qvz = tvx * e1y - tvy * e1x;
+        const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+        const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+        bool valid = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+                     tt >= tnear && tt <= tf;
+        if (HAS_MASK) valid = valid && (smask[s] & st.rmask) != 0;
+        const int32_t tb = as_int(jmax(tt, 0.0f));
+        const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
+        if (k < best_key) {
+          best_key = k;
+          best_tb = tb;
+          if (WANT_ATTRS) {
+            b_u = uu;
+            b_v = vv;
+            b_nx = e1y * e2z - e1z * e2y;
+            b_ny = e1z * e2x - e1x * e2z;
+            b_nz = e1x * e2y - e1y * e2x;
+          }
         }
-        const bool hit = tent <= tex && w[c] != kInvalidRec;
-        const int32_t kd = as_int(jmax(tent, 0.0f));
-        key[c] = hit ? ((kd & ~7) | c) : (kInfBits | c);
-        ref[c] = w[c];
-        h += hit ? 1 : 0;
-      }
-      sort8(key, ref);
-      // push the other h-1 hit children, farthest first, so the second
-      // nearest ends on top
-#pragma unroll
-      for (int j = 7; j >= 1; --j) {
-        if (j < h) {
-          if (sp < kStack) stack[sp] = ref[j];
-          ++sp;
-        }
-      }
-      if (sp > kStack) overflow = true;
-      if (h > 0) {
-        cur = ref[0];
         continue;
       }
-    } else {
-      // ---- leaf: the 8 slots' tests, best slot key ----
-      ++n_leaf;
-      const int32_t lid = -cur - 1;
-      const int32_t* rec =
-          p.leaves +
-          static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
-      int32_t best_key = 0x7FFFFFFF, best_tb = 0;
-      float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
-      if constexpr (CURVES) {
-        curve_leaf<HAS_MASK, ROBUST, MOTION, ROUND>(p, rec, ray, tf, rtime,
-                                                    rmask, best_key, best_tb);
-      } else {
-        float f[kLeafFields];
-#pragma unroll
-        for (int q = 0; q < kLeafFields / 4; ++q) {
-          I4 v = load4(rec + 4 * q);
-          f[4 * q] = as_float(v.x);
-          f[4 * q + 1] = as_float(v.y);
-          f[4 * q + 2] = as_float(v.z);
-          f[4 * q + 3] = as_float(v.w);
-        }
-        bool win_ok[8];
-        if (MOTION) lerp_fields(rec, win_at, p.has_win != 0, rtime, f, win_ok);
-        int32_t smask[8];
-        if (HAS_MASK) {
-          I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
-          smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
-          smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
-        }
-        int32_t ktag[8];
-        if (KINDS) {
-          I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
-          ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
-          ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
-        }
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          if (!KINDS && !ROBUST) {
-            // B1's slot body, kept as it was: written through leaf_moeller
-            // and Slot it computes the same bits but ptxas allocates up to
-            // 2 more registers, and the triangle variants must compile as
-            // before
-            const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
-            const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
-            const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
-            const float pvx = dy * e2z - dz * e2y;
-            const float pvy = dz * e2x - dx * e2z;
-            const float pvz = dx * e2y - dy * e2x;
-            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-            const bool det_ok = fabsf(det) > 1e-24f;
-            const float inv_det = det_ok ? 1.0f / det : 0.0f;
-            const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-            const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-            const float qvx = tvy * e1z - tvz * e1y;
-            const float qvy = tvz * e1x - tvx * e1z;
-            const float qvz = tvx * e1y - tvy * e1x;
-            const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-            const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-            bool valid = det_ok && uu >= 0.0f && vv >= 0.0f &&
-                         uu + vv <= 1.0f && tt >= tnear && tt <= tf;
-            if (MOTION) valid = valid && win_ok[s];
-            if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
-            const int32_t tb = as_int(jmax(tt, 0.0f));
-            const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-            if (k < best_key) {
-              best_key = k;
-              best_tb = tb;
-              if (WANT_ATTRS) {
-                b_u = uu;
-                b_v = vv;
-                b_nx = e1y * e2z - e1z * e2y;
-                b_ny = e1z * e2x - e1x * e2z;
-                b_nz = e1x * e2y - e1y * e2x;
-              }
-            }
-            continue;
-          }
-          const Slot q = slot_fields(f, s);
-          float tt, uu = 0.0f, vv = 0.0f;
-          bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
-                                                   ray, tf, tt)
-                             : leaf_pluecker(q, ray, tf, tt, uu, vv);
-          if (MOTION) valid = valid && win_ok[s];
-          if (HAS_MASK) valid = valid && (smask[s] & rmask) != 0;
-          const int32_t tb = as_int(jmax(tt, 0.0f));
-          const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-          if (k < best_key) {
-            best_key = k;
-            best_tb = tb;
-            if (WANT_ATTRS) {
-              b_u = uu;
-              b_v = vv;
-              b_nx = q.f4 * q.f8 - q.f5 * q.f7;
-              b_ny = q.f5 * q.f6 - q.f3 * q.f8;
-              b_nz = q.f3 * q.f7 - q.f4 * q.f6;
-            }
-          }
-        }
-      }
-      // the winning slot's exact (clamped) t, accepted only if strictly
-      // nearer than the best so far
-      const float t_new = as_float(best_tb);
-      if (best_key < kInfBits && t_new < tf) {
-        tf = t_new;
-        best = lid * 8 + (best_key & 7);
+      const Slot q = slot_fields(f, s);
+      float tt, uu = 0.0f, vv = 0.0f;
+      bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
+                                               st.ray, tf, tt)
+                         : leaf_pluecker(q, st.ray, tf, tt, uu, vv);
+      if (HAS_MASK) valid = valid && (smask[s] & st.rmask) != 0;
+      const int32_t tb = as_int(jmax(tt, 0.0f));
+      const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
+      if (k < best_key) {
+        best_key = k;
+        best_tb = tb;
         if (WANT_ATTRS) {
-          a_u = b_u;
-          a_v = b_v;
-          a_nx = b_nx;
-          a_ny = b_ny;
-          a_nz = b_nz;
+          b_u = uu;
+          b_v = vv;
+          b_nx = q.f4 * q.f8 - q.f5 * q.f7;
+          b_ny = q.f5 * q.f6 - q.f3 * q.f8;
+          b_nz = q.f3 * q.f7 - q.f4 * q.f6;
         }
-        if (OCCLUSION) break;
       }
     }
-    // ---- pop (a node with no hit child, or a finished leaf) ----
-    if (sp > 0) {
-      --sp;
-      cur = sp < kStack ? stack[sp] : 0;
-    } else {
-      live = false;
+  }
+  const float t_new = as_float(best_tb);
+  if (best_key < kInfBits && t_new < st.tf) {
+    st.tf = t_new;
+    st.best = lid * 8 + (best_key & 7);
+    if constexpr (WANT_ATTRS && MOTION && !CURVES) {
+      motion_attrs<HAS_MASK, ROBUST>(p, rec, best_key & 7, st);
+    } else if (WANT_ATTRS) {
+      st.a_u = b_u;
+      st.a_v = b_v;
+      st.a_nx = b_nx;
+      st.a_ny = b_ny;
+      st.a_nz = b_nz;
+    }
+    if (OCCLUSION) {
+      st.live = false;
+      return true;
     }
   }
+  return false;
+}
 
-  p.out_t[i] = tf;
-  p.out_best[i] = best;
-  p.out_visits[i] = n_node;
-  p.out_visits[p.n_rays + i] = n_leaf;
+// Write ray st.i's outputs; returns whether its stack overflowed.
+template <bool WANT_ATTRS>
+TRAV_HD bool finish_ray(const Params& p, const RayState& st) {
+  const int i = st.i;
+  p.out_t[i] = st.tf;
+  p.out_best[i] = st.best;
+  p.out_visits[i] = st.n_node;
+  p.out_visits[p.n_rays + i] = st.n_leaf;
   if (WANT_ATTRS) {
-    p.out_attr[i] = a_u;
-    p.out_attr[p.n_rays + i] = a_v;
-    p.out_attr[2 * p.n_rays + i] = a_nx;
-    p.out_attr[3 * p.n_rays + i] = a_ny;
-    p.out_attr[4 * p.n_rays + i] = a_nz;
+    p.out_attr[i] = st.a_u;
+    p.out_attr[p.n_rays + i] = st.a_v;
+    p.out_attr[2 * p.n_rays + i] = st.a_nx;
+    p.out_attr[3 * p.n_rays + i] = st.a_ny;
+    p.out_attr[4 * p.n_rays + i] = st.a_nz;
   }
-  return overflow;
+  return st.overflow;
+}
+
+// Trace ray i to its end, one ray per thread (the static and curve
+// variants). Returns true when its stack grew past kStack (must not
+// happen: the caller counts it).
+template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND = false>
+TRAV_HD bool trace_ray(const Params& p, int i) {
+  RayState st;
+  start_ray<HAS_MASK, MOTION>(p, i, st);
+  int32_t stack[kStack];
+  const Stack<1> stk{stack};
+  while (ray_running(st)) {
+    if (st.cur >= 0) {
+      if (node_step<ROBUST>(p, st, stk)) continue;
+    } else if (leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+                         MOTION, CURVES, ROUND>(p, st)) {
+      break;
+    }
+    pop(st, stk);
+  }
+  return finish_ray<WANT_ATTRS>(p, st);
+}
+
+// ---- B6: persistent warps that refill finished lanes ----
+//
+// Each warp loops until the rays run out. A lane whose ray is done writes
+// its outputs and goes idle; once kRefillLanes lanes are idle, the warp
+// takes that many ray indices at once from a global counter, in index
+// order (the wrapper's coherence order), so a refill's rays are
+// neighbours. Leaves are postponed: each pass runs either the lanes at
+// nodes or the lanes at leaves, the leaves only once kLeafLanes lanes wait
+// at one (or none is left at a node), so the longest code runs converged.
+// WARP is the lane bookkeeping: CUDA intrinsics on the card (launch.cuh),
+// 32 emulated lanes in the twin (traverse_cpu.cpp). It provides kLanes
+// (lanes one thread holds), each(f) (f(slot, lane) for each of them),
+// ballot(pred) (bit lane set where pred(slot)), take(counter, idle) (the
+// first of popc(idle) new indices, one fetch-add for the warp), stack(slot),
+// overflow(counter), and add_counts(counts, passes, steps, finished).
+constexpr int kRefillLanes = 8;   // idle lanes before a warp refills
+constexpr int kLeafLanes = 8;     // lanes at leaves before they run
+
+TRAV_HD int popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// counts (int64, per launch): [0] lane slots (warp passes x 32), [1] lane
+// steps that did work, [2] rays finished; out_overflow: rays whose stack
+// overflowed. A warp keeps its counts in 32 bits (64-bit ones cost ptxas
+// a spill) and adds them to counts at its end, or every kFlushPasses
+// passes, before they could wrap.
+constexpr uint32_t kFlushPasses = 1u << 26;
+
+template <class WARP, bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK,
+          bool ROBUST, bool KINDS>
+TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
+                      int32_t* out_overflow, unsigned long long* counts) {
+  constexpr int L = WARP::kLanes;
+  RayState st[L];
+  bool busy[L];
+  uint32_t finished[L];
+  w.each([&](int l, int) {
+    busy[l] = false;
+    finished[l] = 0;
+  });
+  auto done = [&](int l) {
+    if (finish_ray<WANT_ATTRS>(p, st[l])) w.overflow(out_overflow);
+    ++finished[l];
+    busy[l] = false;
+  };
+  bool more = true;  // rays left to take (uniform across the warp)
+  uint32_t passes = 0, steps = 0;
+  auto flush = [&] {
+    w.add_counts(counts, passes, steps, finished);
+    passes = steps = 0;
+    w.each([&](int l, int) { finished[l] = 0; });
+  };
+  for (;;) {
+    if (more) {
+      const uint32_t idle = w.ballot([&](int l) { return !busy[l]; });
+      const int n_idle = popc(idle);
+      if (n_idle >= kRefillLanes) {
+        const int base = w.take(next_ray, idle);
+        more = base + n_idle < p.n_rays;
+        w.each([&](int l, int lane) {
+          const int i = base + popc(idle & ((1u << lane) - 1u));
+          if (!busy[l] && i < p.n_rays) {
+            start_ray<HAS_MASK, true>(p, i, st[l]);
+            busy[l] = true;
+            if (!ray_running(st[l])) done(l);
+          }
+        });
+      }
+    }
+    const uint32_t at_node =
+        w.ballot([&](int l) { return busy[l] && st[l].cur >= 0; });
+    const uint32_t at_leaf =
+        w.ballot([&](int l) { return busy[l] && st[l].cur < 0; });
+    if ((at_node | at_leaf) == 0) {
+      if (!more) break;
+      continue;
+    }
+    const bool leaves = popc(at_leaf) >= kLeafLanes || at_node == 0;
+    const uint32_t go = leaves ? at_leaf : at_node;
+    if (passes == kFlushPasses) flush();
+    ++passes;
+    steps += popc(go);
+    w.each([&](int l, int lane) {
+      if (!((go >> lane) & 1u)) return;
+      const auto stk = w.stack(l);
+      const bool kept =
+          leaves ? leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+                             true, false, false>(p, st[l])
+                 : node_step<ROBUST>(p, st[l], stk);
+      if (!kept) pop(st[l], stk);
+      if (!ray_running(st[l])) done(l);
+    });
+  }
+  flush();
 }
 
 }  // namespace trav

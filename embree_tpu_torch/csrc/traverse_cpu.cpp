@@ -1,9 +1,9 @@
-// CPU twin of the Hopper traversal kernel (test-only).
+// CPU twin of the Hopper traversal kernels (test-only).
 //
-// Compiles the kernel's per-ray logic (traverse.cuh) for the host with g++
-// and -ffp-contract=off, so a machine without a GPU can hold the kernel's
-// arithmetic against the plain PyTorch version bit for bit. Never on the main
-// path.
+// Compiles the kernels' per-ray logic and the moving variants' warp
+// scheduler (traverse.cuh) for the host with g++ and -ffp-contract=off, so a
+// machine without a GPU can hold the kernels' arithmetic and bookkeeping
+// against the plain PyTorch version bit for bit. Never on the main path.
 //
 // Build: g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC traverse_cpu.cpp
 //        -o libtraverse_twin.so
@@ -11,47 +11,100 @@
 
 namespace {
 
+// The scheduler's lane bookkeeping on the host (trav::run_warp's WARP): one
+// warp of 32 emulated lanes, each with its own local stack; a plain counter
+// stands for the card's fetch-add.
+struct HostWarp {
+  static constexpr int kLanes = 32;
+  int32_t* stacks;  // kLanes x kStack
+
+  trav::Stack<1> stack(int l) const {
+    return trav::Stack<1>{stacks + l * trav::kStack};
+  }
+
+  template <class F>
+  void each(F f) const {
+    for (int l = 0; l < kLanes; ++l) f(l, l);
+  }
+
+  template <class F>
+  uint32_t ballot(F pred) const {
+    uint32_t bits = 0;
+    for (int l = 0; l < kLanes; ++l) bits |= pred(l) ? 1u << l : 0u;
+    return bits;
+  }
+
+  int take(int32_t* next_ray, uint32_t idle) const {
+    const int base = *next_ray;
+    *next_ray += trav::popc(idle);
+    return base;
+  }
+
+  void overflow(int32_t* out_overflow) const { ++*out_overflow; }
+
+  void add_counts(unsigned long long* counts, uint32_t passes,
+                  uint32_t steps, const uint32_t* finished) const {
+    counts[0] += 32ull * passes;
+    counts[1] += steps;
+    for (int l = 0; l < kLanes; ++l) counts[2] += finished[l];
+  }
+};
+
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
-int run(const trav::Params& p) {
-  int overflow = 0;
-  for (int i = 0; i < p.n_rays; ++i) {
-    overflow += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
-                                KINDS, MOTION, CURVES, ROUND>(p, i)
-                    ? 1
-                    : 0;
+void run(const trav::Params& p, int32_t* ovf, unsigned long long* counts) {
+  if constexpr (MOTION && !CURVES) {
+    // one persistent warp takes every ray
+    int32_t stacks[HostWarp::kLanes * trav::kStack];
+    int32_t next_ray = 0;
+    trav::run_warp<HostWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(
+        p, HostWarp{stacks}, &next_ray, ovf, counts);
+    counts[3] = 1;
+  } else {
+    for (int i = 0; i < p.n_rays; ++i) {
+      *ovf += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+                              MOTION, CURVES, ROUND>(p, i)
+                  ? 1
+                  : 0;
+    }
   }
-  return overflow;
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION,
           bool CURVES, bool ROUND>
-int run_flags(const trav::Params& p, int has_mask, int robust) {
+void run_flags(const trav::Params& p, int has_mask, int robust, int32_t* o,
+               unsigned long long* c) {
   constexpr bool O = OCCLUSION, A = WANT_ATTRS, K = KINDS, M = MOTION,
                  C = CURVES, R = ROUND;
   if (has_mask) {
-    return robust ? run<O, A, true, true, K, M, C, R>(p)
-                  : run<O, A, true, false, K, M, C, R>(p);
+    if (robust) run<O, A, true, true, K, M, C, R>(p, o, c);
+    else run<O, A, true, false, K, M, C, R>(p, o, c);
+  } else {
+    if (robust) run<O, A, false, true, K, M, C, R>(p, o, c);
+    else run<O, A, false, false, K, M, C, R>(p, o, c);
   }
-  return robust ? run<O, A, false, true, K, M, C, R>(p)
-                : run<O, A, false, false, K, M, C, R>(p);
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool CURVES = false,
           bool ROUND = false>
-int run_motion(const trav::Params& p, int has_mask, int robust,
-               int has_motion) {
-  return has_motion
-             ? run_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES, ROUND>(
-                   p, has_mask, robust)
-             : run_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES, ROUND>(
-                   p, has_mask, robust);
+void run_motion(const trav::Params& p, int has_mask, int robust,
+                int has_motion, int32_t* o, unsigned long long* c) {
+  if (has_motion) {
+    run_flags<OCCLUSION, WANT_ATTRS, KINDS, true, CURVES, ROUND>(
+        p, has_mask, robust, o, c);
+  } else {
+    run_flags<OCCLUSION, WANT_ATTRS, KINDS, false, CURVES, ROUND>(
+        p, has_mask, robust, o, c);
+  }
 }
 
 }  // namespace
 
-// Same arguments as traverse_launch (traverse.cu) without the stream; host
-// pointers. Returns 0, or 1 for a variant that does not exist.
+// Same arguments as traverse_launch (traverse.cu) without the ray counter
+// and the stream; host pointers. counts: four int64 (zero before the call),
+// filled by the moving variants as on the card, with [3] = 1 (one warp);
+// null for the others, which do not read it.
+// Returns 0, or 1 for a variant that does not exist.
 extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              const int32_t* leaves, int n_leaves,
                              int leaf_stride, const float* org,
@@ -63,7 +116,8 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              int occlusion, int want_attrs, int has_mask,
                              int robust, int has_kinds, int kind_classes,
                              int has_motion, int has_win, int nf,
-                             int curve_rate, const float* curve_w) {
+                             int curve_rate, const float* curve_w,
+                             int64_t* counts) {
   if (trav::bad_variant(occlusion, want_attrs, has_kinds, kind_classes,
                         has_motion, has_win, time, nf, curve_rate, curve_w)) {
     return 1;
@@ -72,28 +126,24 @@ extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                        org,    dir,      tnear,      tfar,     mask,
                        n_rays, out_t,    out_best,   out_visits, out_attr,
                        kind_classes, time, has_win, curve_rate, curve_w};
-  const int m = has_motion;
-  int ovf;
+  const int k = has_mask, r = robust, m = has_motion;
+  int32_t* o = out_overflow;
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
   if ((kind_classes >> trav::kTagRound) & 1) {
-    ovf = occlusion
-              ? run_motion<true, false, true, true, true>(p, has_mask, robust,
-                                                          m)
-              : run_motion<false, false, true, true, true>(p, has_mask,
-                                                           robust, m);
+    if (occlusion) run_motion<true, false, true, true, true>(p, k, r, m, o, c);
+    else run_motion<false, false, true, true, true>(p, k, r, m, o, c);
   } else if ((kind_classes >> trav::kTagCurve) & 1) {
-    ovf = occlusion
-              ? run_motion<true, false, true, true>(p, has_mask, robust, m)
-              : run_motion<false, false, true, true>(p, has_mask, robust, m);
+    if (occlusion) run_motion<true, false, true, true>(p, k, r, m, o, c);
+    else run_motion<false, false, true, true>(p, k, r, m, o, c);
   } else if (has_kinds) {
-    ovf = occlusion ? run_motion<true, false, true>(p, has_mask, robust, m)
-                    : run_motion<false, false, true>(p, has_mask, robust, m);
+    if (occlusion) run_motion<true, false, true>(p, k, r, m, o, c);
+    else run_motion<false, false, true>(p, k, r, m, o, c);
   } else if (occlusion) {
-    ovf = run_motion<true, false, false>(p, has_mask, robust, m);
+    run_motion<true, false, false>(p, k, r, m, o, c);
   } else if (want_attrs) {
-    ovf = run_motion<false, true, false>(p, has_mask, robust, m);
+    run_motion<false, true, false>(p, k, r, m, o, c);
   } else {
-    ovf = run_motion<false, false, false>(p, has_mask, robust, m);
+    run_motion<false, false, false>(p, k, r, m, o, c);
   }
-  out_overflow[0] += ovf;
   return 0;
 }

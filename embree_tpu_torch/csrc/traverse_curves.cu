@@ -14,13 +14,13 @@
 namespace trav {
 
 void launch_curves(const Params& p, int occlusion, int has_mask, int robust,
-                   int has_motion, int32_t* ovf, cudaStream_t s) {
+                   int has_motion, Counters c, cudaStream_t s) {
   if (occlusion) {
     launch_motion<true, false, true, true>(p, has_mask, robust, has_motion,
-                                           ovf, s);
+                                           c, s);
   } else {
     launch_motion<false, false, true, true>(p, has_mask, robust, has_motion,
-                                            ovf, s);
+                                            c, s);
   }
 }
 
