@@ -9,9 +9,10 @@ Hopper traversal kernel against its plain PyTorch version:
    processes, one library), the loop-probe kernels (three more, one
    library) and the native BVH builder (g++) from the sources in this
    checkout, one compiler process each, in parallel; print each
-   instantiation's registers, spills and stack; the 20 persistent
-   instantiations of the moving variants (B6) must use no local memory
-   (0 B stack frame, no spill) and the 12 for triangles at most 128
+   instantiation's registers, spills and stack; the 52 persistent
+   instantiations (the 20 moving variants of B6 and the 32 curve variants
+   of B7 and B8, static and moving) must use no local memory (0 B stack
+   frame, no spill) and those for triangles and curves at most 128
    registers;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
@@ -63,25 +64,31 @@ Hopper traversal kernel against its plain PyTorch version:
    B-spline curves, its backdrop triangle and 32 tessellated round strands
    (512 round segments, B5) at 65,536 rays: as is, masked, robust, robust +
    masked, moving over 2 steps (the same four) and over 3 steps (windows);
-   every curve instantiation bit-equal, class-8 hits;
+   every curve instantiation bit-equal, class-8 hits; each launch of the
+   persistent warps finishes every ray once, with its useful lane-steps
+   split into node passes and leaf passes (and the leaf passes' item
+   rounds, each dealing 32 (ray, slot) items across the warp);
 13. the hair cell at full size: 131,072 B-spline strands of 11 control
    points on a unit sphere (1,048,576 flat native curves, rate 4), 16,777,216
    rays through both intersect modes and occluded; brute force on a few
-   rays, kernel vs plain version on 262,144 of the rays, commit (with the
-   hair tier's leaf OBBs), table, steps and times;
+   rays, kernel vs plain version on 262,144 of the rays, and the full-size
+   launches' outputs (their warps refill) on those rays held bit-equal to
+   the same plain run; commit (with the hair tier's leaf OBBs), table,
+   steps, useful lane-steps and times;
 14. kernel vs plain version for round curves (B8), with round curves among
    the packed kinds (the JAX package's EMBREE_TPU_KERNEL_ROUND opt-in): 2,048
    round Bezier curves, 512 round B-spline strands of 4 spans, 32
    tessellated round strands and the backdrop triangle at 65,536 rays, every
    curve instantiation (static and 2-step x {as is, masked, robust, both},
-   3 steps), bit-equal, class-9 hits;
+   3 steps), bit-equal, class-9 hits, and their work counts as in 12;
 15. the round hair cell: phase 13's strands as 1,048,576 native round
    curves. The generic engine (the default route) on 1,048,576 of the rays
    through both intersect modes and occluded, with its lockstep steps, time
    and peak memory; brute force on a few rays; then the kernel route (B8)
-   on all 16,777,216 rays, kernel vs plain version on 65,536 of them, and
-   B8 against the engine on the engine's rays within the JAX package's own
-   bounds (test_pallas_kernel.py:229-233);
+   on all 16,777,216 rays, kernel vs plain version on 65,536 of them (and
+   the full-size launches on the same rays), and B8 against the engine on
+   the engine's rays within the JAX package's own bounds
+   (test_pallas_kernel.py:229-233);
 16. the generic engine against the kernel on phase 6's kind check scene at
    65,536 rays: equal hit masks, prim ids equal but at near-ties;
 17. the viewer's mixed scene (a round curve: the generic engine) at 96x96
@@ -500,7 +507,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                          one_ray_per_thread_warps=one32,
                          one_ray_per_thread_blocks=one128,
                          rays_finished=int(r.sched[2]),
-                         warps_per_sm=int(r.sched[3]))
+                         warps_per_sm=int(r.sched[3]), **sched_split(r))
         del res, r
         torch.cuda.empty_cache()
         if plain is None:
@@ -581,6 +588,11 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                f"{one128:.4f} in blocks of 128), "
                f"{lanes['rays_finished']} rays finished, "
                f"{lanes['warps_per_sm']} warps per SM" if lanes else "")
+            + (f"; node passes {lanes['node_lane_steps']:.4f}, leaf passes "
+               f"{lanes['leaf_lane_steps']:.4f} of their lane-steps "
+               f"({lanes['leaf_pass_share']:.4f} of the lane slots), item "
+               f"rounds {lanes['item_lane_share']:.4f} of their lanes"
+               if "item_lane_share" in lanes else "")
             + f" [{card}]")
 
 
@@ -1819,23 +1831,26 @@ def traverse_ptxas(ptxas):
 
 
 def check_traverse_ptxas(ptxas):
-    """Fill TRAVERSE_PTXAS; the 20 persistent instantiations (B6) keep
-    their stacks in shared memory and spill nothing, and the 12 of them
-    for triangles fit 16 resident warps per SM (128 registers)."""
+    """Fill TRAVERSE_PTXAS; the 52 persistent instantiations (B6's 20
+    moving ones, B7's and B8's 32 curve ones) keep their stacks in shared
+    memory and spill nothing, and all but B6's 8 mixed-class ones fit 16
+    resident warps per SM (128 registers)."""
     TRAVERSE_PTXAS.update(traverse_ptxas(ptxas))
-    moving = {f: v for (e, f), v in TRAVERSE_PTXAS.items()
-              if e == "persistent_kernel"}
-    check(len(moving) == 20, f"{len(moving)} persistent instantiations")
+    persistent = {f: v for (e, f), v in TRAVERSE_PTXAS.items()
+                  if e == "persistent_kernel"}
+    check(len(persistent) == 52,
+          f"{len(persistent)} persistent instantiations")
+    check(sum(f[6] for f in persistent) == 32, "not 32 curve instantiations")
     bad = []
-    for flags, info in sorted(moving.items()):
-        say(f"  persistent kernel (occlusion, attrs, mask, robust, kinds) "
-            f"{flags}: {info.get('registers')} registers, "
-            f"{info.get('stack')} B stack frame, spill "
+    for flags, info in sorted(persistent.items()):
+        say(f"  persistent kernel (occlusion, attrs, mask, robust, kinds, "
+            f"motion, curves, round) {flags}: {info.get('registers')} "
+            f"registers, {info.get('stack')} B stack frame, spill "
             f"{info.get('spill_st')} / {info.get('spill_ld')} B")
         if (info.get("stack") != 0 or info.get("spill_st") != 0
                 or info.get("spill_ld") != 0):
             bad.append(f"{flags}: local memory in use")
-        if not flags[4] and info.get("registers", 999) > 128:
+        if (not flags[4] or flags[6]) and info.get("registers", 999) > 128:
             bad.append(f"{flags}: over 128 registers")
     check(not bad, "persistent kernels: " + "; ".join(bad))
 
@@ -1856,13 +1871,36 @@ def lane_shares(visits):
 
 
 def check_sched(res, n, label):
-    """The moving variants' counts of one launch: every ray finished once,
-    and the lane steps are the rays' steps."""
+    """The persistent warps' counts of one launch: every ray finished once,
+    and the lane steps are the rays' steps; in curve scenes those of the
+    leaf passes are the rays' leaf visits, and each leaf step's 8 items had
+    a lane of an item round."""
     slots, steps, finished, _ = (int(v) for v in res.sched)
     check(finished == n, f"{label}: {finished} rays finished of {n}")
     check(steps == int(res.visits.sum(dtype=torch.int64)),
           f"{label}: lane steps differ from the rays' steps")
     check(slots >= steps, f"{label}: more lane steps than slots")
+    leaf_slots, leaf_steps, item_slots = (int(v) for v in res.leaf_sched)
+    if item_slots:
+        check(leaf_steps == int(res.visits[1].sum(dtype=torch.int64)),
+              f"{label}: leaf-pass steps differ from the leaf visits")
+        check(leaf_slots >= leaf_steps and item_slots >= 8 * leaf_steps,
+              f"{label}: leaf-pass counts out of range")
+
+
+def sched_split(res):
+    """Useful lane-steps of a curve launch's node passes and leaf passes,
+    the leaf passes' share of lane slots, and the item rounds' share of
+    lanes that tested a slot; {} for a launch without curves."""
+    slots, steps = int(res.sched[0]), int(res.sched[1])
+    leaf_slots, leaf_steps, item_slots = (int(v) for v in res.leaf_sched)
+    if not item_slots:
+        return {}
+    return dict(node_lane_steps=(steps - leaf_steps)
+                / max(slots - leaf_slots, 1),
+                leaf_lane_steps=leaf_steps / max(leaf_slots, 1),
+                leaf_pass_share=leaf_slots / max(slots, 1),
+                item_lane_share=8 * leaf_steps / item_slots)
 
 
 def b1_on(tr, packed, rays, card):

@@ -13,17 +13,17 @@ id-table gathers, unsort) and returns the same values. Beneath it:
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
   per-slot time windows), flat curves (B7: the ribbon test on 16-field
   Bezier slots) and round curves (B8: cone candidates and a Newton polish
-  on the same slots); ``LAUNCHES`` counts its launches per variant. B6
-  (``uses_scheduler``) runs persistent warps that refill finished lanes
-  from a ray counter the wrapper zeroes; its work counts come back in
-  ``TraceResult.sched``.
+  on the same slots); ``LAUNCHES`` counts its launches per variant. B6,
+  B7 and B8 (``uses_scheduler``) run persistent warps that refill finished
+  lanes from a ray counter the wrapper zeroes; their work counts come back
+  in ``TraceResult.sched`` (and, for curve scenes, ``leaf_sched``).
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
   the CPU through it, and the smoke run holds the kernel against it on the
   card.
-- ``traverse_twin`` runs the kernel's per-ray logic, and B6's scheduler
-  over 32 emulated lanes, compiled for the host
+- ``traverse_twin`` runs the kernel's per-ray logic, and the scheduler of
+  B6, B7 and B8 over 32 emulated lanes, compiled for the host
   (``csrc/traverse_cpu.cpp``). Test-only: never on the main path.
 
 ``trace`` picks by device: CPU tensors take the plain version, CUDA tensors
@@ -164,16 +164,22 @@ class TraceResult:
     attrs: Optional[torch.Tensor]  # (5, R) float32 u, v, Ng (want_attrs)
     overflow: torch.Tensor        # () int32: rays whose stack overflowed
     # (N_TAGS,) int64 slot tests by kind tag over all leaf visits, tags of
-    # the scene's classes only (the plain version counts them; the
-    # operation count of a bound needs them)
+    # the scene's classes only, of the slots that the mask chunk and the
+    # windows let through (the plain version counts them; the operation
+    # count of a bound needs them)
     class_slots: Optional[torch.Tensor] = None
-    # () int64 round-curve candidates polished over all leaf visits (the
-    # plain version counts them: the kernel polishes these only)
+    # () int64 round-curve candidates of those slots over all leaf visits
+    # (the plain version counts them: the kernel polishes these only)
     round_candidates: Optional[torch.Tensor] = None
-    # (4,) int64 of the moving variants' persistent warps (kernel and twin;
+    # (4,) int64 of the persistent warps (kernel and twin;
     # ``uses_scheduler``): lane slots (warp passes x 32), lane steps that
     # did work, rays finished, warps resident per SM (the twin: 1)
     sched: Optional[torch.Tensor] = None
+    # (3,) int64, curve scenes' persistent warps: lane slots of leaf passes
+    # (leaf passes x 32), lane steps of leaf passes, and item rounds x 32
+    # (each round deals 32 of the pass's (ray, slot) items across the
+    # warp); zeros in moving scenes without curves
+    leaf_sched: Optional[torch.Tensor] = None
 
 
 def _coherence_key(org, dir, tnear=None, tfar=None):
@@ -260,22 +266,21 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
 
 def uses_scheduler(packed: PackedScene) -> bool:
     """Whether the scene's variants run the persistent warps that refill
-    finished lanes (B6: moving scenes without curves)."""
-    return packed.has_motion and not has_curves(packed)
+    finished lanes: moving scenes (B6) and curve scenes (B7, B8)."""
+    return packed.has_motion or has_curves(packed)
 
 
 def kernel_instantiation(packed: PackedScene, occlusion: bool,
                          want_attrs: bool, robust: bool):
     """The kernel a launch on ``packed`` runs, as ``csrc/launch.cuh``'s
     dispatch picks it: (entry, its template flags), for its ptxas line.
-    ``persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>``
-    or ``traverse_kernel<..., MOTION, CURVES, ROUND>``."""
+    ``traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+    MOTION>`` or ``persistent_kernel<..., MOTION, CURVES, ROUND>``."""
     flags = (occlusion, want_attrs and not occlusion, packed.has_mask,
-             robust, packed.has_kinds)
+             robust, packed.has_kinds, packed.has_motion)
     if uses_scheduler(packed):
+        flags += (has_curves(packed), KIND_CURVE_ROUND in packed.kind_classes)
         return "persistent_kernel", tuple(int(f) for f in flags)
-    flags += (packed.has_motion, has_curves(packed),
-              KIND_CURVE_ROUND in packed.kind_classes)
     return "traverse_kernel", tuple(int(f) for f in flags)
 
 
@@ -287,7 +292,7 @@ _UNWRITTEN_I32 = -2
 
 def _outputs(R, dev, want_attrs, sched, unwritten=False):
     """t, best, visits, attrs, overflow count; then, where ``sched``, the
-    scheduler's ray counter and counts (``TraceResult.sched``), both zero,
+    scheduler's ray counter and its seven counts (``_result``), both zero,
     else None (null pointers for the one-ray-per-thread kernel)."""
     def i32(*shape, fill=_UNWRITTEN_I32):
         if unwritten:
@@ -301,7 +306,15 @@ def _outputs(R, dev, want_attrs, sched, unwritten=False):
         return torch.zeros(n, dtype=dtype, device=dev) if sched else None
     return (f32(R), i32(R), i32(2, R), f32(5, R) if want_attrs else None,
             torch.zeros((), dtype=torch.int32, device=dev),
-            zeros(1, torch.int32), zeros(4, torch.int64))
+            zeros(1, torch.int32), zeros(7, torch.int64))
+
+
+def _result(outs) -> "TraceResult":
+    """The TraceResult of ``_outputs`` after a launch."""
+    counts = outs[6]
+    return TraceResult(*outs[:5],
+                       sched=None if counts is None else counts[:4],
+                       leaf_sched=None if counts is None else counts[4:])
 
 
 def _ptr(x):
@@ -378,7 +391,7 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
     LAUNCHES[packed_variant(packed, occlusion, want_attrs, robust)] += 1
-    return TraceResult(*outs[:5], sched=outs[6])
+    return _result(outs)
 
 
 def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
@@ -396,7 +409,7 @@ def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
     if run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                        occlusion, want_attrs, robust), _ptr(outs[6])) != 0:
         raise ValueError("the twin has no such variant")
-    return TraceResult(*outs[:5], sched=outs[6])
+    return _result(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -955,12 +968,13 @@ def _chunk(rec, at):
 def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
                   time=None):
     """Per-slot (valid, t, u/v of class 0, kind tag, fields, round-curve
-    candidates per slot or None) of one leaf record per ray, selected by
-    the kind tag where the record carries one (:1048-1057). Moving scenes
-    first lerp every field A -> B as
+    candidates per slot or None, window test or None) of one leaf record
+    per ray, selected by the kind tag where the record carries one
+    (:1048-1057). Moving scenes first lerp every field A -> B as
     a + w * (b - a), with w the ray time or, in windowed scenes, the
-    clipped window-local time, and reject slots whose window misses the
-    ray time (:502-520, :1059-1060)."""
+    clipped window-local time; a slot whose window misses the ray time
+    fails the window test, which the caller applies (:502-520,
+    :1059-1060)."""
     nf = packed.nf
     f = _fields(rec, 0, nf)
     win_ok = None
@@ -1014,11 +1028,9 @@ def _leaf_classes(packed: PackedScene, rec, o, d, tn, tf, robust: bool,
             sel = tag == k
             valid = valid | (sel & v)
             tt = torch.where(sel, t, tt)
-    if win_ok is not None:
-        valid = valid & win_ok
     if cands is not None:
         cands = torch.where(tag == KIND_CURVE_ROUND, cands, 0)
-    return valid, tt, uv, tag, f, cands
+    return valid, tt, uv, tag, f, cands, win_ok
 
 
 def _bf16_pairs(words):
@@ -1126,20 +1138,26 @@ def traverse_packed_reference(packed: PackedScene, org, dir, tnear, tfar,
             rec = leaves[lid.clamp(0, n_leaves - 1)]
             o = org[la]
             d = dir[la]
-            valid, tt, uv, tag, f, cands = _leaf_classes(
+            valid, tt, uv, tag, f, cands, let = _leaf_classes(
                 packed, rec, (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
                 (d[:, 0:1], d[:, 1:2], d[:, 2:3]), tnear[la, None],
                 tf[la, None], robust,
                 None if time is None else time[la, None])
-            class_slots.index_add_(0, tag.reshape(-1).long()
-                                   .clamp(0, N_TAGS - 1),
-                                   torch.ones_like(tag.reshape(-1),
-                                                   dtype=torch.int64))
-            if cands is not None:
-                round_cands += cands.sum()
             if packed.has_mask:
                 smask = _chunk(rec, packed.chunk_at("mask"))
-                valid = valid & ((smask & mask[la, None]) != 0)
+                ok = (smask & mask[la, None]) != 0
+                let = ok if let is None else let & ok
+            if let is not None:
+                valid = valid & let
+            # the counters take the slots that the mask chunk and the
+            # windows let through (let): the others need no test
+            tags = tag if let is None else tag[let]
+            class_slots.index_add_(0, tags.reshape(-1).long()
+                                   .clamp(0, N_TAGS - 1),
+                                   torch.ones_like(tags.reshape(-1),
+                                                   dtype=torch.int64))
+            if cands is not None:
+                round_cands += (cands if let is None else cands[let]).sum()
             tb = _bits(_jmax(tt, zero))
             lkey = torch.where(valid, (tb & ~7) | slot, INF_BITS | slot)
             lmin = lkey.amin(dim=1)

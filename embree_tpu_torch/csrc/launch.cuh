@@ -3,18 +3,23 @@
 // (B7) and traverse_round.cu (B8 beside B7), which nvcc compiles in
 // parallel into objects of one library.
 //
-// Two kernels. The static and curve variants run one ray per thread to its
-// end (traverse_kernel): the baseline, which does nothing yet about the
-// latency of each dependent record read or about lanes that idle behind
-// the warp's longest ray. The moving variants of scenes without curves (B6,
-// 20 instantiations) run persistent warps (persistent_kernel, the scheduler
-// in traverse.cuh): as many blocks as stay resident, lanes refilled from a
+// Two kernels. The static variants of scenes without curves run one ray
+// per thread to its end (traverse_kernel): the baseline, which does nothing
+// yet about the latency of each dependent record read or about lanes that
+// idle behind the warp's longest ray. The moving variants (B6, 20
+// instantiations) and every curve variant, static or moving (B7 and B8, 16
+// each), run persistent warps (persistent_kernel, the scheduler in
+// traverse.cuh): as many blocks as stay resident, lanes refilled from a
 // global ray counter as their rays finish, leaves postponed until enough
 // lanes wait at one, and each lane's stack in a column of shared memory
 // instead of local memory. Moving rays are U[0,1) in time, which the
 // coherence sort does not see, so their step counts spread far (p99.9 657
 // steps against a mean of 19 on the 2-step sphere): one ray per thread
-// left 85-91% of lane-steps idle there.
+// left 85-91% of lane-steps idle there. A curve leaf visit costs about
+// 14,000 operations against a node's 100, so one ray per thread left the
+// lanes at nodes idle behind those at leaves; the curve variants' leaf
+// pass deals its (ray, slot) items across the warp (curve_pass), with the
+// knot weights and each warp's scratch in shared memory beside the stacks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,13 +31,13 @@ namespace trav {
 constexpr int kBlock = 128;
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
+          bool KINDS, bool MOTION>
 __global__ void __launch_bounds__(kBlock)
     traverse_kernel(Params p, int32_t* out_overflow) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_rays) return;
-  if (trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
-                CURVES, ROUND>(p, i)) {
+  if (trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION>(p,
+                                                                        i)) {
     atomicAdd(out_overflow, 1);
   }
 }
@@ -58,6 +63,18 @@ struct CudaWarp {
     return __ballot_sync(0xFFFFFFFFu, pred(0));
 #else
     return 0;
+#endif
+  }
+
+  TRAV_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
+
+  TRAV_HD void atomic_min(int32_t* word, int32_t v) const {
+#ifdef __CUDA_ARCH__
+    atomicMin(word, v);
 #endif
   }
 
@@ -90,25 +107,75 @@ struct CudaWarp {
     }
 #endif
   }
+
+  TRAV_HD void add_leaf_counts(unsigned long long* counts, uint32_t passes,
+                               uint32_t steps, uint32_t rounds) const {
+#ifdef __CUDA_ARCH__
+    if (lane == 0) {
+      atomicAdd(counts + 4, 32ull * passes);
+      atomicAdd(counts + 5, static_cast<unsigned long long>(steps));
+      atomicAdd(counts + 6, 32ull * rounds);
+    }
+#endif
+  }
+};
+
+// Curve scenes' (curve_pass): CudaWarp and the warp's scratch words, after
+// the stacks and the knot weights. A type of its own: a third member in
+// CudaWarp renamed registers in 16 of B6's kernels, which moved ptxas's
+// schedule (one ran 2% slower on an H100).
+struct CudaCurveWarp : CudaWarp {
+  int32_t* scr;
+  TRAV_HD int32_t* scratch() const { return scr; }
 };
 
 // counts: see run_warp; [3] gets the warps resident per SM. At least
 // kMinBlocks resident blocks (16 warps per SM, 128 KB of stacks): ptxas
 // then allocates up to 128 registers. Without the bound its occupancy
 // heuristic stopped at 96 and spilled in some variants
-// (perf/sched_sweep.py times both).
+// (perf/sched_sweep.py times both); the curve variants took 3 (12 warps
+// per SM) no faster.
 constexpr int kMinBlocks = 4;
 
+// Dynamic shared memory of a persistent block: the stacks, and in curve
+// scenes the knot weights and each warp's scratch (traverse.cuh).
+template <bool CURVES>
+size_t persistent_smem(const Params& p) {
+  size_t words = static_cast<size_t>(kStack) * kBlock;
+  if (CURVES) {
+    words += curve_weight_words(p.curve_rate) +
+             (kBlock / 32) * curve_scratch_words(p.kind_classes);
+  }
+  return words * sizeof(int32_t);
+}
+
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS>
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     persistent_kernel(Params p, int32_t* out_overflow, int32_t* next_ray,
                       unsigned long long* counts, int warps_per_sm) {
-  extern __shared__ int32_t stacks[];  // kStack x kBlock, column-major
+  // the stacks (kStack x kBlock, column-major), then in curve scenes the
+  // knot weights and each warp's scratch
+  extern __shared__ int32_t smem[];
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[3] = warps_per_sm;
-  const CudaWarp w{stacks + threadIdx.x, static_cast<int>(threadIdx.x & 31)};
-  run_warp<CudaWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(
-      p, w, next_ray, out_overflow, counts);
+  if constexpr (CURVES) {
+    float* wt = reinterpret_cast<float*>(smem + kStack * kBlock);
+    const int n_w = curve_weight_words(p.curve_rate);
+    for (int k = threadIdx.x; k < n_w; k += kBlock) {
+      wt[k] = load1f(p.curve_w + k);
+    }
+    __syncthreads();
+    const CudaCurveWarp w{{smem + threadIdx.x,
+                           static_cast<int>(threadIdx.x & 31)},
+                          smem + kStack * kBlock + n_w + (threadIdx.x >> 5) *
+                              curve_scratch_words(p.kind_classes)};
+    run_warp<CudaCurveWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+             MOTION, CURVES, ROUND>(p, w, next_ray, out_overflow, counts, wt);
+  } else {
+    const CudaWarp w{smem + threadIdx.x, static_cast<int>(threadIdx.x & 31)};
+    run_warp<CudaWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
+             CURVES, ROUND>(p, w, next_ray, out_overflow, counts, nullptr);
+  }
 }
 
 // The launch's outputs beside the per-ray ones: the stack overflow count,
@@ -120,16 +187,21 @@ struct Counters {
 };
 
 // Resident blocks per SM x SMs, or fewer when the rays fill fewer. A failed
-// occupancy query leaves its error for traverse_launch to return.
+// attribute or occupancy query leaves its error for traverse_launch to
+// return.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS>
+          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
-  constexpr size_t smem = sizeof(int32_t) * kStack * kBlock;
+  const auto kernel = persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK,
+                                        ROBUST, KINDS, MOTION, CURVES, ROUND>;
+  const size_t smem = persistent_smem<CURVES>(p);
   int per_sm = 0, dev = 0, sms = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm,
-          persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>,
-          kBlock, smem) != cudaSuccess ||
+  if ((smem > 48 * 1024 &&
+       cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(smem)) != cudaSuccess) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                    smem) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess) {
@@ -137,21 +209,20 @@ void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
   }
   const int need = (p.n_rays + kBlock - 1) / kBlock;
   const int grid = per_sm * sms < need ? per_sm * sms : need;
-  persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>
-      <<<grid, kBlock, smem, s>>>(p, c.overflow, c.next_ray, c.counts,
-                                  per_sm * (kBlock / 32));
+  kernel<<<grid, kBlock, smem, s>>>(p, c.overflow, c.next_ray, c.counts,
+                                    per_sm * (kBlock / 32));
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 void launch(const Params& p, Counters c, cudaStream_t s) {
-  if constexpr (MOTION && !CURVES) {
-    launch_persistent<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(p, c,
-                                                                       s);
+  if constexpr (MOTION || CURVES) {
+    launch_persistent<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
+                      CURVES, ROUND>(p, c, s);
   } else {
     const dim3 grid((p.n_rays + kBlock - 1) / kBlock), block(kBlock);
-    traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
-                    CURVES, ROUND><<<grid, block, 0, s>>>(p, c.overflow);
+    traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION>
+        <<<grid, block, 0, s>>>(p, c.overflow);
   }
 }
 

@@ -4,10 +4,10 @@
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
 // (B6); traverse_curves.cu holds flat curves (B7), traverse_round.cu round
-// curves (B8). The static variants run one ray per thread, the moving ones
-// persistent warps that refill finished lanes (launch.cuh); the per-ray
-// logic, what bounds it on the card and what each design does about it are
-// in traverse.cuh and launch.cuh.
+// curves (B8). The static variants run one ray per thread, the moving and
+// curve ones persistent warps that refill finished lanes (launch.cuh); the
+// per-ray logic, what bounds it on the card and what each design does about
+// it are in traverse.cuh and launch.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
 // (traverse_pallas.py:347-426): global loads through L2 serve a table of any
 // size, so there is no tile cache to manage.
@@ -24,10 +24,11 @@
 // closest, occluded} and mixed classes x {closest, occluded}, each x {mask
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
 // curve tags go to trav::launch_curves (flat only) or trav::launch_round.
-// next_ray: one int32, zero before the launch (the moving variants' ray
-// counter); counts: four int64, zero before the launch, which the moving
-// variants fill (run_warp in traverse.cuh, persistent_kernel in launch.cuh);
-// both are read by the moving variants only, and null for the others.
+// next_ray: one int32, zero before the launch (the persistent warps' ray
+// counter); counts: seven int64, zero before the launch, which the moving
+// and curve variants fill (run_warp in traverse.cuh, persistent_kernel in
+// launch.cuh); both are read by those variants only, and null for the
+// others.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).

@@ -29,59 +29,63 @@
 // with kind tags, in primitive class (a round line costs ~190 operations, a
 // disc ~30).
 //
-// The static and curve variants do nothing about either yet: one ray per
-// thread, a 64-entry stack in local memory, records read with 16-byte __ldg
-// loads, a switch per slot. They are the baseline that later designs
-// (warp-cooperative node tests, a treelet queue, shared-memory top levels,
-// class-sorted leaf work) are measured against.
+// The static variants of scenes without curves do nothing about either
+// yet: one ray per thread, a 64-entry stack in local memory, records read
+// with 16-byte __ldg loads, a switch per slot. They are the baseline that
+// later designs (warp-cooperative node tests, a treelet queue,
+// shared-memory top levels, class-sorted leaf work) are measured against.
 //
-// The moving variants of scenes without curves (B6) run the same per-ray
-// steps under a scheduler (run_warp, at the end of this file; the kernel in
-// launch.cuh). Their ray times are not part of the coherence key, so a
-// warp's rays differ in length by hundreds of steps (a ray grazing the
-// swept boxes walks thousands). Against divergence: persistent warps whose
-// lanes take a new ray as soon as enough of them are done, and leaves
-// postponed until enough lanes wait at one, so the long leaf code runs
-// converged. Against latency: 16-20 resident warps per SM instead of 12,
-// since no whole leaf is held in registers (motion_leaf reads, lerps and
-// tests kSlotGroup = 4 slots at a time, and closest + attrs recomputes the
-// winner's u, v and Ng after the leaf), and the stack in shared memory (a
-// column per lane, no bank conflicts), where a pop does not wait on an L1
-// that leaf loads keep evicting. Four slots share each 16-byte load: one
-// slot at a time reads every field with a 4-byte load of its own, each a
-// wavefront of the L1 per lane, and ran about 3x slower
-// (perf/sched_sweep.py).
+// The moving variants (B6) and every curve variant, static or moving (B7,
+// B8), run the same per-ray steps under a scheduler (run_warp, at the end
+// of this file; the kernel in launch.cuh). Moving rays' times are not part
+// of the coherence key, so a warp's rays differ in length by hundreds of
+// steps (a ray grazing the swept boxes walks thousands). Against
+// divergence: persistent warps whose lanes take a new ray as soon as
+// enough of them are done, and leaves postponed until enough lanes wait at
+// one, so the long leaf code runs converged. Against latency: 16-20
+// resident warps per SM instead of 12, since no whole leaf is held in
+// registers (motion_leaf reads, lerps and tests kSlotGroup = 4 slots at a
+// time, and closest + attrs recomputes the winner's u, v and Ng after the
+// leaf), and the stack in shared memory (a column per lane, no bank
+// conflicts), where a pop does not wait on an L1 that leaf loads keep
+// evicting. Four slots share each 16-byte load: one slot at a time reads
+// every field with a 4-byte load of its own, each a wavefront of the L1 per
+// lane, and ran about 3x slower (perf/sched_sweep.py).
 //
 // B7 is bound by operations, not bytes: a ribbon slot at rate 4 costs 884
 // operations, 16x a triangle's (curve_slot_ops in chip_smoke.py counts them
-// from this file). A curve leaf of 16-field slots (128 floats, 256 with motion)
-// cannot stay in registers next to the stack, so the CURVES variants read
-// each slot's words when its test runs (field k of slot s is word 8k+s:
-// 4-byte loads from one 512 B block), lerp them there, and evaluate the
-// ribbon's knots one at a time. The ray frame is computed at each curve
-// leaf visit. Nothing else is done about the bound yet; later designs can
-// take the ribbons of one warp together.
+// from this file), and a curve leaf visit about 14,000 against a node's
+// 100, so with one ray per thread the lanes at nodes idled behind those at
+// leaves. The curve variants' leaf pass (curve_pass) deals the waiting
+// lanes' (ray, slot) items across the warp, 32 per round: each lane reads
+// one slot's words (field k of slot s is word 8k+s, so the 8 lanes of a
+// leaf read each field as one 32-byte sector), lerps them, and runs that
+// slot's test, with its ray's constants and curve frame (computed once per
+// ray) from the warp's scratch in shared memory, and the ribbon's knot
+// weights from the block's copy there. Each waiting lane then takes the
+// least of its slots' keys in slot order.
 //
 // B8 is bound by operations too, more than B7: a round slot at rate 4 (8
 // cone segments) costs about 1,330 operations, and each candidate a
 // segment yields about 1,300 more for its 5 Newton steps (round_slot_ops
 // and ROUND_CANDIDATE_OPS in chip_smoke.py count them from this file).
-// The Pallas kernel computes all 8 candidates, then polishes each; here
-// each segment's candidate is polished as soon as it is found, and a
-// segment without one is not polished at all (its result is masked out in
-// Pallas), so only the slot's 16 CPs, its Newton frame and one knot pair
-// stay live. The knots' Bernstein weights come from the weight table after
-// the ribbon's (curve_w). Scenes with round slots run 16 instantiations of
-// their own (ROUND, traverse_round.cu), chosen from kind_classes bit 9, in
-// which the slot's tag picks the ribbon or the swept circle. As a runtime
-// branch of the flat variants the round test took their registers from
-// 89-94 to 111-121 and slowed the flat hair kernel by 19% on an H100
-// (chip_smoke.py), though no flat scene runs it.
+// The Pallas kernel computes all 8 candidates, then polishes each; here a
+// segment without a candidate is not polished (its result is masked out in
+// Pallas), and the round slots of a leaf pass run their cone segments in
+// step across the warp, queueing their candidates, which the warp polishes
+// 32 at a time instead of in the one lane that found each. The knots'
+// Bernstein weights follow the ribbon's in the weight table (curve_w).
+// Scenes with round slots run 16 instantiations of their own (ROUND,
+// traverse_round.cu), chosen from kind_classes bit 9, in which the slot's
+// tag picks the ribbon or the swept circle. As a runtime branch of the flat
+// variants the round test took their registers from 89-94 to 111-121 and
+// slowed the flat hair kernel by 19% on an H100 (chip_smoke.py), though no
+// flat scene runs it.
 //
 // The file is compiled by nvcc into the kernel (traverse.cu, and
-// traverse_curves.cu and traverse_round.cu for the CURVES variants) and by
-// g++ into a CPU twin
-// (traverse_cpu.cpp) that the tests hold against the plain PyTorch
+// traverse_curves.cu and traverse_round.cu for the curve variants) and by
+// g++ into a CPU twin (traverse_cpu.cpp), which runs the scheduler over 32
+// emulated lanes, and which the tests hold against the plain PyTorch
 // version. Both builds forbid FMA contraction, and both take 1/sqrt for the
 // Pallas kernel's rsqrt, correctly rounded.
 #pragma once
@@ -537,9 +541,8 @@ struct Knot {
 // ones), with every product kept (zero weights at the end knots too).
 TRAV_HD Knot ribbon_knot(const float* w, const float* cx, const float* cy,
                          const float* cz, const float* cr, float eps) {
-  const float w0 = load1f(w), w1 = load1f(w + 1), w2 = load1f(w + 2),
-              w3 = load1f(w + 3);
-  const float q0 = load1f(w + 4), q1 = load1f(w + 5), q2 = load1f(w + 6);
+  const float w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+  const float q0 = w[4], q1 = w[5], q2 = w[6];
   Knot k;
   k.px = w0 * cx[0] + w1 * cx[1] + w2 * cx[2] + w3 * cx[3];
   k.py = w0 * cy[0] + w1 * cy[1] + w2 * cy[2] + w3 * cy[3];
@@ -644,14 +647,14 @@ struct RoundKnot {
   float x, y, z, r;
 };
 
-TRAV_HD RoundKnot round_knot(const float* w, const float* cx, const float* cy,
-                             const float* cz, const float* cr) {
-  const float w0 = load1f(w), w1 = load1f(w + 1), w2 = load1f(w + 2),
-              w3 = load1f(w + 3);
-  return RoundKnot{w0 * cx[0] + w1 * cx[1] + w2 * cx[2] + w3 * cx[3],
-                   w0 * cy[0] + w1 * cy[1] + w2 * cy[2] + w3 * cy[3],
-                   w0 * cz[0] + w1 * cz[1] + w2 * cz[2] + w3 * cz[3],
-                   w0 * cr[0] + w1 * cr[1] + w2 * cr[2] + w3 * cr[3]};
+// The knot of the round weights w (4 per knot) on the 16 fields cf (CP j
+// at 4j..4j+3 = x, y, z, r).
+TRAV_HD RoundKnot round_knot(const float* w, const float* cf) {
+  const float w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+  return RoundKnot{w0 * cf[0] + w1 * cf[4] + w2 * cf[8] + w3 * cf[12],
+                   w0 * cf[1] + w1 * cf[5] + w2 * cf[9] + w3 * cf[13],
+                   w0 * cf[2] + w1 * cf[6] + w2 * cf[10] + w3 * cf[14],
+                   w0 * cf[3] + w1 * cf[7] + w2 * cf[11] + w3 * cf[15]};
 }
 
 // The Newton frame of one round slot: the CPs relative to the ray origin
@@ -751,111 +754,91 @@ TRAV_HD bool round_polish(const Sweep& s, const Ray& r, float tf, float un,
   return ok;
 }
 
-// The round curve of one slot: cf holds its 16 fields (CP j at 4j..4j+3 =
-// x, y, z, r), wt the round knots' weights. Each of the n cone segments
-// between knots i and i + 1 (the round line's tangent cone without end
-// spheres, recentred at the segment's midpoint) gives at most one
-// candidate, the front root if it lies in [tnear, tf], else the back one;
-// each candidate is polished at once. tt is the nearest polished root.
-TRAV_HD bool leaf_round_curve(const float* cf, const Ray& r, float tf, int n,
-                              const float* wt, float& tt) {
-  float cx[4], cy[4], cz[4], cr[4];
+// The round curve of one slot, in two parts. cf holds its 16 fields (CP j
+// at 4j..4j+3 = x, y, z, r). round_sweep gives the slot's Newton frame;
+// round_cone tests cone segment i of n, between knots k0 and k1 (the round
+// line's tangent cone without end spheres, recentred at the segment's
+// midpoint), and gives its candidate, the front root if it lies in [tnear,
+// tf], else the back one, as (u_i, t_i) for round_polish. The slot's t is
+// the nearest polished root over its candidates; a segment without one is
+// not polished (its result is masked out in Pallas). rcpdd: 1 / max(|d|^2,
+// 1e-30).
+TRAV_HD Sweep round_sweep(const float* cf, const Ray& r, float rcpdd) {
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  Sweep s;
+  const float cenx = 0.25f * (cf[0] + cf[4] + cf[8] + cf[12]);
+  const float ceny = 0.25f * (cf[1] + cf[5] + cf[9] + cf[13]);
+  const float cenz = 0.25f * (cf[2] + cf[6] + cf[10] + cf[14]);
+  s.dtc = ((cenx - r.ox) * dx + (ceny - r.oy) * dy + (cenz - r.oz) * dz) *
+          rcpdd;
+  float bmax = 0.0f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    cx[j] = cf[4 * j];
-    cy[j] = cf[4 * j + 1];
-    cz[j] = cf[4 * j + 2];
-    cr[j] = cf[4 * j + 3];
+    s.rx[j] = cf[4 * j] - (r.ox + s.dtc * dx);
+    s.ry[j] = cf[4 * j + 1] - (r.oy + s.dtc * dy);
+    s.rz[j] = cf[4 * j + 2] - (r.oz + s.dtc * dz);
+    s.cr[j] = cf[4 * j + 3];
+    bmax = jmax(bmax, fabsf(s.rx[j]));
+    bmax = jmax(bmax, fabsf(s.ry[j]));
+    bmax = jmax(bmax, fabsf(s.rz[j]));
+    bmax = jmax(bmax, fabsf(s.cr[j]));
   }
+  s.p_err = kSweepErr * bmax;
+  s.len_dir = sqrtf(jmax(r.ddot, 1e-36f));
+  return s;
+}
+
+TRAV_HD bool round_cone(const RoundKnot& k0, const RoundKnot& k1,
+                        const Ray& r, float tf, float rcpdd, int i, int n,
+                        float& u_i, float& t_i) {
   const float dx = r.dx, dy = r.dy, dz = r.dz, ddot = r.ddot;
-  const float rcpdd = 1.0f / jmax(ddot, 1e-30f);
-  Sweep s;
-  {
-    const float cenx = 0.25f * (cx[0] + cx[1] + cx[2] + cx[3]);
-    const float ceny = 0.25f * (cy[0] + cy[1] + cy[2] + cy[3]);
-    const float cenz = 0.25f * (cz[0] + cz[1] + cz[2] + cz[3]);
-    s.dtc = ((cenx - r.ox) * dx + (ceny - r.oy) * dy + (cenz - r.oz) * dz) *
-            rcpdd;
-    float bmax = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s.rx[j] = cx[j] - (r.ox + s.dtc * dx);
-      s.ry[j] = cy[j] - (r.oy + s.dtc * dy);
-      s.rz[j] = cz[j] - (r.oz + s.dtc * dz);
-      s.cr[j] = cr[j];
-      bmax = jmax(bmax, fabsf(s.rx[j]));
-      bmax = jmax(bmax, fabsf(s.ry[j]));
-      bmax = jmax(bmax, fabsf(s.rz[j]));
-      bmax = jmax(bmax, fabsf(cr[j]));
-    }
-    s.p_err = kSweepErr * bmax;
-    s.len_dir = sqrtf(jmax(ddot, 1e-36f));
-  }
-  bool newt_ok = false;
-  float newt_t = as_float(kInfBits);
-  RoundKnot k0 = round_knot(wt, cx, cy, cz, cr);
-  for (int i = 0; i < n; ++i) {
-    const RoundKnot k1 = round_knot(wt + kRoundWeights * (i + 1), cx, cy, cz,
-                                    cr);
-    const float ccx = 0.5f * (k0.x + k1.x), ccy = 0.5f * (k0.y + k1.y),
-                ccz = 0.5f * (k0.z + k1.z);
-    const float dtl =
-        ((ccx - r.ox) * dx + (ccy - r.oy) * dy + (ccz - r.oz) * dz) * rcpdd;
-    const float o2x = r.ox + dtl * dx, o2y = r.oy + dtl * dy,
-                o2z = r.oz + dtl * dz;
-    const float dpx = k1.x - k0.x, dpy = k1.y - k0.y, dpz = k1.z - k0.z;
-    const float dpdp = dpx * dpx + dpy * dpy + dpz * dpz;
-    const float drr = k1.r - k0.r;
-    const float r0dr = k0.r * drr;
-    const float gco = dpdp - drr * drr;
-    const float oxx = o2x - k0.x, oyy = o2y - k0.y, ozz = o2z - k0.z;
-    const float odp = oxx * dpx + oyy * dpy + ozz * dpz;
-    const float dodp = dx * dpx + dy * dpy + dz * dpz;
-    const float ypc = odp + r0dr;
-    const float oo = oxx * oxx + oyy * oyy + ozz * ozz;
-    const float odo = dx * oxx + dy * oyy + dz * ozz;
-    const float ac = gco * ddot - dodp * dodp;
-    const float bc = 2.0f * (gco * odo - dodp * ypc);
-    const float cc =
-        gco * oo - odp * odp - k0.r * k0.r * dpdp - 2.0f * r0dr * odp;
-    const float dc = bc * bc - 4.0f * ac * cc;
-    const bool cone_ok = dc >= 0.0f && gco > 0.0f && fabsf(ac) > 1e-18f;
-    const float qc = sqrtf(jmax(dc, 0.0f));
-    const float rc2a = 1.0f / (cone_ok ? 2.0f * ac : 1.0f);
-    const float tcf = (-bc - qc) * rc2a;
-    const float tcb = (-bc + qc) * rc2a;
-    const float ycf = ypc + tcf * dodp;
-    const float ycb = ypc + tcb * dodp;
-    const bool cf_ok = cone_ok && ycf > 0.0f && ycf <= gco;
-    const bool cb_ok = cone_ok && ycb > 0.0f && ycb <= gco;
-    const float tlo = cf_ok ? tcf : kBig;
-    const float tup = cb_ok ? tcb : -kBig;
-    const bool lo_ok = r.tnear <= dtl + tlo && dtl + tlo <= tf && tlo < kBig;
-    const bool up_ok =
-        r.tnear <= dtl + tup && dtl + tup <= tf && tup > -kBig;
-    if (lo_ok || up_ok) {
-      const float t_i = dtl + (lo_ok ? tlo : tup);
-      const float y_i = lo_ok ? ycf : ycb;
-      const float u_i =
-          (static_cast<float>(i) +
-           jmin(jmax(y_i / jmax(gco, 1e-30f), 0.0f), 1.0f)) /
-          static_cast<float>(n);
-      float t_p;
-      if (round_polish(s, r, tf, u_i, t_i, t_p)) {
-        newt_t = jmin(newt_t, t_p);
-        newt_ok = true;
-      }
-    }
-    k0 = k1;
-  }
-  tt = newt_t;
-  return newt_ok;
+  const float ccx = 0.5f * (k0.x + k1.x), ccy = 0.5f * (k0.y + k1.y),
+              ccz = 0.5f * (k0.z + k1.z);
+  const float dtl =
+      ((ccx - r.ox) * dx + (ccy - r.oy) * dy + (ccz - r.oz) * dz) * rcpdd;
+  const float o2x = r.ox + dtl * dx, o2y = r.oy + dtl * dy,
+              o2z = r.oz + dtl * dz;
+  const float dpx = k1.x - k0.x, dpy = k1.y - k0.y, dpz = k1.z - k0.z;
+  const float dpdp = dpx * dpx + dpy * dpy + dpz * dpz;
+  const float drr = k1.r - k0.r;
+  const float r0dr = k0.r * drr;
+  const float gco = dpdp - drr * drr;
+  const float oxx = o2x - k0.x, oyy = o2y - k0.y, ozz = o2z - k0.z;
+  const float odp = oxx * dpx + oyy * dpy + ozz * dpz;
+  const float dodp = dx * dpx + dy * dpy + dz * dpz;
+  const float ypc = odp + r0dr;
+  const float oo = oxx * oxx + oyy * oyy + ozz * ozz;
+  const float odo = dx * oxx + dy * oyy + dz * ozz;
+  const float ac = gco * ddot - dodp * dodp;
+  const float bc = 2.0f * (gco * odo - dodp * ypc);
+  const float cc =
+      gco * oo - odp * odp - k0.r * k0.r * dpdp - 2.0f * r0dr * odp;
+  const float dc = bc * bc - 4.0f * ac * cc;
+  const bool cone_ok = dc >= 0.0f && gco > 0.0f && fabsf(ac) > 1e-18f;
+  const float qc = sqrtf(jmax(dc, 0.0f));
+  const float rc2a = 1.0f / (cone_ok ? 2.0f * ac : 1.0f);
+  const float tcf = (-bc - qc) * rc2a;
+  const float tcb = (-bc + qc) * rc2a;
+  const float ycf = ypc + tcf * dodp;
+  const float ycb = ypc + tcb * dodp;
+  const bool cf_ok = cone_ok && ycf > 0.0f && ycf <= gco;
+  const bool cb_ok = cone_ok && ycb > 0.0f && ycb <= gco;
+  const float tlo = cf_ok ? tcf : kBig;
+  const float tup = cb_ok ? tcb : -kBig;
+  const bool lo_ok = r.tnear <= dtl + tlo && dtl + tlo <= tf && tlo < kBig;
+  const bool up_ok = r.tnear <= dtl + tup && dtl + tup <= tf && tup > -kBig;
+  t_i = dtl + (lo_ok ? tlo : tup);
+  const float y_i = lo_ok ? ycf : ycb;
+  u_i = (static_cast<float>(i) +
+         jmin(jmax(y_i / jmax(gco, 1e-30f), 0.0f), 1.0f)) /
+        static_cast<float>(n);
+  return lo_ok || up_ok;
 }
 
 // Slot test of one class by its tag (the mixed-class kernel). Tags outside
 // the scene's classes stay invalid, as an unmatched tag does in Pallas.
-// Curve slots (tags 8 and 9) never come here: their 16 fields take the
-// CURVES leaf below.
+// Curve slots (tags 8 and 9) never come here: their 16 fields take
+// curve_item.
 template <bool ROBUST>
 TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
                          const Ray& r, float tf, float& tt) {
@@ -878,79 +861,6 @@ TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
       return leaf_flat_line(q, r, tf, tt);
     default:
       return false;
-  }
-}
-
-// B7, B8: the slots of one leaf of a curve scene (16-field slots), into the
-// leaf's best key. No slot's fields are held past its own test: each test
-// reads its slot's words (field k of slot s is word 8k+s), lerps them by
-// the slot's weight (MOTION), and runs the ribbon for a flat curve slot,
-// the swept circle for a round one (ROUND), or its class test on the first
-// 9 fields for any other.
-template <bool HAS_MASK, bool ROBUST, bool MOTION, bool ROUND>
-TRAV_HD void curve_leaf(const Params& p, const int32_t* rec, const Ray& ray,
-                        float tf, float rtime, int32_t rmask,
-                        int32_t& best_key, int32_t& best_tb) {
-  constexpr int kBlock = kCurveFields * 8;  // words of one field block
-  constexpr int mask_at = kBlock * (MOTION ? 2 : 1);
-  constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
-  constexpr int win_at = kind_at + 8;
-  const CurveFrame fr = curve_frame(ray.dx, ray.dy, ray.dz);
-  const int n_round = p.curve_rate > kRoundMinRate ? p.curve_rate
-                                                    : kRoundMinRate;
-  const float* w_round = p.curve_w + kKnotWeights * (p.curve_rate + 1);
-#pragma unroll 1
-  for (int s = 0; s < 8; ++s) {
-    const int32_t tag = load1(rec + kind_at + s);
-    float w = rtime;
-    bool win_ok = true;
-    if (MOTION && p.has_win) {
-      const float t0 = as_float(load1(rec + win_at + s));
-      const float t1 = as_float(load1(rec + win_at + 8 + s));
-      w = jmin(jmax((rtime - t0) / jmax(t1 - t0, kMinWindow), 0.0f), 1.0f);
-      win_ok = rtime >= t0 && rtime <= t1;
-    }
-    float tt;
-    bool valid;
-    if ((tag == kTagCurve || (ROUND && tag == kTagRound)) &&
-        ((p.kind_classes >> tag) & 1)) {
-      float cf[kCurveFields];
-#pragma unroll
-      for (int k = 0; k < kCurveFields; ++k) {
-        cf[k] = as_float(load1(rec + 8 * k + s));
-        if (MOTION) {
-          cf[k] = cf[k] + w * (as_float(load1(rec + kBlock + 8 * k + s)) -
-                               cf[k]);
-        }
-      }
-      if constexpr (ROUND) {
-        valid = tag == kTagCurve
-                    ? leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt)
-                    : leaf_round_curve(cf, ray, tf, n_round, w_round, tt);
-      } else {
-        valid = leaf_ribbon(cf, ray, fr, tf, p.curve_rate, p.curve_w, tt);
-      }
-    } else {
-      float q[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        q[k] = as_float(load1(rec + 8 * k + s));
-        if (MOTION) {
-          q[k] = q[k] + w * (as_float(load1(rec + kBlock + 8 * k + s)) -
-                             q[k]);
-        }
-      }
-      const Slot sl{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8]};
-      valid = leaf_by_tag<ROBUST>(tag, p.kind_classes, sl, ray, tf, tt);
-    }
-    if (MOTION) valid = valid && win_ok;
-    if (HAS_MASK) valid = valid && (load1(rec + mask_at + s) & rmask) != 0;
-    const int32_t tb = as_int(jmax(tt, 0.0f));
-    const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-    if (k < best_key) {
-      best_key = k;
-      best_tb = tb;
-    }
   }
 }
 
@@ -1232,16 +1142,12 @@ TRAV_HD void motion_attrs(const Params& p, const int32_t* rec, int sl,
 // ROBUST: B2's leaf. KINDS: per-slot kind tags after the mask words, one
 // class test per slot (B3-B5); without it every slot is a triangle.
 // MOTION: B6, each slot's fields lerped by the ray time (p.has_win:
-// per-slot windows, a uniform branch), kSlotGroup slots at a time in scenes
-// without curves (motion_leaf), as the tests read them. CURVES: B7,
-// 16-field slots read slot by slot (curve_leaf); implies KINDS. ROUND: B8
-// beside B7, for scenes with round slots; implies CURVES.
+// per-slot windows, a uniform branch), kSlotGroup slots at a time
+// (motion_leaf). Curve scenes (B7, B8) take curve_pass instead.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
+          bool KINDS, bool MOTION>
 TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
-  static_assert(!CURVES || KINDS, "curve scenes carry kind tags");
-  static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
   ++st.n_leaf;
   const int32_t lid = -st.cur - 1;
   const int32_t* rec =
@@ -1249,10 +1155,7 @@ TRAV_HD bool leaf_step(const Params& p, RayState& st) {
       static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
   int32_t best_key = 0x7FFFFFFF, best_tb = 0;
   float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
-  if constexpr (CURVES) {
-    curve_leaf<HAS_MASK, ROBUST, MOTION, ROUND>(
-        p, rec, st.ray, st.tf, st.rtime, st.rmask, best_key, best_tb);
-  } else if constexpr (MOTION) {
+  if constexpr (MOTION) {
     motion_leaf<HAS_MASK, ROBUST, KINDS>(p, rec, st, best_key, best_tb);
   } else {
     // chunk offsets after the field block (accel/pack.py)
@@ -1347,7 +1250,7 @@ TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   if (best_key < kInfBits && t_new < st.tf) {
     st.tf = t_new;
     st.best = lid * 8 + (best_key & 7);
-    if constexpr (WANT_ATTRS && MOTION && !CURVES) {
+    if constexpr (WANT_ATTRS && MOTION) {
       motion_attrs<HAS_MASK, ROBUST>(p, rec, best_key & 7, st);
     } else if (WANT_ATTRS) {
       st.a_u = b_u;
@@ -1382,11 +1285,11 @@ TRAV_HD bool finish_ray(const Params& p, const RayState& st) {
   return st.overflow;
 }
 
-// Trace ray i to its end, one ray per thread (the static and curve
-// variants). Returns true when its stack grew past kStack (must not
-// happen: the caller counts it).
+// Trace ray i to its end, one ray per thread (the static variants of
+// scenes without curves). Returns true when its stack grew past kStack
+// (must not happen: the caller counts it).
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES, bool ROUND = false>
+          bool KINDS, bool MOTION>
 TRAV_HD bool trace_ray(const Params& p, int i) {
   RayState st;
   start_ray<HAS_MASK, MOTION>(p, i, st);
@@ -1396,7 +1299,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
     if (st.cur >= 0) {
       if (node_step<ROBUST>(p, st, stk)) continue;
     } else if (leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                         MOTION, CURVES, ROUND>(p, st)) {
+                         MOTION>(p, st)) {
       break;
     }
     pop(st, stk);
@@ -1404,7 +1307,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
   return finish_ray<WANT_ATTRS>(p, st);
 }
 
-// ---- B6: persistent warps that refill finished lanes ----
+// ---- persistent warps that refill finished lanes (B6, B7, B8) ----
 //
 // Each warp loops until the rays run out. A lane whose ray is done writes
 // its outputs and goes idle; once kRefillLanes lanes are idle, the warp
@@ -1413,12 +1316,17 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
 // neighbours. Leaves are postponed: each pass runs either the lanes at
 // nodes or the lanes at leaves, the leaves only once kLeafLanes lanes wait
 // at one (or none is left at a node), so the longest code runs converged.
+// Curve scenes take constants of their own (kCurveRefillLanes,
+// kCurveLeafLanes) and a leaf pass of their own (curve_pass).
 // WARP is the lane bookkeeping: CUDA intrinsics on the card (launch.cuh),
 // 32 emulated lanes in the twin (traverse_cpu.cpp). It provides kLanes
 // (lanes one thread holds), each(f) (f(slot, lane) for each of them),
 // ballot(pred) (bit lane set where pred(slot)), take(counter, idle) (the
 // first of popc(idle) new indices, one fetch-add for the warp), stack(slot),
-// overflow(counter), and add_counts(counts, passes, steps, finished).
+// overflow(counter), add_counts(counts, passes, steps, finished), and for
+// curve scenes add_leaf_counts(counts, leaf passes, leaf steps, rounds),
+// scratch() (the warp's scratch words), sync() (its lanes' scratch writes
+// seen by all its lanes) and atomic_min(word, value).
 constexpr int kRefillLanes = 8;   // idle lanes before a warp refills
 constexpr int kLeafLanes = 8;     // lanes at leaves before they run
 
@@ -1430,18 +1338,433 @@ TRAV_HD int popc(uint32_t x) {
 #endif
 }
 
+// the lanes of m below lane
+TRAV_HD int rank(uint32_t m, int lane) {
+  return popc(m & ((1u << lane) - 1u));
+}
+
+// ---- B7, B8: the curve variants' leaf pass ----
+//
+// The (waiting lane, slot) items of a leaf pass are dealt across the
+// warp, 32 per round (4 leaves of 8 slots), so that the 8 lanes of one
+// leaf read each field as one 32-byte sector (field k of slot s is word
+// 8k + s). An item reads its ray's constants from the warp's scratch,
+// where the waiting lanes publish them by rank with their curve frames
+// (once per ray), reads its slot's words and lerps them by the slot's
+// weight (MOTION), and runs the ribbon for a flat curve slot, the class
+// test on the first 9 fields for any other, or, for a round slot (ROUND),
+// the cone stage, segment by segment in step across the warp. Its
+// candidates go to a ring in the scratch, which the warp polishes 32 at a
+// time. A slot that the mask chunk or its window rejects is not tested:
+// its key is invalid whatever the test gives. Each waiting lane then takes
+// the least of its 8 slot keys in slot order with a strict <, the slot
+// loop's own result: the keys are distinct (the slot rides in the low 3
+// bits), tf does not change inside a leaf, and the t bits go with the key.
+// A round slot's t is the least of its polished roots; each lies in
+// [tnear, tf], so none is NaN and the least does not depend on the order
+// of the polishes. The knot weights are read from the block's shared
+// memory on the card (launch.cuh). The constants come from
+// perf/sched_sweep.py on the hair cells: refill 1 and 8 leaf lanes beat
+// (8, 4) by 3-5% (PERF.md also times the forms this design replaced: each
+// lane its own ray's 8 slots, each candidate polished at once by its own
+// lane).
+constexpr int kCurveRefillLanes = 1;  // idle lanes before a warp refills
+constexpr int kCurveLeafLanes = 8;    // lanes at leaves before they run
+
+// A warp's scratch words (shared memory on the card), each row 32 wide:
+// the waiting rays by rank (kRayWords rows: ox, oy, oz, dx, dy, dz, tnear,
+// tf, rmask, rtime, leaf id) and their curve frames (kFrameWords rows, in
+// scenes with flat curves); then either the items' keys and t bits after
+// a round (2 rows) or, in scenes with round curves, the candidate ring
+// (kQueue entries of item lane, u, t; the keys alias its start), each
+// round item's Newton frame but len_dir (kSweepWords rows) and its least
+// polished root as an ordered int (1 row).
+constexpr int kRayWords = 11;
+constexpr int kFrameWords = 10;
+constexpr int kSweepWords = 18;
+constexpr int kQueue = 64;              // holds 31 waiting + 32 pushed
+constexpr int32_t kNoRoot = 0x7FFFFFFF;  // above every ordered float
+
+struct CurveScratch {
+  int32_t *ray, *frame, *key, *queue, *sweep, *root;
+};
+
+TRAV_HD bool has_class(int32_t classes, int tag) {
+  return ((classes >> tag) & 1) != 0;
+}
+
+TRAV_HD int curve_scratch_words(int32_t classes) {
+  return 32 * (kRayWords + (has_class(classes, kTagCurve) ? kFrameWords : 0)) +
+         (has_class(classes, kTagRound) ? 3 * kQueue + 32 * (kSweepWords + 1)
+                                        : 2 * 32);
+}
+
+TRAV_HD CurveScratch curve_scratch(int32_t* w, int32_t classes) {
+  CurveScratch c;
+  c.ray = w;
+  w += 32 * kRayWords;
+  c.frame = w;
+  if (has_class(classes, kTagCurve)) w += 32 * kFrameWords;
+  c.key = c.queue = w;
+  w += has_class(classes, kTagRound) ? 3 * kQueue : 2 * 32;
+  c.sweep = w;
+  c.root = w + 32 * kSweepWords;
+  return c;
+}
+
+// The knot-weight words of a curve scene at `rate` (curve_weights in
+// accel/traverse.py): the ribbon's rate + 1 knots of 7, then the round
+// curve's max(rate, 8) + 1 knots of 4.
+TRAV_HD int curve_weight_words(int rate) {
+  return kKnotWeights * (rate + 1) +
+         kRoundWeights * ((rate > kRoundMinRate ? rate : kRoundMinRate) + 1);
+}
+
+// float <-> int32 in jmin's order of non-NaN values (-0 below +0)
+TRAV_HD int32_t ordered(float f) {
+  const int32_t b = as_int(f);
+  return b >= 0 ? b : b ^ 0x7FFFFFFF;
+}
+
+TRAV_HD float from_ordered(int32_t o) {
+  return as_float(o >= 0 ? o : o ^ 0x7FFFFFFF);
+}
+
+// A waiting ray's constants as its items read them.
+struct ItemRay {
+  Ray ray;
+  float tf, rtime;
+  int32_t rmask, lid;
+};
+
+TRAV_HD void put_ray(const CurveScratch& c, int q, const RayState& s,
+                     bool frame) {
+  int32_t* r = c.ray + q;
+  r[0] = as_int(s.ray.ox);
+  r[32] = as_int(s.ray.oy);
+  r[64] = as_int(s.ray.oz);
+  r[96] = as_int(s.ray.dx);
+  r[128] = as_int(s.ray.dy);
+  r[160] = as_int(s.ray.dz);
+  r[192] = as_int(s.ray.tnear);
+  r[224] = as_int(s.tf);
+  r[256] = s.rmask;
+  r[288] = as_int(s.rtime);
+  r[320] = -s.cur - 1;
+  if (frame) {
+    const CurveFrame fr = curve_frame(s.ray.dx, s.ray.dy, s.ray.dz);
+    const float v[kFrameWords] = {fr.vx0, fr.vx1, fr.vx2, fr.vy0, fr.vy1,
+                                  fr.vy2, fr.vz0, fr.vz1, fr.vz2, fr.ds};
+#pragma unroll
+    for (int k = 0; k < kFrameWords; ++k) c.frame[32 * k + q] = as_int(v[k]);
+  }
+}
+
+// |d|^2 as start_ray computes it, so the same bits
+TRAV_HD ItemRay get_ray(const CurveScratch& c, int q) {
+  const int32_t* r = c.ray + q;
+  const float dx = as_float(r[96]), dy = as_float(r[128]),
+              dz = as_float(r[160]);
+  ItemRay o;
+  o.ray = Ray{as_float(r[0]), as_float(r[32]), as_float(r[64]), dx, dy, dz,
+              as_float(r[192]), dx * dx + dy * dy + dz * dz};
+  o.tf = as_float(r[224]);
+  o.rmask = r[256];
+  o.rtime = as_float(r[288]);
+  o.lid = r[320];
+  return o;
+}
+
+TRAV_HD CurveFrame get_frame(const CurveScratch& c, int q) {
+  const int32_t* f = c.frame + q;
+  return CurveFrame{as_float(f[0]),   as_float(f[32]),  as_float(f[64]),
+                    as_float(f[96]),  as_float(f[128]), as_float(f[160]),
+                    as_float(f[192]), as_float(f[224]), as_float(f[256]),
+                    as_float(f[288])};
+}
+
+TRAV_HD void put_sweep(int32_t* w, const Sweep& s) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[32 * j] = as_int(s.rx[j]);
+    w[32 * (4 + j)] = as_int(s.ry[j]);
+    w[32 * (8 + j)] = as_int(s.rz[j]);
+    w[32 * (12 + j)] = as_int(s.cr[j]);
+  }
+  w[32 * 16] = as_int(s.dtc);
+  w[32 * 17] = as_int(s.p_err);
+}
+
+// len_dir as round_sweep computes it, from |d|^2
+TRAV_HD Sweep get_sweep(const int32_t* w, float ddot) {
+  Sweep s;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s.rx[j] = as_float(w[32 * j]);
+    s.ry[j] = as_float(w[32 * (4 + j)]);
+    s.rz[j] = as_float(w[32 * (8 + j)]);
+    s.cr[j] = as_float(w[32 * (12 + j)]);
+  }
+  s.dtc = as_float(w[32 * 16]);
+  s.p_err = as_float(w[32 * 17]);
+  s.len_dir = sqrtf(jmax(ddot, 1e-36f));
+  return s;
+}
+
+// The item of `lane` in round r of a leaf pass over n waiting lanes: its
+// ray's rank q and its slot s; false for a lane without one.
+TRAV_HD bool item_of(int n, int r, int lane, int& q, int& s) {
+  const int j = 32 * r + lane;
+  q = j >> 3;
+  s = j & 7;
+  return j < 8 * n;
+}
+
+// The rank q of the ray of item lane `item` in round r (item_of's q).
+TRAV_HD int item_rank(int r, int item) { return 4 * r + (item >> 3); }
+
+// N fields of slot s of a curve leaf record (field k is word 8k + s), each
+// lerped by the slot's weight w to step B's block (MOTION).
+template <bool MOTION, int N>
+TRAV_HD void slot_words(const int32_t* rec, int s, float w, float* f) {
+  constexpr int kBlk = kCurveFields * 8;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    f[k] = as_float(load1(rec + 8 * k + s));
+    if (MOTION) {
+      f[k] = f[k] + w * (as_float(load1(rec + kBlk + 8 * k + s)) - f[k]);
+    }
+  }
+}
+
+TRAV_HD void slot_key(bool valid, float tt, int s, int32_t& key,
+                      int32_t& tb) {
+  tb = as_int(jmax(tt, 0.0f));
+  key = valid ? ((tb & ~7) | s) : (kInfBits | s);
+}
+
+// One item: slot s of the leaf of ray r (rank q), into its key and t bits.
+// A round slot (ROUND) instead leaves its lerped fields in cf, stages its
+// Newton frame at sweep and returns true: its key follows its polishes.
+template <bool HAS_MASK, bool ROBUST, bool MOTION, bool ROUND>
+TRAV_HD bool curve_item(const Params& p, const CurveScratch& c,
+                        const ItemRay& r, int q, int s, const float* wt,
+                        float* cf, int32_t* sweep, int32_t& key,
+                        int32_t& tb) {
+  constexpr int mask_at = kCurveFields * 8 * (MOTION ? 2 : 1);
+  constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+  constexpr int win_at = kind_at + 8;
+  const int32_t* rec =
+      p.leaves +
+      static_cast<size_t>(clampi(r.lid, 0, p.n_leaves - 1)) * p.leaf_stride;
+  const int32_t tag = load1(rec + kind_at + s);
+  float w = r.rtime;
+  bool live = true;
+  if (MOTION && p.has_win) {
+    const float t0 = as_float(load1(rec + win_at + s));
+    const float t1 = as_float(load1(rec + win_at + 8 + s));
+    w = jmin(jmax((r.rtime - t0) / jmax(t1 - t0, kMinWindow), 0.0f), 1.0f);
+    live = r.rtime >= t0 && r.rtime <= t1;
+  }
+  if (HAS_MASK) live = live && (load1(rec + mask_at + s) & r.rmask) != 0;
+  float tt = 0.0f;
+  bool valid = false;
+  if (live) {
+    if ((tag == kTagCurve || (ROUND && tag == kTagRound)) &&
+        has_class(p.kind_classes, tag)) {
+      slot_words<MOTION, kCurveFields>(rec, s, w, cf);
+      if (ROUND && tag == kTagRound) {
+        put_sweep(sweep, round_sweep(cf, r.ray, 1.0f / jmax(r.ray.ddot,
+                                                             1e-30f)));
+        return true;
+      }
+      valid = leaf_ribbon(cf, r.ray, get_frame(c, q), r.tf, p.curve_rate, wt,
+                          tt);
+    } else {
+      float f[9];
+      slot_words<MOTION, 9>(rec, s, w, f);
+      const Slot sl{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+      valid = leaf_by_tag<ROBUST>(tag, p.kind_classes, sl, r.ray, r.tf, tt);
+    }
+  }
+  slot_key(valid, tt, s, key, tb);
+  return false;
+}
+
+// B8 in round r of a leaf pass: the cone stage
+// of the round items (pend, their ray ranks q and slots s, their lerped
+// fields cf), segment by segment in step across the warp, their candidates
+// polished, then their keys. A lane reads only its own entries of these
+// arrays (on the card it holds no other); the polisher of another lane's
+// item finds its ray by item_rank.
+template <class WARP>
+TRAV_HD void round_stage(const Params& p, const WARP& w, const CurveScratch& c,
+                         int r, const float* wt, const bool* pend,
+                         const int* q, const int* s,
+                         float (*cf)[kCurveFields], int32_t* key,
+                         int32_t* tb) {
+  constexpr int L = WARP::kLanes;
+  if (w.ballot([&](int l) { return pend[l]; }) == 0) return;
+  const int n_seg =
+      p.curve_rate > kRoundMinRate ? p.curve_rate : kRoundMinRate;
+  const float* w_round = wt + kKnotWeights * (p.curve_rate + 1);
+  RoundKnot k0[L];
+  w.each([&](int l, int lane) {
+    if (!pend[l]) return;
+    k0[l] = round_knot(w_round, cf[l]);
+    c.root[lane] = kNoRoot;
+  });
+  // polish entries [head, head + m) of the ring, one per lane
+  int head = 0, count = 0;
+  auto polish = [&](int m) {
+    w.sync();
+    w.each([&](int, int lane) {
+      if (lane >= m) return;
+      const int at = (head + lane) & (kQueue - 1);
+      const int item = c.queue[at];
+      const ItemRay ir = get_ray(c, item_rank(r, item));
+      float tp;
+      if (round_polish(get_sweep(c.sweep + item, ir.ray.ddot), ir.ray, ir.tf,
+                       as_float(c.queue[kQueue + at]),
+                       as_float(c.queue[2 * kQueue + at]), tp)) {
+        w.atomic_min(c.root + item, ordered(tp));
+      }
+    });
+    w.sync();
+    head = (head + m) & (kQueue - 1);
+    count -= m;
+  };
+  for (int i = 0; i < n_seg; ++i) {
+    bool cand[L];
+    float u[L], t[L];
+    w.each([&](int l, int lane) {
+      cand[l] = false;
+      if (!pend[l]) return;
+      const ItemRay ir = get_ray(c, q[l]);
+      const float rcpdd = 1.0f / jmax(ir.ray.ddot, 1e-30f);
+      const RoundKnot k1 =
+          round_knot(w_round + kRoundWeights * (i + 1), cf[l]);
+      cand[l] = round_cone(k0[l], k1, ir.ray, ir.tf, rcpdd, i, n_seg, u[l],
+                           t[l]);
+      k0[l] = k1;
+    });
+    const uint32_t b = w.ballot([&](int l) { return cand[l]; });
+    w.each([&](int l, int lane) {
+      if (!cand[l]) return;
+      const int at = (head + count + rank(b, lane)) & (kQueue - 1);
+      c.queue[at] = lane;
+      c.queue[kQueue + at] = as_int(u[l]);
+      c.queue[2 * kQueue + at] = as_int(t[l]);
+    });
+    count += popc(b);
+    if (count >= 32) polish(32);
+  }
+  if (count > 0) polish(count);
+  w.sync();
+  w.each([&](int l, int lane) {
+    if (!pend[l]) return;
+    const int32_t o = c.root[lane];
+    slot_key(o != kNoRoot, o != kNoRoot ? from_ordered(o) : as_float(kInfBits),
+             s[l], key[l], tb[l]);
+  });
+}
+
+// One leaf pass over the waiting lanes go: each one's least slot key and
+// its t bits, into best_key and best_tb; rounds counts the item rounds.
+template <class WARP, bool HAS_MASK, bool ROBUST, bool MOTION, bool ROUND>
+TRAV_HD void curve_pass(const Params& p, const WARP& w, const RayState* st,
+                        uint32_t go, const float* wt, int32_t* best_key,
+                        int32_t* best_tb, uint32_t& rounds) {
+  constexpr int L = WARP::kLanes;
+  const CurveScratch c = curve_scratch(w.scratch(), p.kind_classes);
+  const bool frame = has_class(p.kind_classes, kTagCurve);
+  const int n = popc(go);
+  w.each([&](int l, int lane) {
+    if (!((go >> lane) & 1u)) return;
+    put_ray(c, rank(go, lane), st[l], frame);
+    best_key[l] = 0x7FFFFFFF;
+    best_tb[l] = 0;
+  });
+  w.sync();
+  const int n_rounds = (n + 3) / 4;
+  rounds += n_rounds;
+  for (int r = 0; r < n_rounds; ++r) {
+    int32_t key[L], tb[L];
+    int q[L], s[L];
+    bool pend[L];
+    float cf[L][kCurveFields];
+    w.each([&](int l, int lane) {
+      key[l] = tb[l] = 0;
+      pend[l] = item_of(n, r, lane, q[l], s[l]) &&
+                curve_item<HAS_MASK, ROBUST, MOTION, ROUND>(
+                    p, c, get_ray(c, q[l]), q[l], s[l], wt, cf[l],
+                    c.sweep + lane, key[l], tb[l]);
+    });
+    if constexpr (ROUND) {
+      round_stage(p, w, c, r, wt, pend, q, s, cf, key, tb);
+    }
+    w.each([&](int l, int lane) {
+      c.key[lane] = key[l];
+      c.key[32 + lane] = tb[l];
+    });
+    w.sync();
+    w.each([&](int l, int lane) {
+      if (!((go >> lane) & 1u)) return;
+      const int qo = rank(go, lane);
+      if ((qo >> 2) != r) return;
+      const int first = 8 * (qo & 3);
+      for (int k = 0; k < 8; ++k) {
+        const int32_t kk = c.key[first + k];
+        if (kk < best_key[l]) {
+          best_key[l] = kk;
+          best_tb[l] = c.key[32 + first + k];
+        }
+      }
+    });
+    w.sync();
+  }
+}
+
+// Take a leaf's best key if its t is strictly nearer than the ray's best
+// so far; returns true when the hit ends the ray (OCCLUSION). leaf_step's
+// acceptance without attributes.
+template <bool OCCLUSION>
+TRAV_HD bool take_leaf_hit(RayState& st, int32_t key, int32_t tb) {
+  const float t_new = as_float(tb);
+  if (key < kInfBits && t_new < st.tf) {
+    st.tf = t_new;
+    st.best = (-st.cur - 1) * 8 + (key & 7);
+    if (OCCLUSION) {
+      st.live = false;
+      return true;
+    }
+  }
+  return false;
+}
+
 // counts (int64, per launch): [0] lane slots (warp passes x 32), [1] lane
-// steps that did work, [2] rays finished; out_overflow: rays whose stack
-// overflowed. A warp keeps its counts in 32 bits (64-bit ones cost ptxas
-// a spill) and adds them to counts at its end, or every kFlushPasses
-// passes, before they could wrap.
+// steps that did work, [2] rays finished; curve scenes also [4] lane slots
+// of leaf passes, [5] lane steps of leaf passes, [6] item rounds x 32;
+// out_overflow: rays whose stack overflowed. A warp keeps its counts in 32
+// bits (64-bit ones cost ptxas a spill) and adds them to counts at its end,
+// or every kFlushPasses passes, before they could wrap.
 constexpr uint32_t kFlushPasses = 1u << 26;
 
+// The persistent warps of the moving variants (B6: MOTION, scenes without
+// curves) and of the curve variants (B7, B8: CURVES, static or moving);
+// wt: the knot weights (CURVES).
 template <class WARP, bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK,
-          bool ROBUST, bool KINDS>
+          bool ROBUST, bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
-                      int32_t* out_overflow, unsigned long long* counts) {
+                      int32_t* out_overflow, unsigned long long* counts,
+                      const float* wt) {
+  static_assert(MOTION || CURVES, "static scenes run one ray per thread");
+  static_assert(!CURVES || (KINDS && !WANT_ATTRS),
+                "curve scenes carry kind tags and no kernel attrs");
+  static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
   constexpr int L = WARP::kLanes;
+  constexpr int refill_lanes = CURVES ? kCurveRefillLanes : kRefillLanes;
+  constexpr int leaf_lanes = CURVES ? kCurveLeafLanes : kLeafLanes;
   RayState st[L];
   bool busy[L];
   uint32_t finished[L];
@@ -1455,23 +1778,25 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
     busy[l] = false;
   };
   bool more = true;  // rays left to take (uniform across the warp)
-  uint32_t passes = 0, steps = 0;
+  uint32_t passes = 0, steps = 0, leaf_passes = 0, leaf_steps = 0,
+           rounds = 0;
   auto flush = [&] {
     w.add_counts(counts, passes, steps, finished);
-    passes = steps = 0;
+    if (CURVES) w.add_leaf_counts(counts, leaf_passes, leaf_steps, rounds);
+    passes = steps = leaf_passes = leaf_steps = rounds = 0;
     w.each([&](int l, int) { finished[l] = 0; });
   };
   for (;;) {
     if (more) {
       const uint32_t idle = w.ballot([&](int l) { return !busy[l]; });
       const int n_idle = popc(idle);
-      if (n_idle >= kRefillLanes) {
+      if (n_idle >= refill_lanes) {
         const int base = w.take(next_ray, idle);
         more = base + n_idle < p.n_rays;
         w.each([&](int l, int lane) {
-          const int i = base + popc(idle & ((1u << lane) - 1u));
+          const int i = base + rank(idle, lane);
           if (!busy[l] && i < p.n_rays) {
-            start_ray<HAS_MASK, true>(p, i, st[l]);
+            start_ray<HAS_MASK, MOTION>(p, i, st[l]);
             busy[l] = true;
             if (!ray_running(st[l])) done(l);
           }
@@ -1486,18 +1811,40 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
       if (!more) break;
       continue;
     }
-    const bool leaves = popc(at_leaf) >= kLeafLanes || at_node == 0;
+    const bool leaves = popc(at_leaf) >= leaf_lanes || at_node == 0;
     const uint32_t go = leaves ? at_leaf : at_node;
     if (passes == kFlushPasses) flush();
     ++passes;
     steps += popc(go);
+    if constexpr (CURVES) {
+      if (leaves) {
+        ++leaf_passes;
+        leaf_steps += popc(go);
+        int32_t key[L], tb[L];
+        curve_pass<WARP, HAS_MASK, ROBUST, MOTION, ROUND>(p, w, st, go, wt,
+                                                          key, tb, rounds);
+        w.each([&](int l, int lane) {
+          if (!((go >> lane) & 1u)) return;
+          ++st[l].n_leaf;
+          if (!take_leaf_hit<OCCLUSION>(st[l], key[l], tb[l])) {
+            pop(st[l], w.stack(l));
+          }
+          if (!ray_running(st[l])) done(l);
+        });
+        continue;
+      }
+    }
     w.each([&](int l, int lane) {
       if (!((go >> lane) & 1u)) return;
       const auto stk = w.stack(l);
-      const bool kept =
-          leaves ? leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                             true, false, false>(p, st[l])
-                 : node_step<ROBUST>(p, st[l], stk);
+      bool kept;
+      if constexpr (CURVES) {
+        kept = node_step<ROBUST>(p, st[l], stk);
+      } else {
+        kept = leaves ? leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
+                                  KINDS, true>(p, st[l])
+                      : node_step<ROBUST>(p, st[l], stk);
+      }
       if (!kept) pop(st[l], stk);
       if (!ray_running(st[l])) done(l);
     });

@@ -1,26 +1,35 @@
 // CPU twin of the Hopper traversal kernels (test-only).
 //
-// Compiles the kernels' per-ray logic and the moving variants' warp
-// scheduler (traverse.cuh) for the host with g++ and -ffp-contract=off, so a
-// machine without a GPU can hold the kernels' arithmetic and bookkeeping
-// against the plain PyTorch version bit for bit. Never on the main path.
+// Compiles the kernels' per-ray logic and the persistent warps of the
+// moving and curve variants (traverse.cuh: the scheduler and the curve
+// leaf pass, which deals slots across the warp and queues round-curve
+// candidates) for the host with g++ and -ffp-contract=off, so a machine
+// without a GPU can hold the kernels' arithmetic and bookkeeping against
+// the plain PyTorch version bit for bit. Never on the main path.
 //
 // Build: g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC traverse_cpu.cpp
 //        -o libtraverse_twin.so
+#include <vector>
+
 #include "traverse.cuh"
 
 namespace {
 
 // The scheduler's lane bookkeeping on the host (trav::run_warp's WARP): one
-// warp of 32 emulated lanes, each with its own local stack; a plain counter
-// stands for the card's fetch-add.
+// warp of 32 emulated lanes, each with its own local stack, and the warp's
+// scratch words; a plain counter stands for the card's fetch-add. each()
+// runs the lanes one after another, so a pass sees the scratch words that
+// earlier passes wrote, as the card's lanes do after a __syncwarp.
 struct HostWarp {
   static constexpr int kLanes = 32;
   int32_t* stacks;  // kLanes x kStack
+  int32_t* scr;
 
   trav::Stack<1> stack(int l) const {
     return trav::Stack<1>{stacks + l * trav::kStack};
   }
+
+  int32_t* scratch() const { return scr; }
 
   template <class F>
   void each(F f) const {
@@ -32,6 +41,12 @@ struct HostWarp {
     uint32_t bits = 0;
     for (int l = 0; l < kLanes; ++l) bits |= pred(l) ? 1u << l : 0u;
     return bits;
+  }
+
+  void sync() const {}
+
+  void atomic_min(int32_t* word, int32_t v) const {
+    if (v < *word) *word = v;
   }
 
   int take(int32_t* next_ray, uint32_t idle) const {
@@ -48,22 +63,33 @@ struct HostWarp {
     counts[1] += steps;
     for (int l = 0; l < kLanes; ++l) counts[2] += finished[l];
   }
+
+  void add_leaf_counts(unsigned long long* counts, uint32_t passes,
+                       uint32_t steps, uint32_t rounds) const {
+    counts[4] += 32ull * passes;
+    counts[5] += steps;
+    counts[6] += 32ull * rounds;
+  }
 };
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 void run(const trav::Params& p, int32_t* ovf, unsigned long long* counts) {
-  if constexpr (MOTION && !CURVES) {
+  if constexpr (MOTION || CURVES) {
     // one persistent warp takes every ray
-    int32_t stacks[HostWarp::kLanes * trav::kStack];
+    std::vector<int32_t> stacks(HostWarp::kLanes * trav::kStack);
+    std::vector<int32_t> scratch(
+        CURVES ? trav::curve_scratch_words(p.kind_classes) : 0);
     int32_t next_ray = 0;
-    trav::run_warp<HostWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS>(
-        p, HostWarp{stacks}, &next_ray, ovf, counts);
+    trav::run_warp<HostWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+                   MOTION, CURVES, ROUND>(
+        p, HostWarp{stacks.data(), scratch.data()}, &next_ray, ovf, counts,
+        p.curve_w);
     counts[3] = 1;
   } else {
     for (int i = 0; i < p.n_rays; ++i) {
       *ovf += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                              MOTION, CURVES, ROUND>(p, i)
+                              MOTION>(p, i)
                   ? 1
                   : 0;
     }
@@ -101,9 +127,9 @@ void run_motion(const trav::Params& p, int has_mask, int robust,
 }  // namespace
 
 // Same arguments as traverse_launch (traverse.cu) without the ray counter
-// and the stream; host pointers. counts: four int64 (zero before the call),
-// filled by the moving variants as on the card, with [3] = 1 (one warp);
-// null for the others, which do not read it.
+// and the stream; host pointers. counts: seven int64 (zero before the
+// call), filled by the moving and curve variants as on the card, with [3]
+// = 1 (one warp); null for the others, which do not read it.
 // Returns 0, or 1 for a variant that does not exist.
 extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              const int32_t* leaves, int n_leaves,

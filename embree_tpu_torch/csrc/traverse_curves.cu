@@ -1,5 +1,6 @@
-// Hopper kernel for BVH8 traversal, one ray per thread: the variants of
-// scenes with native flat curves and no round ones (16-field slots).
+// Hopper kernel for BVH8 traversal, persistent warps whose leaf passes deal
+// slots across the warp: the variants of scenes with native flat curves and
+// no round ones (16-field slots).
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel's flat curve
 // specialization (B7: the ribbon, :719-856, with the curve ray frame,

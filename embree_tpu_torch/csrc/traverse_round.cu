@@ -1,5 +1,6 @@
-// Hopper kernel for BVH8 traversal, one ray per thread: the variants of
-// scenes with native round curves (16-field slots).
+// Hopper kernel for BVH8 traversal, persistent warps whose leaf passes deal
+// slots across the warp and polish round-curve candidates 32 at a time: the
+// variants of scenes with native round curves (16-field slots).
 //
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel's round curve
 // specialization (B8: the swept circle, :858-1046), with flat curves (B7)

@@ -1,22 +1,33 @@
-"""Sweep of the four constants of B6's persistent warps, on the card.
+"""Sweep of the constants of the persistent warps, on the card.
 
-``run_warp`` (``csrc/traverse.cuh``) refills a warp once ``kRefillLanes``
-of its lanes are idle, and runs the lanes waiting at leaves once
-``kLeafLanes`` of them wait there (or none is left at a node);
-``motion_leaf`` reads, lerps and tests ``kSlotGroup`` slots of a leaf at
-a time; ``persistent_kernel`` (``csrc/launch.cuh``) asks ptxas for
-``kMinBlocks`` resident blocks per SM. All four are constants of the
-source, not knobs. For each (refill, leaf, group, blocks) configuration
-given, this script builds a copy of ``csrc/`` with the four replaced
-(``traverse.cu``, with the curve launchers, which no triangle scene
-reaches, as stubs), every copy at once, and times B6 on the 2-step motion
-cell of ``chip_smoke.py`` (phase 10: the 2,097,152-triangle sphere moving
-0.25 along x, 16,777,216 coherence-sorted rays with times U[0, 1)), one
-configuration after another in turns, CUDA events, median of 5 rounds.
-Each configuration's outputs must equal the built library's bit for bit.
+``run_warp`` (``csrc/traverse.cuh``) refills a warp once enough of its
+lanes are idle, and runs the lanes waiting at leaves once enough of them
+wait there (or none is left at a node); ``persistent_kernel``
+(``csrc/launch.cuh``) asks ptxas for a number of resident blocks per SM.
+All are constants of the source, not knobs, with their own values for the
+moving variants of scenes without curves (B6) and for the curve variants
+(B7, B8). For each configuration given, this script builds a copy of
+``csrc/`` with the constants replaced, every copy at once, and times the
+cell's kernel one configuration after another in turns, CUDA events,
+median of 5 rounds. Each configuration's outputs must equal the built
+library's bit for bit. Cells (``--cell``), all at 16,777,216
+coherence-sorted rays, from ``chip_smoke.py`` in the tree's root:
 
-Usage: python -m embree_tpu_torch.perf.sched_sweep
-           [--configs 8:4:4:4,4:16:4:1,...] [--variants closest,occluded]
+- ``motion`` (B6, phase 10): the 2,097,152-triangle sphere moving 0.25
+  along x, rays with times U[0, 1); constants (kRefillLanes, kLeafLanes,
+  kSlotGroup, kMinBlocks); the copies compile ``traverse.cu`` with the
+  curve launchers as stubs;
+- ``hair`` (B7, phase 13): 1,048,576 flat B-spline curves; constants
+  (kCurveRefillLanes, kCurveLeafLanes, kMinBlocks);
+- ``round_hair`` (B8, phase 15): the same strands as round curves,
+  packed for the kernel; the same constants.
+
+For the curve cells the copies compile the family's own source and
+``traverse.cu`` with its launches of scenes without curves skipped, so
+that kMinBlocks there moves the curve variants' bound alone.
+
+Usage: python -m embree_tpu_torch.perf.sched_sweep [--cell motion]
+           [--configs 8:4:4:4,...] [--variants closest,occluded]
            [--rays 16777216] [--out file.json]
 """
 from __future__ import annotations
@@ -37,57 +48,104 @@ import torch
 from .. import _build
 from ..accel import traverse as tr
 
+MOTION_CONSTANTS = (("traverse.cuh", "kRefillLanes"),
+                    ("traverse.cuh", "kLeafLanes"),
+                    ("traverse.cuh", "kSlotGroup"),
+                    ("launch.cuh", "kMinBlocks"))
+CURVE_CONSTANTS = (("traverse.cuh", "kCurveRefillLanes"),
+                   ("traverse.cuh", "kCurveLeafLanes"),
+                   ("launch.cuh", "kMinBlocks"))
 # (refill lanes, leaf lanes, slot group, min blocks): each constant moved
 # alone from the source's (8, 8, 4, 4), and the first design's
-CONSTANTS = (("traverse.cuh", "kRefillLanes"), ("traverse.cuh", "kLeafLanes"),
-             ("traverse.cuh", "kSlotGroup"), ("launch.cuh", "kMinBlocks"))
-CONFIGS = ((8, 8, 4, 4), (8, 8, 1, 4), (8, 8, 8, 4), (1, 8, 4, 4),
-           (4, 8, 4, 4), (16, 8, 4, 4), (32, 8, 4, 4), (8, 1, 4, 4),
-           (8, 4, 4, 4), (8, 12, 4, 4), (8, 16, 4, 4), (8, 32, 4, 4),
-           (8, 8, 4, 1), (8, 8, 4, 5), (4, 16, 1, 1))
+MOTION_CONFIGS = ((8, 8, 4, 4), (8, 8, 1, 4), (8, 8, 8, 4), (1, 8, 4, 4),
+                  (4, 8, 4, 4), (16, 8, 4, 4), (32, 8, 4, 4), (8, 1, 4, 4),
+                  (8, 4, 4, 4), (8, 12, 4, 4), (8, 16, 4, 4), (8, 32, 4, 4),
+                  (8, 8, 4, 1), (8, 8, 4, 5), (4, 16, 1, 1))
+# (refill lanes, leaf lanes, min blocks): each constant moved alone from
+# the source's (1, 8, 4)
+CURVE_CONFIGS = ((1, 8, 4), (4, 8, 4), (8, 8, 4), (16, 8, 4), (32, 8, 4),
+                 (1, 1, 4), (1, 2, 4), (1, 4, 4), (1, 16, 4), (1, 32, 4),
+                 (1, 8, 3))
+CELLS = {"motion": (MOTION_CONSTANTS, MOTION_CONFIGS, ()),
+         "hair": (CURVE_CONSTANTS, CURVE_CONFIGS, ("traverse_curves.cu",)),
+         "round_hair": (CURVE_CONSTANTS, CURVE_CONFIGS,
+                        ("traverse_round.cu",))}
 VARIANTS = {"closest_attrs": (False, True), "closest": (False, False),
             "occluded": (True, False)}
 MESH = (1024, 1024)
 SHIFT = 0.25
 REPS = 5
 
-STUBS = """#include "launch.cuh"
-namespace trav {
+# the curve launchers a copy does not compile
+STUBS = {"traverse_curves.cu": """
 void launch_curves(const Params&, int, int, int, int, Counters,
-                   cudaStream_t) {}
+                   cudaStream_t) {}""",
+         "traverse_round.cu": """
 void launch_round(const Params&, int, int, int, int, Counters,
-                  cudaStream_t) {}
+                  cudaStream_t) {}"""}
+# traverse.cu's launches of scenes without curves, skipped in the curve
+# cells' copies: SKIP after its include of launch.cuh, each of its
+# SKIPPED launches renamed
+INCLUDE = '#include "launch.cuh"\n'
+SKIPPED = ("launch_motion<", 5)
+SKIP = """namespace trav {
+template <bool... B, class... A>
+void skip_launch(A&&...) {}
 }  // namespace trav
 """
 
 
-def _copy(root, config):
-    """csrc/ with the four constants replaced, in ``root``; its Target."""
+def _replace(src, old, new, count, what):
+    """src with ``old`` replaced by ``new``, which must occur ``count``
+    times (a regular expression when ``old`` is a compiled pattern)."""
+    if isinstance(old, re.Pattern):
+        src, n = old.subn(new, src)
+    else:
+        n = src.count(old)
+        src = src.replace(old, new)
+    if n != count:
+        raise RuntimeError(f"{what}: {n} matches, not {count}")
+    return src
+
+
+def _copy(root, cell, config):
+    """csrc/ with the cell's constants replaced, in ``root``; its Target."""
+    constants, _, units = CELLS[cell]
     os.makedirs(root)
-    for f in ("traverse.cu", "launch.cuh", "traverse.cuh"):
+    for f in ("traverse.cu", "launch.cuh", "traverse.cuh") + units:
         shutil.copy(os.path.join(_build.CSRC, f), root)
-    for (f, name), v in zip(CONSTANTS, config):
+    for (f, name), v in zip(constants, config):
         path = os.path.join(root, f)
-        src, n = re.subn(rf"constexpr int {name} = \d+;",
-                         f"constexpr int {name} = {v};", open(path).read())
-        if n != 1:
-            raise RuntimeError(f"{name} not found in {f}")
+        src = _replace(open(path).read(),
+                       re.compile(rf"constexpr int {name} = \d+;"),
+                       f"constexpr int {name} = {v};", 1, f"{f}: {name}")
         open(path, "w").write(src)
-    open(os.path.join(root, "stubs.cu"), "w").write(STUBS)
+    if units:
+        path = os.path.join(root, "traverse.cu")
+        src = _replace(open(path).read(), INCLUDE, INCLUDE + SKIP, 1,
+                       "traverse.cu: its include of launch.cuh")
+        src = _replace(src, SKIPPED[0], "trav::skip_launch<", SKIPPED[1],
+                       "traverse.cu: its launches without curves")
+        open(path, "w").write(src)
+    stubs = "".join(v for k, v in STUBS.items() if k not in units)
+    open(os.path.join(root, "stubs.cu"), "w").write(
+        '#include "launch.cuh"\nnamespace trav {' + stubs
+        + "\n}  // namespace trav\n")
     base = _build.TARGETS["traverse_cuda"]
     return _build.Target(
         os.path.join(root, "libtraverse_sweep.so"),
-        (os.path.join(root, "traverse.cu"), os.path.join(root, "stubs.cu")),
+        tuple(os.path.join(root, f)
+              for f in ("traverse.cu",) + units + ("stubs.cu",)),
         (os.path.join(root, "launch.cuh"), os.path.join(root,
                                                         "traverse.cuh")),
         base.flags, base.link)
 
 
-def build(configs, tmp):
+def build(cell, configs, tmp):
     """Build every configuration's library, and the package's, at once;
     returns {configuration: launch fn}."""
     names = ["sweep_" + "_".join(map(str, c)) for c in configs]
-    copies = {n: _copy(os.path.join(tmp, n), c)
+    copies = {n: _copy(os.path.join(tmp, n), cell, c)
               for n, c in zip(names, configs)}
     secs = _build.build_all(names + ["traverse_cuda"],
                             dict(_build.TARGETS, **copies))
@@ -95,7 +153,8 @@ def build(configs, tmp):
           flush=True)
     fns = {}
     for c, name in zip(configs, names):
-        regs, spill = ptxas_summary(_build.BUILD_LOGS.get(name, ""))
+        regs, spill = ptxas_summary(_build.BUILD_LOGS.get(name, ""),
+                                    cell != "motion")
         print(f"  {c}: persistent kernels at {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, {spill} B of local "
               "memory", flush=True)
@@ -106,13 +165,17 @@ def build(configs, tmp):
     return fns
 
 
-def ptxas_summary(log):
-    """Registers of each persistent kernel in a build's ptxas lines, and
-    the bytes of stack frame and spills they add up to."""
+def ptxas_summary(log, curves):
+    """Registers of each persistent kernel of the cell's kind (curves or
+    not: the template's seventh flag) in a build's ptxas lines, and the
+    bytes of stack frame and spills they add up to."""
     regs, spill, on = [], 0, False
     for line in log.splitlines():
-        if "Compiling entry function" in line:
-            on = "persistent_kernel" in line
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            flags = re.findall(r"Lb([01])E", m.group(1))
+            on = ("persistent_kernel" in m.group(1) and len(flags) == 8
+                  and flags[6] == str(int(curves)))
         elif on and "stack frame" in line:
             spill += sum(int(v) for v in re.findall(r"(\d+) bytes", line))
         elif on and "Used" in line:
@@ -131,27 +194,37 @@ def launch(fn, packed, x, occ, attrs):
              tr._ptr(outs[5]), tr._ptr(outs[6]), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"launch failed: CUDA error {err}")
-    return tr.TraceResult(*outs[:5], sched=outs[6])
+    return tr._result(outs)
 
 
-def cell(n_rays):
-    """Phase 10's cell: the moving sphere and its sorted rays."""
+def cell(name, n_rays):
+    """The cell's packed scene and its sorted rays (time U[0, 1) in the
+    motion cell)."""
+    import chip_smoke as cs
     import embree_tpu_torch as pt
-    from embree_tpu_torch.tools.viewer import sphere_mesh
-    v, idx = sphere_mesh(*MESH)
-    s = pt.Scene()
-    s.attach(pt.TriangleGeometry(
-        np.stack([v, v + np.float32([SHIFT, 0, 0])]), idx))
-    cs = s.commit(device="cuda")
+    from embree_tpu_torch import scene as pscene
     rng = np.random.default_rng(0)
     org = rng.uniform(-2, 2, (n_rays, 3)).astype(np.float32)
     d = rng.standard_normal((n_rays, 3), dtype=np.float32)
-    t = np.random.default_rng(2).uniform(0, 1, n_rays).astype(np.float32)
-    rays = pt.make_rays(org, d, time=t, device="cuda")
+    if name == "motion":
+        from embree_tpu_torch.tools.viewer import sphere_mesh
+        v, idx = sphere_mesh(*MESH)
+        s = pt.Scene()
+        s.attach(pt.TriangleGeometry(
+            np.stack([v, v + np.float32([SHIFT, 0, 0])]), idx))
+        committed = s.commit(device="cuda")
+        t = np.random.default_rng(2).uniform(0, 1, n_rays).astype(np.float32)
+        rays = pt.make_rays(org, d, time=t, device="cuda")
+    else:
+        with cs.round_packed(pscene):
+            committed = cs.hair_scene(
+                pt, "round" if name == "round_hair" else "flat").commit(
+                    device="cuda")
+        rays = pt.make_rays(org, d, device="cuda")
     _, x = tr.sort_rays_by_coherence(rays.org, rays.dir, rays.tnear,
                                      rays.tfar, rays.mask.to(torch.int32),
                                      rays.time)
-    return cs.packed, x
+    return committed.packed, x
 
 
 def same(a, b):
@@ -164,30 +237,32 @@ def same(a, b):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default=",".join(
-        ":".join(map(str, c)) for c in CONFIGS))
+    ap.add_argument("--cell", default="motion", choices=sorted(CELLS))
+    ap.add_argument("--configs", default=None)
     ap.add_argument("--variants", default="closest")
     ap.add_argument("--rays", type=int, default=1 << 24)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sched_sweep times the card; no CUDA device")
-    configs = [tuple(int(v) for v in c.split(":"))
-               for c in args.configs.split(",")]
+    configs = ([tuple(int(v) for v in c.split(":"))
+                for c in args.configs.split(",")] if args.configs
+               else list(CELLS[args.cell][1]))
+    names = [n for _, n in CELLS[args.cell][0]]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(configs, tmp)
-        packed, x = cell(args.rays)
+        fns = build(args.cell, configs, tmp)
+        packed, x = cell(args.cell, args.rays)
         n = args.rays
         rows = []
         for var in args.variants.split(","):
             occ, attrs = VARIANTS[var]
             ref = tr.traverse_kernel(packed, *x[:5], occ, attrs, time=x[5])
             times = {c: [] for c in configs}
-            share, warps = {}, {}
+            stats = {}
             for rep in range(REPS + 1):          # round 0 warms up
                 for c in configs:
                     a = torch.cuda.Event(enable_timing=True)
@@ -200,20 +275,22 @@ def main(argv=None):
                         raise AssertionError(f"{c} {var}: outputs differ")
                     if rep:
                         times[c].append(a.elapsed_time(b))
-                    share[c] = int(res.sched[1]) / int(res.sched[0])
-                    warps[c] = int(res.sched[3])
+                    stats[c] = (int(res.sched[1]) / int(res.sched[0]),
+                                int(res.sched[3]),
+                                [int(v) for v in res.leaf_sched])
                     del res
             for c in configs:
                 ms = statistics.median(times[c])
-                rows.append(dict(variant=var, refill=c[0], leaf=c[1],
-                                 group=c[2], min_blocks=c[3], ms=ms,
-                                 warps_per_sm=warps[c],
-                                 useful_lane_steps=share[c], card=card))
-                print(f"{var} refill {c[0]:2d} leaf {c[1]:2d} group "
-                      f"{c[2]} min blocks {c[3]}: {ms:.3f} ms, useful "
-                      f"lane-steps "
-                      f"{share[c]:.4f}, {warps[c]} warps per SM [{card}]",
-                      flush=True)
+                share, warps, leaf = stats[c]
+                rows.append(dict(cell=args.cell, variant=var,
+                                 **dict(zip(names, c)), ms=ms,
+                                 warps_per_sm=warps,
+                                 useful_lane_steps=share, leaf_sched=leaf,
+                                 card=card))
+                print(f"{args.cell} {var} "
+                      + " ".join(f"{k} {v}" for k, v in zip(names, c))
+                      + f": {ms:.3f} ms, useful lane-steps {share:.4f}, "
+                      f"{warps} warps per SM [{card}]", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
