@@ -9,10 +9,11 @@ Hopper traversal kernel against its plain PyTorch version:
    processes, one library), the loop-probe kernels (three more, one
    library) and the native BVH builder (g++) from the sources in this
    checkout, one compiler process each, in parallel; print each
-   instantiation's registers, spills and stack; the 52 persistent
-   instantiations (the 20 moving variants of B6 and the 32 curve variants
-   of B7 and B8, static and moving) must use no local memory (0 B stack
-   frame, no spill) and those for triangles and curves at most 128
+   instantiation's registers, spills and stack; the 66 persistent
+   instantiations (the 20 moving variants of B6, the 32 curve variants of
+   B7 and B8, static and moving, and the 14 static robust-triangle and
+   mixed-class variants of B2-B5) must use no local memory (0 B stack
+   frame, no spill) and all but B6's mixed-class ones at most 128
    registers;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
@@ -30,14 +31,23 @@ Hopper traversal kernel against its plain PyTorch version:
 6. kernel vs plain version for kind tags, points and lines (B3-B5): the
    scene of tests/test_pallas_kernel.py:69-93 with 65,536 rays, as is, with
    half its geometries masked, in robust mode, and both; closest and
-   occluded bit-equal with their step counts, no stack overflow;
+   occluded bit-equal with their step counts, no stack overflow; each
+   launch of the persistent warps finishes every ray once; each variant's
+   time, useful lane-steps beside one ray per thread's, registers, rays
+   finished, warps per SM and the split into node and leaf passes (and
+   the leaf passes' item rounds);
 7. robust mode (B2) at full size: the 2,097,152-triangle sphere committed
    with robust=True, 16,777,216 rays through both intersect modes and
    occluded; 1,048,576 rays from the center must all hit (watertight);
+   kernel vs plain version on 262,144 of the rays, and the full-size
+   launches' outputs on those rays (their warps refill) held against the
+   same plain run, bit for bit, with the counts of phase 6;
 8. kind tags, points and lines at full size: 1,574,400 prims made by
    Embree's tutorial generators (a quad sphere, three point spheres) plus
    655,360 round and flat hair segments, 16,777,216 rays through both
-   intersect modes and occluded; every kind class must get hits;
+   intersect modes and occluded; every kind class must get hits; the
+   full-size launches held bit-equal on the compared rays, with the counts
+   of phase 6;
 9. motion blur (B6), every instantiation against the plain version at
    65,536 rays with times U[0,1): the kind check scene with every kind
    moving (as is, masked, robust, robust + masked, and over 3 steps, which
@@ -503,9 +513,14 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                 say(f"  {name}: the full-size launch's outputs on the {m} "
                     "compared rays == plain (bits, steps)")
             one32, one128 = lane_shares(r.visits)
+            steps = (r.visits[0] + r.visits[1]).to(torch.int64)
+            top = steps.sort(descending=True).values[:max(n_rays // 100, 1)]
             lanes = dict(useful_lane_steps=int(r.sched[1]) / int(r.sched[0]),
                          one_ray_per_thread_warps=one32,
                          one_ray_per_thread_blocks=one128,
+                         top_percent_steps=int(top.sum()) / max(
+                             int(steps.sum()), 1),
+                         longest_at=int(steps.argmax()) / n_rays,
                          rays_finished=int(r.sched[2]),
                          warps_per_sm=int(r.sched[3]), **sched_split(r))
         del res, r
@@ -585,7 +600,9 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
             + f", {rec['registers']} registers"
             + (f"; useful lane-steps {lanes['useful_lane_steps']:.4f} "
                f"(one ray per thread: {one32:.4f} in warps of 32, "
-               f"{one128:.4f} in blocks of 128), "
+               f"{one128:.4f} in blocks of 128; the top 1% of rays hold "
+               f"{lanes['top_percent_steps']:.4f} of the steps, the "
+               f"longest at {lanes['longest_at']:.4f} of the order), "
                f"{lanes['rays_finished']} rays finished, "
                f"{lanes['warps_per_sm']} warps per SM" if lanes else "")
             + (f"; node passes {lanes['node_lane_steps']:.4f}, leaf passes "
@@ -887,9 +904,11 @@ def phase_robust(pt, tr, sphere_mesh, errs, record):
     say(f"  intersect: {int(valid.sum())} of {MAIN_RAYS} rays hit")
     del hit, hd, occ, valid, center
     inputs = sorted_inputs(tr, rays)
+    plain = {}
     for name, o, a in VARIANTS:
         errs[f"{name}_robust"] = compare(tr, cs.packed, inputs, MAIN_COMPARE,
-                                         o, a, f"{name}_robust", robust=True)
+                                         o, a, f"{name}_robust", robust=True,
+                                         plain=plain)
     card = card_line()
     total_ms = {
         "closest_attrs": events_ms(
@@ -897,9 +916,11 @@ def phase_robust(pt, tr, sphere_mesh, errs, record):
         "closest": events_ms(lambda: pt.intersect(cs, rays)),
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
+    # the plain version timed on the compare sample, against which the
+    # full-size launches (their warps refill) are held on the same rays
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
                   table_mb(cs.packed), card, launches, robust=True,
-                  total_ms=total_ms)
+                  total_ms=total_ms, plain=plain)
 
 
 def prim_sphere_quads(center, radius, num_phi):
@@ -1831,16 +1852,18 @@ def traverse_ptxas(ptxas):
 
 
 def check_traverse_ptxas(ptxas):
-    """Fill TRAVERSE_PTXAS; the 52 persistent instantiations (B6's 20
-    moving ones, B7's and B8's 32 curve ones) keep their stacks in shared
-    memory and spill nothing, and all but B6's 8 mixed-class ones fit 16
-    resident warps per SM (128 registers)."""
+    """Fill TRAVERSE_PTXAS; the 66 persistent instantiations (B6's 20
+    moving ones, B7's and B8's 32 curve ones, B2-B5's 14 static ones) keep
+    their stacks in shared memory and spill nothing, and all but B6's 8
+    mixed-class ones fit 16 resident warps per SM (128 registers)."""
     TRAVERSE_PTXAS.update(traverse_ptxas(ptxas))
     persistent = {f: v for (e, f), v in TRAVERSE_PTXAS.items()
                   if e == "persistent_kernel"}
-    check(len(persistent) == 52,
+    check(len(persistent) == 66,
           f"{len(persistent)} persistent instantiations")
     check(sum(f[6] for f in persistent) == 32, "not 32 curve instantiations")
+    check(sum(not f[5] and not f[6] for f in persistent) == 14,
+          "not 14 static instantiations without curves")
     bad = []
     for flags, info in sorted(persistent.items()):
         say(f"  persistent kernel (occlusion, attrs, mask, robust, kinds, "
@@ -1850,7 +1873,8 @@ def check_traverse_ptxas(ptxas):
         if (info.get("stack") != 0 or info.get("spill_st") != 0
                 or info.get("spill_ld") != 0):
             bad.append(f"{flags}: local memory in use")
-        if (not flags[4] or flags[6]) and info.get("registers", 999) > 128:
+        if (not (flags[4] and flags[5]) or flags[6]) and info.get(
+                "registers", 999) > 128:
             bad.append(f"{flags}: over 128 registers")
     check(not bad, "persistent kernels: " + "; ".join(bad))
 
@@ -1872,9 +1896,9 @@ def lane_shares(visits):
 
 def check_sched(res, n, label):
     """The persistent warps' counts of one launch: every ray finished once,
-    and the lane steps are the rays' steps; in curve scenes those of the
-    leaf passes are the rays' leaf visits, and each leaf step's 8 items had
-    a lane of an item round."""
+    and the lane steps are the rays' steps; where leaf passes deal items
+    (curve scenes, static B2-B5) their steps are the rays' leaf visits, and
+    each leaf step's 8 items had a lane of an item round."""
     slots, steps, finished, _ = (int(v) for v in res.sched)
     check(finished == n, f"{label}: {finished} rays finished of {n}")
     check(steps == int(res.visits.sum(dtype=torch.int64)),
@@ -1889,9 +1913,10 @@ def check_sched(res, n, label):
 
 
 def sched_split(res):
-    """Useful lane-steps of a curve launch's node passes and leaf passes,
-    the leaf passes' share of lane slots, and the item rounds' share of
-    lanes that tested a slot; {} for a launch without curves."""
+    """Useful lane-steps of the node passes and leaf passes of a launch
+    whose leaf passes deal items (curve scenes, static B2-B5), the leaf
+    passes' share of lane slots, and the item rounds' share of lanes that
+    tested a slot; {} for a launch without them."""
     slots, steps = int(res.sched[0]), int(res.sched[1])
     leaf_slots, leaf_steps, item_slots = (int(v) for v in res.leaf_sched)
     if not item_slots:

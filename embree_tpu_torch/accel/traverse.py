@@ -13,17 +13,18 @@ id-table gathers, unsort) and returns the same values. Beneath it:
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
   per-slot time windows), flat curves (B7: the ribbon test on 16-field
   Bezier slots) and round curves (B8: cone candidates and a Newton polish
-  on the same slots); ``LAUNCHES`` counts its launches per variant. B6,
-  B7 and B8 (``uses_scheduler``) run persistent warps that refill finished
+  on the same slots); ``LAUNCHES`` counts its launches per variant. All
+  but B1 (``uses_scheduler``) run persistent warps that refill finished
   lanes from a ray counter the wrapper zeroes; their work counts come back
-  in ``TraceResult.sched`` (and, for curve scenes, ``leaf_sched``).
+  in ``TraceResult.sched`` (and, for curve scenes and static B2-B5,
+  ``leaf_sched``).
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
   the CPU through it, and the smoke run holds the kernel against it on the
   card.
 - ``traverse_twin`` runs the kernel's per-ray logic, and the scheduler of
-  B6, B7 and B8 over 32 emulated lanes, compiled for the host
+  B2-B8 over 32 emulated lanes, compiled for the host
   (``csrc/traverse_cpu.cpp``). Test-only: never on the main path.
 
 ``trace`` picks by device: CPU tensors take the plain version, CUDA tensors
@@ -175,10 +176,11 @@ class TraceResult:
     # ``uses_scheduler``): lane slots (warp passes x 32), lane steps that
     # did work, rays finished, warps resident per SM (the twin: 1)
     sched: Optional[torch.Tensor] = None
-    # (3,) int64, curve scenes' persistent warps: lane slots of leaf passes
-    # (leaf passes x 32), lane steps of leaf passes, and item rounds x 32
-    # (each round deals 32 of the pass's (ray, slot) items across the
-    # warp); zeros in moving scenes without curves
+    # (3,) int64, the persistent warps of curve scenes and static B2-B5:
+    # lane slots of leaf passes (leaf passes x 32), lane steps of leaf
+    # passes, and item rounds x 32 (each round deals up to 32 of the pass's
+    # (ray, slot) items across the warp; 0 where each lane runs its own
+    # leaf); zeros in moving scenes without curves
     leaf_sched: Optional[torch.Tensor] = None
 
 
@@ -264,10 +266,13 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
         raise ValueError("packed scene has no records")
 
 
-def uses_scheduler(packed: PackedScene) -> bool:
-    """Whether the scene's variants run the persistent warps that refill
-    finished lanes: moving scenes (B6) and curve scenes (B7, B8)."""
-    return packed.has_motion or has_curves(packed)
+def uses_scheduler(packed: PackedScene, robust: bool = False) -> bool:
+    """Whether a launch on the scene runs the persistent warps that refill
+    finished lanes: all but static triangles in normal mode (B1), so
+    robust mode (B2), kind tags (B3-B5), moving scenes (B6) and curve
+    scenes (B7, B8)."""
+    return (packed.has_motion or has_curves(packed) or packed.has_kinds
+            or robust)
 
 
 def kernel_instantiation(packed: PackedScene, occlusion: bool,
@@ -278,7 +283,7 @@ def kernel_instantiation(packed: PackedScene, occlusion: bool,
     MOTION>`` or ``persistent_kernel<..., MOTION, CURVES, ROUND>``."""
     flags = (occlusion, want_attrs and not occlusion, packed.has_mask,
              robust, packed.has_kinds, packed.has_motion)
-    if uses_scheduler(packed):
+    if uses_scheduler(packed, robust):
         flags += (has_curves(packed), KIND_CURVE_ROUND in packed.kind_classes)
         return "persistent_kernel", tuple(int(f) for f in flags)
     return "traverse_kernel", tuple(int(f) for f in flags)
@@ -383,7 +388,7 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
     launch = _load("traverse_cuda", "traverse_launch",
                    [ctypes.c_void_p] * 3)
     outs = _outputs(org.shape[0], org.device, want_attrs,
-                    uses_scheduler(packed))
+                    uses_scheduler(packed, robust))
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                              occlusion, want_attrs, robust),
@@ -405,7 +410,7 @@ def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
     _check(packed, org, dir, tnear, tfar, mask, time)
     run = _load("traverse_twin", "traverse_twin", [ctypes.c_void_p])
     outs = _outputs(org.shape[0], org.device, want_attrs,
-                    uses_scheduler(packed), unwritten=True)
+                    uses_scheduler(packed, robust), unwritten=True)
     if run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                        occlusion, want_attrs, robust), _ptr(outs[6])) != 0:
         raise ValueError("the twin has no such variant")

@@ -3,12 +3,13 @@
 // (B7) and traverse_round.cu (B8 beside B7), which nvcc compiles in
 // parallel into objects of one library.
 //
-// Two kernels. The static variants of scenes without curves run one ray
-// per thread to its end (traverse_kernel): the baseline, which does nothing
-// yet about the latency of each dependent record read or about lanes that
-// idle behind the warp's longest ray. The moving variants (B6, 20
-// instantiations) and every curve variant, static or moving (B7 and B8, 16
-// each), run persistent warps (persistent_kernel, the scheduler in
+// Two kernels. The static triangle variants (B1, 6 instantiations) run one
+// ray per thread to its end (traverse_kernel): the baseline, which does
+// nothing yet about the latency of each dependent record read or about
+// lanes that idle behind the warp's longest ray. The moving variants (B6,
+// 20 instantiations), every curve variant, static or moving (B7 and B8, 16
+// each), and the static robust triangles (B2, 6) and mixed classes (B3-B5,
+// 8) run persistent warps (persistent_kernel, the scheduler in
 // traverse.cuh): as many blocks as stay resident, lanes refilled from a
 // global ray counter as their rays finish, leaves postponed until enough
 // lanes wait at one, and each lane's stack in a column of shared memory
@@ -19,7 +20,9 @@
 // 14,000 operations against a node's 100, so one ray per thread left the
 // lanes at nodes idle behind those at leaves; the curve variants' leaf
 // pass deals its (ray, slot) items across the warp (curve_pass), with the
-// knot weights and each warp's scratch in shared memory beside the stacks.
+// knot weights and each warp's scratch in shared memory beside the stacks;
+// the static variants' leaf pass (static_pass) keeps its scratch there
+// too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -120,11 +123,11 @@ struct CudaWarp {
   }
 };
 
-// Curve scenes' (curve_pass): CudaWarp and the warp's scratch words, after
-// the stacks and the knot weights. A type of its own: a third member in
-// CudaWarp renamed registers in 16 of B6's kernels, which moved ptxas's
-// schedule (one ran 2% slower on an H100).
-struct CudaCurveWarp : CudaWarp {
+// Leaf passes that deal items (curve_pass, static_pass): CudaWarp and the
+// warp's scratch words, after the stacks (and the knot weights). A type of
+// its own: a third member in CudaWarp renamed registers in 16 of B6's
+// kernels, which moved ptxas's schedule (one ran 2% slower on an H100).
+struct CudaScratchWarp : CudaWarp {
   int32_t* scr;
   TRAV_HD int32_t* scratch() const { return scr; }
 };
@@ -134,17 +137,19 @@ struct CudaCurveWarp : CudaWarp {
 // then allocates up to 128 registers. Without the bound its occupancy
 // heuristic stopped at 96 and spilled in some variants
 // (perf/sched_sweep.py times both); the curve variants took 3 (12 warps
-// per SM) no faster.
+// per SM) no faster. Static B2-B5 use 78-82 registers and 39 KB of shared
+// memory a block, so 5 blocks stay resident (20 warps per SM) at 3 or 4.
 constexpr int kMinBlocks = 4;
 
-// Dynamic shared memory of a persistent block: the stacks, and in curve
-// scenes the knot weights and each warp's scratch (traverse.cuh).
-template <bool CURVES>
+// Dynamic shared memory of a persistent block: the stacks, in curve scenes
+// the knot weights, and in curve scenes and static B2-B5 each warp's
+// scratch (traverse.cuh).
+template <bool MOTION, bool CURVES>
 size_t persistent_smem(const Params& p) {
   size_t words = static_cast<size_t>(kStack) * kBlock;
-  if (CURVES) {
-    words += curve_weight_words(p.curve_rate) +
-             (kBlock / 32) * curve_scratch_words(p.kind_classes);
+  if (CURVES) words += curve_weight_words(p.curve_rate);
+  if (CURVES || !MOTION) {
+    words += (kBlock / 32) * curve_scratch_words(p.kind_classes);
   }
   return words * sizeof(int32_t);
 }
@@ -155,7 +160,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     persistent_kernel(Params p, int32_t* out_overflow, int32_t* next_ray,
                       unsigned long long* counts, int warps_per_sm) {
   // the stacks (kStack x kBlock, column-major), then in curve scenes the
-  // knot weights and each warp's scratch
+  // knot weights and each warp's scratch, in static B2-B5 each warp's
+  // scratch
   extern __shared__ int32_t smem[];
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[3] = warps_per_sm;
   if constexpr (CURVES) {
@@ -165,12 +171,20 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       wt[k] = load1f(p.curve_w + k);
     }
     __syncthreads();
-    const CudaCurveWarp w{{smem + threadIdx.x,
-                           static_cast<int>(threadIdx.x & 31)},
-                          smem + kStack * kBlock + n_w + (threadIdx.x >> 5) *
-                              curve_scratch_words(p.kind_classes)};
-    run_warp<CudaCurveWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+    const CudaScratchWarp w{{smem + threadIdx.x,
+                             static_cast<int>(threadIdx.x & 31)},
+                            smem + kStack * kBlock + n_w + (threadIdx.x >> 5) *
+                                curve_scratch_words(p.kind_classes)};
+    run_warp<CudaScratchWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
              MOTION, CURVES, ROUND>(p, w, next_ray, out_overflow, counts, wt);
+  } else if constexpr (!MOTION) {
+    const CudaScratchWarp w{
+        {smem + threadIdx.x, static_cast<int>(threadIdx.x & 31)},
+        smem + kStack * kBlock +
+            (threadIdx.x >> 5) * curve_scratch_words(p.kind_classes)};
+    run_warp<CudaScratchWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+             MOTION, CURVES, ROUND>(p, w, next_ray, out_overflow, counts,
+                                    nullptr);
   } else {
     const CudaWarp w{smem + threadIdx.x, static_cast<int>(threadIdx.x & 31)};
     run_warp<CudaWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
@@ -194,7 +208,7 @@ template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
 void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
   const auto kernel = persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK,
                                         ROBUST, KINDS, MOTION, CURVES, ROUND>;
-  const size_t smem = persistent_smem<CURVES>(p);
+  const size_t smem = persistent_smem<MOTION, CURVES>(p);
   int per_sm = 0, dev = 0, sms = 0;
   if ((smem > 48 * 1024 &&
        cudaFuncSetAttribute(kernel,
@@ -216,7 +230,7 @@ void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 void launch(const Params& p, Counters c, cudaStream_t s) {
-  if constexpr (MOTION || CURVES) {
+  if constexpr (scheduled(ROBUST, KINDS, MOTION, CURVES)) {
     launch_persistent<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
                       CURVES, ROUND>(p, c, s);
   } else {

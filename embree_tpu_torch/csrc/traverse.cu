@@ -4,8 +4,10 @@
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
 // (B6); traverse_curves.cu holds flat curves (B7), traverse_round.cu round
-// curves (B8). The static variants run one ray per thread, the moving and
-// curve ones persistent warps that refill finished lanes (launch.cuh); the
+// curves (B8). The static triangle variants (B1) run one ray per thread;
+// the static robust triangles (B2) and mixed classes (B3-B5), the moving
+// and the curve variants run persistent warps that refill finished lanes
+// (launch.cuh); the
 // per-ray logic, what bounds it on the card and what each design does about
 // it are in traverse.cuh and launch.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
@@ -25,10 +27,10 @@
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
 // curve tags go to trav::launch_curves (flat only) or trav::launch_round.
 // next_ray: one int32, zero before the launch (the persistent warps' ray
-// counter); counts: seven int64, zero before the launch, which the moving
-// and curve variants fill (run_warp in traverse.cuh, persistent_kernel in
-// launch.cuh); both are read by those variants only, and null for the
-// others.
+// counter); counts: seven int64, zero before the launch, which the
+// persistent variants fill (all but B1's 6: run_warp in traverse.cuh,
+// persistent_kernel in launch.cuh); both are read by those variants only,
+// and null for the others.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).

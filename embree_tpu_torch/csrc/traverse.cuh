@@ -29,15 +29,17 @@
 // with kind tags, in primitive class (a round line costs ~190 operations, a
 // disc ~30).
 //
-// The static variants of scenes without curves do nothing about either
-// yet: one ray per thread, a 64-entry stack in local memory, records read
-// with 16-byte __ldg loads, a switch per slot. They are the baseline that
-// later designs (warp-cooperative node tests, a treelet queue,
-// shared-memory top levels, class-sorted leaf work) are measured against.
+// The static triangle variants (B1) do nothing about either yet: one ray
+// per thread, a 64-entry stack in local memory, records read with 16-byte
+// __ldg loads. They are the baseline that later designs (warp-cooperative
+// node tests, a treelet queue, shared-memory top levels) are measured
+// against.
 //
-// The moving variants (B6) and every curve variant, static or moving (B7,
-// B8), run the same per-ray steps under a scheduler (run_warp, at the end
-// of this file; the kernel in launch.cuh). Moving rays' times are not part
+// Every other variant runs the same per-ray steps under a scheduler
+// (run_warp, at the end of this file; the kernel in launch.cuh): the
+// moving ones (B6), every curve variant, static or moving (B7, B8), and
+// the static robust triangles (B2) and mixed classes (B3-B5), which have a
+// leaf pass of their own (static_pass). Moving rays' times are not part
 // of the coherence key, so a warp's rays differ in length by hundreds of
 // steps (a ray grazing the swept boxes walks thousands). Against
 // divergence: persistent warps whose lanes take a new ray as soon as
@@ -81,6 +83,15 @@
 // variants the round test took their registers from 89-94 to 111-121 and
 // slowed the flat hair kernel by 19% on an H100 (chip_smoke.py), though no
 // flat scene runs it.
+//
+// The static robust triangles (B2) and mixed classes (B3-B5) deal their
+// leaves too (static_pass): one ray per thread left their lanes idle
+// behind the warp's deepest ray, held the whole 288-byte leaf in
+// registers, and, with kind tags, ran one class test after another in a
+// warp whose lanes met different classes (a round line ~190 operations, a
+// disc ~30). Dealt, a leaf's 8 slots are tested side by side, each lane
+// holds one slot, and the kernels keep 78-83 registers and 5 blocks per
+// SM.
 //
 // The file is compiled by nvcc into the kernel (traverse.cu, and
 // traverse_curves.cu and traverse_round.cu for the curve variants) and by
@@ -1136,6 +1147,21 @@ TRAV_HD void motion_attrs(const Params& p, const int32_t* rec, int sl,
   st.a_nz = sq.f3 * sq.f7 - sq.f4 * sq.f6;
 }
 
+// B2 closest + attrs under the scheduler: u, v and Ng of the winning slot
+// sl of a static leaf, from its 9 words by the expressions of its test, so
+// the same bits as if they had been kept through the slot loop.
+TRAV_HD void static_attrs(const int32_t* rec, int sl, RayState& st) {
+  float f[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = as_float(load1(rec + 8 * k + sl));
+  const Slot sq{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+  float tt;
+  leaf_pluecker(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  st.a_nx = sq.f4 * sq.f8 - sq.f5 * sq.f7;
+  st.a_ny = sq.f5 * sq.f6 - sq.f3 * sq.f8;
+  st.a_nz = sq.f3 * sq.f7 - sq.f4 * sq.f6;
+}
+
 // One leaf: the 8 slots' tests, the best slot key, and the winner accepted
 // only if its exact (clamped) t is strictly nearer than the best so far.
 // Returns true when the hit ends the ray (OCCLUSION).
@@ -1143,11 +1169,14 @@ TRAV_HD void motion_attrs(const Params& p, const int32_t* rec, int sl,
 // class test per slot (B3-B5); without it every slot is a triangle.
 // MOTION: B6, each slot's fields lerped by the ray time (p.has_win:
 // per-slot windows, a uniform branch), kSlotGroup slots at a time
-// (motion_leaf). Curve scenes (B7, B8) take curve_pass instead.
+// (motion_leaf); without motion (B1) the whole leaf is held in registers.
+// Static B2-B5 (static_pass) and curve scenes (B7, B8: curve_pass) deal
+// their leaves across the warp instead.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION>
 TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
+  static_assert(MOTION || !(ROBUST || KINDS), "static B2-B5 run static_pass");
   ++st.n_leaf;
   const int32_t lid = -st.cur - 1;
   const int32_t* rec =
@@ -1158,9 +1187,10 @@ TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   if constexpr (MOTION) {
     motion_leaf<HAS_MASK, ROBUST, KINDS>(p, rec, st, best_key, best_tb);
   } else {
-    // chunk offsets after the field block (accel/pack.py)
+    // B1: the whole leaf in registers, the mask chunk after the fields;
+    // the slot body written out (through leaf_moeller and Slot it computes
+    // the same bits, but ptxas allocates up to 2 more registers)
     const int mask_at = kLeafFields;
-    const int kind_at = mask_at + (HAS_MASK ? 8 : 0);
     const float ox = st.ray.ox, oy = st.ray.oy, oz = st.ray.oz;
     const float dx = st.ray.dx, dy = st.ray.dy, dz = st.ray.dz;
     const float tnear = st.ray.tnear, tf = st.tf;
@@ -1179,57 +1209,26 @@ TRAV_HD bool leaf_step(const Params& p, RayState& st) {
       smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
       smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
     }
-    int32_t ktag[8];
-    if (KINDS) {
-      I4 k0 = load4(rec + kind_at), k1 = load4(rec + kind_at + 4);
-      ktag[0] = k0.x; ktag[1] = k0.y; ktag[2] = k0.z; ktag[3] = k0.w;
-      ktag[4] = k1.x; ktag[5] = k1.y; ktag[6] = k1.z; ktag[7] = k1.w;
-    }
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
-      if (!KINDS && !ROBUST) {
-        // B1's slot body, kept as it was: written through leaf_moeller
-        // and Slot it computes the same bits but ptxas allocates up to 2
-        // more registers, and the triangle variants must compile as before
-        const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
-        const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
-        const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const bool det_ok = fabsf(det) > 1e-24f;
-        const float inv_det = det_ok ? 1.0f / det : 0.0f;
-        const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-        const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-        const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        bool valid = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                     tt >= tnear && tt <= tf;
-        if (HAS_MASK) valid = valid && (smask[s] & st.rmask) != 0;
-        const int32_t tb = as_int(jmax(tt, 0.0f));
-        const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-        if (k < best_key) {
-          best_key = k;
-          best_tb = tb;
-          if (WANT_ATTRS) {
-            b_u = uu;
-            b_v = vv;
-            b_nx = e1y * e2z - e1z * e2y;
-            b_ny = e1z * e2x - e1x * e2z;
-            b_nz = e1x * e2y - e1y * e2x;
-          }
-        }
-        continue;
-      }
-      const Slot q = slot_fields(f, s);
-      float tt, uu = 0.0f, vv = 0.0f;
-      bool valid = KINDS ? leaf_by_tag<ROBUST>(ktag[s], p.kind_classes, q,
-                                               st.ray, tf, tt)
-                         : leaf_pluecker(q, st.ray, tf, tt, uu, vv);
+      const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
+      const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
+      const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
+      const float pvx = dy * e2z - dz * e2y;
+      const float pvy = dz * e2x - dx * e2z;
+      const float pvz = dx * e2y - dy * e2x;
+      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+      const bool det_ok = fabsf(det) > 1e-24f;
+      const float inv_det = det_ok ? 1.0f / det : 0.0f;
+      const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+      const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+      const float qvx = tvy * e1z - tvz * e1y;
+      const float qvy = tvz * e1x - tvx * e1z;
+      const float qvz = tvx * e1y - tvy * e1x;
+      const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+      const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+      bool valid = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+                   tt >= tnear && tt <= tf;
       if (HAS_MASK) valid = valid && (smask[s] & st.rmask) != 0;
       const int32_t tb = as_int(jmax(tt, 0.0f));
       const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
@@ -1239,9 +1238,9 @@ TRAV_HD bool leaf_step(const Params& p, RayState& st) {
         if (WANT_ATTRS) {
           b_u = uu;
           b_v = vv;
-          b_nx = q.f4 * q.f8 - q.f5 * q.f7;
-          b_ny = q.f5 * q.f6 - q.f3 * q.f8;
-          b_nz = q.f3 * q.f7 - q.f4 * q.f6;
+          b_nx = e1y * e2z - e1z * e2y;
+          b_ny = e1z * e2x - e1x * e2z;
+          b_nz = e1x * e2y - e1y * e2x;
         }
       }
     }
@@ -1307,7 +1306,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
   return finish_ray<WANT_ATTRS>(p, st);
 }
 
-// ---- persistent warps that refill finished lanes (B6, B7, B8) ----
+// ---- persistent warps that refill finished lanes (B2-B8) ----
 //
 // Each warp loops until the rays run out. A lane whose ray is done writes
 // its outputs and goes idle; once kRefillLanes lanes are idle, the warp
@@ -1317,14 +1316,16 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
 // nodes or the lanes at leaves, the leaves only once kLeafLanes lanes wait
 // at one (or none is left at a node), so the longest code runs converged.
 // Curve scenes take constants of their own (kCurveRefillLanes,
-// kCurveLeafLanes) and a leaf pass of their own (curve_pass).
+// kCurveLeafLanes) and a leaf pass of their own (curve_pass), and so do
+// static B2-B5 (kStaticRefillLanes, kStaticLeafLanes, static_pass).
 // WARP is the lane bookkeeping: CUDA intrinsics on the card (launch.cuh),
 // 32 emulated lanes in the twin (traverse_cpu.cpp). It provides kLanes
 // (lanes one thread holds), each(f) (f(slot, lane) for each of them),
 // ballot(pred) (bit lane set where pred(slot)), take(counter, idle) (the
 // first of popc(idle) new indices, one fetch-add for the warp), stack(slot),
 // overflow(counter), add_counts(counts, passes, steps, finished), and for
-// curve scenes add_leaf_counts(counts, leaf passes, leaf steps, rounds),
+// the leaf passes that deal items add_leaf_counts(counts, leaf passes,
+// leaf steps, rounds),
 // scratch() (the warp's scratch words), sync() (its lanes' scratch writes
 // seen by all its lanes) and atomic_min(word, value).
 constexpr int kRefillLanes = 8;   // idle lanes before a warp refills
@@ -1725,15 +1726,131 @@ TRAV_HD void curve_pass(const Params& p, const WARP& w, const RayState* st,
   }
 }
 
+// ---- B2-B5: the static variants' leaf pass ----
+//
+// The static robust triangles (B2) and mixed classes (B3-B5) run the
+// persistent warps with constants of their own (kStaticRefillLanes,
+// kStaticLeafLanes) and a leaf pass of their own: the waiting lanes'
+// (ray, slot) items dealt across the warp, 4 leaves per round of 32, as
+// in curve_pass, with the same scratch rows (a scene without curves has
+// no frame rows). An item reads its ray's constants from the warp's
+// scratch and its slot's 9 words (field k of slot s is word 8k + s, so
+// the 8 lanes of a leaf read each field as one 32-byte sector), and runs
+// its slot's class test; a slot that the mask chunk rejects is not
+// tested. Each waiting lane then takes the least of its 8 slot keys in
+// slot order with a strict <, the slot loop's own result. B2's closest +
+// attrs recomputes the winner's u, v and Ng afterwards (static_attrs).
+// perf/sched_sweep.py on the mixed cell and the robust sphere chose this
+// form and the constants: on an H100, (refill 4, leaf lanes 4) beat (8, 8)
+// by 1.8-5.0% in all five variants, and the forms it beat ran 1.11-1.65x
+// as long: each lane its own ray's leaf, kSlotGroup slots per 16-byte load
+// (more registers, divergent classes); only the items that the mask chunk
+// and the scene's classes let through, listed by rank, and that list
+// grouped by kind tag (the list's scratch left 4 blocks per SM instead of
+// 5, and building it cost more than the tests it saved). PERF.md has the
+// times.
+constexpr int kStaticRefillLanes = 4;  // idle lanes before a warp refills
+constexpr int kStaticLeafLanes = 4;    // lanes at leaves before they run
+
+// Whether a variant runs the persistent warps: all but B1.
+TRAV_HD constexpr bool scheduled(bool robust, bool kinds, bool motion,
+                                 bool curves) {
+  return motion || curves || robust || kinds;
+}
+
+TRAV_HD const int32_t* leaf_record(const Params& p, int32_t lid) {
+  return p.leaves +
+         static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
+}
+
+// One item: slot s of the static leaf of ray r (rank q), into its key and
+// t bits.
+template <bool HAS_MASK, bool ROBUST, bool KINDS>
+TRAV_HD void static_item(const Params& p, const ItemRay& r, int s,
+                         int32_t& key, int32_t& tb) {
+  constexpr int mask_at = kLeafFields;
+  constexpr int kind_at = mask_at + (HAS_MASK ? 8 : 0);
+  const int32_t* rec = leaf_record(p, r.lid);
+  float tt = 0.0f;
+  bool valid = false;
+  if (!HAS_MASK || (load1(rec + mask_at + s) & r.rmask) != 0) {
+    float f[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f[k] = as_float(load1(rec + 8 * k + s));
+    const Slot q{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+    if (KINDS) {
+      valid = leaf_by_tag<ROBUST>(load1(rec + kind_at + s), p.kind_classes,
+                                  q, r.ray, r.tf, tt);
+    } else {
+      float uu, vv;
+      valid = leaf_pluecker(q, r.ray, r.tf, tt, uu, vv);
+    }
+  }
+  slot_key(valid, tt, s, key, tb);
+}
+
+// One leaf pass of B2-B5 over the waiting lanes go: each one's least slot
+// key and its t bits, into best_key and best_tb; rounds counts the item
+// rounds.
+template <class WARP, bool HAS_MASK, bool ROBUST, bool KINDS>
+TRAV_HD void static_pass(const Params& p, const WARP& w, const RayState* st,
+                         uint32_t go, int32_t* best_key, int32_t* best_tb,
+                         uint32_t& rounds) {
+  constexpr int L = WARP::kLanes;
+  const CurveScratch c = curve_scratch(w.scratch(), p.kind_classes);
+  const int n = popc(go);
+  w.each([&](int l, int lane) {
+    if (!((go >> lane) & 1u)) return;
+    put_ray(c, rank(go, lane), st[l], false);
+    best_key[l] = 0x7FFFFFFF;
+    best_tb[l] = 0;
+  });
+  w.sync();
+  const int n_rounds = (n + 3) / 4;
+  rounds += n_rounds;
+  for (int r = 0; r < n_rounds; ++r) {
+    int32_t key[L], tb[L];
+    w.each([&](int l, int lane) {
+      int q, s;
+      key[l] = tb[l] = 0;
+      if (item_of(n, r, lane, q, s)) {
+        static_item<HAS_MASK, ROBUST, KINDS>(p, get_ray(c, q), s, key[l],
+                                             tb[l]);
+      }
+      c.key[lane] = key[l];
+      c.key[32 + lane] = tb[l];
+    });
+    w.sync();
+    w.each([&](int l, int lane) {
+      if (!((go >> lane) & 1u)) return;
+      const int qo = rank(go, lane);
+      if ((qo >> 2) != r) return;
+      const int first = 8 * (qo & 3);
+      for (int k = 0; k < 8; ++k) {
+        const int32_t kk = c.key[first + k];
+        if (kk < best_key[l]) {
+          best_key[l] = kk;
+          best_tb[l] = c.key[32 + first + k];
+        }
+      }
+    });
+    w.sync();
+  }
+}
+
 // Take a leaf's best key if its t is strictly nearer than the ray's best
 // so far; returns true when the hit ends the ray (OCCLUSION). leaf_step's
-// acceptance without attributes.
-template <bool OCCLUSION>
-TRAV_HD bool take_leaf_hit(RayState& st, int32_t key, int32_t tb) {
+// acceptance, where closest + attrs (static B2) recomputes the winner's u,
+// v and Ng (static_attrs).
+template <bool OCCLUSION, bool WANT_ATTRS = false>
+TRAV_HD bool take_leaf_hit(const Params& p, RayState& st, int32_t key,
+                           int32_t tb) {
+  const int32_t lid = -st.cur - 1;
   const float t_new = as_float(tb);
   if (key < kInfBits && t_new < st.tf) {
     st.tf = t_new;
-    st.best = (-st.cur - 1) * 8 + (key & 7);
+    st.best = lid * 8 + (key & 7);
+    if (WANT_ATTRS) static_attrs(leaf_record(p, lid), key & 7, st);
     if (OCCLUSION) {
       st.live = false;
       return true;
@@ -1743,28 +1860,36 @@ TRAV_HD bool take_leaf_hit(RayState& st, int32_t key, int32_t tb) {
 }
 
 // counts (int64, per launch): [0] lane slots (warp passes x 32), [1] lane
-// steps that did work, [2] rays finished; curve scenes also [4] lane slots
-// of leaf passes, [5] lane steps of leaf passes, [6] item rounds x 32;
+// steps that did work, [2] rays finished; curve scenes and the static
+// variants also [4] lane slots of leaf passes, [5] lane steps of leaf
+// passes, [6] item rounds x 32;
 // out_overflow: rays whose stack overflowed. A warp keeps its counts in 32
 // bits (64-bit ones cost ptxas a spill) and adds them to counts at its end,
 // or every kFlushPasses passes, before they could wrap.
 constexpr uint32_t kFlushPasses = 1u << 26;
 
 // The persistent warps of the moving variants (B6: MOTION, scenes without
-// curves) and of the curve variants (B7, B8: CURVES, static or moving);
-// wt: the knot weights (CURVES).
+// curves), of the curve variants (B7, B8: CURVES, static or moving) and of
+// the static robust triangles and mixed classes (B2-B5); wt: the knot
+// weights (CURVES).
 template <class WARP, bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK,
           bool ROBUST, bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
                       int32_t* out_overflow, unsigned long long* counts,
                       const float* wt) {
-  static_assert(MOTION || CURVES, "static scenes run one ray per thread");
+  static_assert(scheduled(ROBUST, KINDS, MOTION, CURVES),
+                "static triangles (B1) run one ray per thread");
   static_assert(!CURVES || (KINDS && !WANT_ATTRS),
                 "curve scenes carry kind tags and no kernel attrs");
   static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
   constexpr int L = WARP::kLanes;
-  constexpr int refill_lanes = CURVES ? kCurveRefillLanes : kRefillLanes;
-  constexpr int leaf_lanes = CURVES ? kCurveLeafLanes : kLeafLanes;
+  constexpr bool STATIC = !MOTION && !CURVES;
+  constexpr int refill_lanes = CURVES   ? kCurveRefillLanes
+                               : STATIC ? kStaticRefillLanes
+                                        : kRefillLanes;
+  constexpr int leaf_lanes = CURVES   ? kCurveLeafLanes
+                             : STATIC ? kStaticLeafLanes
+                                      : kLeafLanes;
   RayState st[L];
   bool busy[L];
   uint32_t finished[L];
@@ -1782,7 +1907,9 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
            rounds = 0;
   auto flush = [&] {
     w.add_counts(counts, passes, steps, finished);
-    if (CURVES) w.add_leaf_counts(counts, leaf_passes, leaf_steps, rounds);
+    if (CURVES || STATIC) {
+      w.add_leaf_counts(counts, leaf_passes, leaf_steps, rounds);
+    }
     passes = steps = leaf_passes = leaf_steps = rounds = 0;
     w.each([&](int l, int) { finished[l] = 0; });
   };
@@ -1816,17 +1943,23 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
     if (passes == kFlushPasses) flush();
     ++passes;
     steps += popc(go);
-    if constexpr (CURVES) {
+    if constexpr (CURVES || STATIC) {
       if (leaves) {
         ++leaf_passes;
         leaf_steps += popc(go);
         int32_t key[L], tb[L];
-        curve_pass<WARP, HAS_MASK, ROBUST, MOTION, ROUND>(p, w, st, go, wt,
-                                                          key, tb, rounds);
+        if constexpr (CURVES) {
+          curve_pass<WARP, HAS_MASK, ROBUST, MOTION, ROUND>(p, w, st, go, wt,
+                                                            key, tb, rounds);
+        } else {
+          static_pass<WARP, HAS_MASK, ROBUST, KINDS>(p, w, st, go, key, tb,
+                                                     rounds);
+        }
         w.each([&](int l, int lane) {
           if (!((go >> lane) & 1u)) return;
           ++st[l].n_leaf;
-          if (!take_leaf_hit<OCCLUSION>(st[l], key[l], tb[l])) {
+          if (!take_leaf_hit<OCCLUSION, WANT_ATTRS>(p, st[l], key[l],
+                                                    tb[l])) {
             pop(st[l], w.stack(l));
           }
           if (!ray_running(st[l])) done(l);
@@ -1838,11 +1971,11 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
       if (!((go >> lane) & 1u)) return;
       const auto stk = w.stack(l);
       bool kept;
-      if constexpr (CURVES) {
+      if constexpr (CURVES || STATIC) {
         kept = node_step<ROBUST>(p, st[l], stk);
       } else {
         kept = leaves ? leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
-                                  KINDS, true>(p, st[l])
+                                  KINDS, MOTION>(p, st[l])
                       : node_step<ROBUST>(p, st[l], stk);
       }
       if (!kept) pop(st[l], stk);

@@ -5,8 +5,9 @@ lanes are idle, and runs the lanes waiting at leaves once enough of them
 wait there (or none is left at a node); ``persistent_kernel``
 (``csrc/launch.cuh``) asks ptxas for a number of resident blocks per SM.
 All are constants of the source, not knobs, with their own values for the
-moving variants of scenes without curves (B6) and for the curve variants
-(B7, B8). For each configuration given, this script builds a copy of
+moving variants of scenes without curves (B6), for the curve variants
+(B7, B8) and for the static robust triangles and mixed classes (B2-B5).
+For each configuration given, this script builds a copy of
 ``csrc/`` with the constants replaced, every copy at once, and times the
 cell's kernel one configuration after another in turns, CUDA events,
 median of 5 rounds. Each configuration's outputs must equal the built
@@ -20,7 +21,13 @@ coherence-sorted rays, from ``chip_smoke.py`` in the tree's root:
 - ``hair`` (B7, phase 13): 1,048,576 flat B-spline curves; constants
   (kCurveRefillLanes, kCurveLeafLanes, kMinBlocks);
 - ``round_hair`` (B8, phase 15): the same strands as round curves,
-  packed for the kernel; the same constants.
+  packed for the kernel; the same constants;
+- ``mixed`` (B3-B5, phase 8): the 1,574,400-prim mixed cell, rays from
+  U(-4, 4)^3; constants (kStaticRefillLanes, kStaticLeafLanes,
+  kMinBlocks); the copies compile ``traverse.cu`` with the curve
+  launchers as stubs;
+- ``robust`` (B2, phase 7): the 2,097,152-triangle sphere in robust mode;
+  the same constants.
 
 For the curve cells the copies compile the family's own source and
 ``traverse.cu`` with its launches of scenes without curves skipped, so
@@ -29,6 +36,8 @@ that kMinBlocks there moves the curve variants' bound alone.
 Usage: python -m embree_tpu_torch.perf.sched_sweep [--cell motion]
            [--configs 8:4:4:4,...] [--variants closest,occluded]
            [--rays 16777216] [--out file.json]
+(``--variants all``: the cell's variants, closest + attrs only where the
+cell has triangle attributes.)
 """
 from __future__ import annotations
 
@@ -66,7 +75,17 @@ MOTION_CONFIGS = ((8, 8, 4, 4), (8, 8, 1, 4), (8, 8, 8, 4), (1, 8, 4, 4),
 CURVE_CONFIGS = ((1, 8, 4), (4, 8, 4), (8, 8, 4), (16, 8, 4), (32, 8, 4),
                  (1, 1, 4), (1, 2, 4), (1, 4, 4), (1, 16, 4), (1, 32, 4),
                  (1, 8, 3))
+STATIC_CONSTANTS = (("traverse.cuh", "kStaticRefillLanes"),
+                    ("traverse.cuh", "kStaticLeafLanes"),
+                    ("launch.cuh", "kMinBlocks"))
+# (refill lanes, leaf lanes, min blocks): the first design's (8, 8, 4),
+# the source's (4, 4, 4) and their neighbours
+STATIC_CONFIGS = ((8, 8, 4), (1, 8, 4), (2, 8, 4), (4, 8, 4), (16, 8, 4),
+                  (8, 4, 4), (8, 6, 4), (8, 12, 4), (4, 4, 4), (4, 6, 4),
+                  (2, 4, 4), (8, 8, 3))
 CELLS = {"motion": (MOTION_CONSTANTS, MOTION_CONFIGS, ()),
+         "mixed": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
+         "robust": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
          "hair": (CURVE_CONSTANTS, CURVE_CONFIGS, ("traverse_curves.cu",)),
          "round_hair": (CURVE_CONSTANTS, CURVE_CONFIGS,
                         ("traverse_round.cu",))}
@@ -153,8 +172,7 @@ def build(cell, configs, tmp):
           flush=True)
     fns = {}
     for c, name in zip(configs, names):
-        regs, spill = ptxas_summary(_build.BUILD_LOGS.get(name, ""),
-                                    cell != "motion")
+        regs, spill = ptxas_summary(_build.BUILD_LOGS.get(name, ""), cell)
         print(f"  {c}: persistent kernels at {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, {spill} B of local "
               "memory", flush=True)
@@ -165,17 +183,25 @@ def build(cell, configs, tmp):
     return fns
 
 
-def ptxas_summary(log, curves):
-    """Registers of each persistent kernel of the cell's kind (curves or
-    not: the template's seventh flag) in a build's ptxas lines, and the
-    bytes of stack frame and spills they add up to."""
+# the persistent kernels of each cell's family, by template flags
+# (occlusion, attrs, mask, robust, kinds, motion, curves, round)
+FAMILY = {"motion": lambda f: f[5] and not f[6],
+          "hair": lambda f: f[6], "round_hair": lambda f: f[6],
+          "mixed": lambda f: f[4] and not f[5] and not f[6],
+          "robust": lambda f: f[3] and not f[4] and not f[5]}
+
+
+def ptxas_summary(log, cell):
+    """Registers of each persistent kernel of the cell's family in a
+    build's ptxas lines, and the bytes of stack frame and spills they add
+    up to."""
     regs, spill, on = [], 0, False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            flags = re.findall(r"Lb([01])E", m.group(1))
+            flags = [int(b) for b in re.findall(r"Lb([01])E", m.group(1))]
             on = ("persistent_kernel" in m.group(1) and len(flags) == 8
-                  and flags[6] == str(int(curves)))
+                  and bool(FAMILY[cell](flags)))
         elif on and "stack frame" in line:
             spill += sum(int(v) for v in re.findall(r"(\d+) bytes", line))
         elif on and "Used" in line:
@@ -185,12 +211,13 @@ def ptxas_summary(log, curves):
     return regs, spill
 
 
-def launch(fn, packed, x, occ, attrs):
+def launch(fn, packed, x, occ, attrs, robust):
     """One launch of a configuration's library, as ``traverse_kernel``
     makes it."""
     outs = tr._outputs(x[0].shape[0], x[0].device, attrs, True)
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*tr._call_args(packed, *x[:5], x[5], outs, occ, attrs, False),
+    err = fn(*tr._call_args(packed, *x[:5], tr._time(packed, x[0], x[5]),
+                            outs, occ, attrs, robust),
              tr._ptr(outs[5]), tr._ptr(outs[6]), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -198,15 +225,25 @@ def launch(fn, packed, x, occ, attrs):
 
 
 def cell(name, n_rays):
-    """The cell's packed scene and its sorted rays (time U[0, 1) in the
-    motion cell)."""
+    """The cell's packed scene, whether it is robust, and its sorted rays
+    (time U[0, 1) in the motion cell)."""
     import chip_smoke as cs
     import embree_tpu_torch as pt
     from embree_tpu_torch import scene as pscene
     rng = np.random.default_rng(0)
-    org = rng.uniform(-2, 2, (n_rays, 3)).astype(np.float32)
+    spread = 4 if name == "mixed" else 2
+    org = rng.uniform(-spread, spread, (n_rays, 3)).astype(np.float32)
     d = rng.standard_normal((n_rays, 3), dtype=np.float32)
-    if name == "motion":
+    if name in ("mixed", "robust"):
+        if name == "mixed":
+            s = cs.mixed_full_scene(pt)
+        else:
+            from embree_tpu_torch.tools.viewer import sphere_mesh
+            s = pt.Scene(robust=True)
+            s.attach(pt.TriangleGeometry(*sphere_mesh(*MESH)))
+        committed = s.commit(device="cuda")
+        rays = pt.make_rays(org, d, device="cuda")
+    elif name == "motion":
         from embree_tpu_torch.tools.viewer import sphere_mesh
         v, idx = sphere_mesh(*MESH)
         s = pt.Scene()
@@ -224,7 +261,7 @@ def cell(name, n_rays):
     _, x = tr.sort_rays_by_coherence(rays.org, rays.dir, rays.tnear,
                                      rays.tfar, rays.mask.to(torch.int32),
                                      rays.time)
-    return committed.packed, x
+    return committed.packed, committed.robust, x
 
 
 def same(a, b):
@@ -255,12 +292,16 @@ def main(argv=None):
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(args.cell, configs, tmp)
-        packed, x = cell(args.cell, args.rays)
+        packed, robust, x = cell(args.cell, args.rays)
         n = args.rays
         rows = []
-        for var in args.variants.split(","):
+        variants = ([v for v in VARIANTS if packed.tri_attrs
+                     or not VARIANTS[v][1]] if args.variants == "all"
+                    else args.variants.split(","))
+        for var in variants:
             occ, attrs = VARIANTS[var]
-            ref = tr.traverse_kernel(packed, *x[:5], occ, attrs, time=x[5])
+            ref = tr.traverse_kernel(packed, *x[:5], occ, attrs, robust,
+                                     time=x[5])
             times = {c: [] for c in configs}
             stats = {}
             for rep in range(REPS + 1):          # round 0 warms up
@@ -268,7 +309,7 @@ def main(argv=None):
                     a = torch.cuda.Event(enable_timing=True)
                     b = torch.cuda.Event(enable_timing=True)
                     a.record()
-                    res = launch(fns[c], packed, x, occ, attrs)
+                    res = launch(fns[c], packed, x, occ, attrs, robust)
                     b.record()
                     torch.cuda.synchronize()
                     if int(res.sched[2]) != n or not same(res, ref):
