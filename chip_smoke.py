@@ -9,22 +9,28 @@ Hopper traversal kernel against its plain PyTorch version:
    processes, one library), the loop-probe kernels (three more, one
    library) and the native BVH builder (g++) from the sources in this
    checkout, one compiler process each, in parallel; print each
-   instantiation's registers, spills and stack; the 66 persistent
-   instantiations (the 20 moving variants of B6, the 32 curve variants of
-   B7 and B8, static and moving, and the 14 static robust-triangle and
-   mixed-class variants of B2-B5) must use no local memory (0 B stack
-   frame, no spill) and all but B6's mixed-class ones at most 128
-   registers;
+   instantiation's registers, spills and stack; the library holds 72
+   instantiations, every one persistent_kernel and none of the retired
+   one-ray-per-thread traverse_kernel (the 20 moving variants of B6, the
+   32 curve variants of B7 and B8, static and moving, and the 20 static
+   triangle, robust-triangle and mixed-class variants of B1-B5), and they
+   must use no local memory (0 B stack frame, no spill) and all but B6's
+   mixed-class ones at most 128 registers;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
-   everything bit-equal, no stack overflow;
+   everything bit-equal, no stack overflow, and the 1M-ray launch's
+   outputs on those rays (its warps refill) held against the same plain
+   run, bit for bit; each launch finishes every ray once;
 4. the main path at full size: the 2,097,152-triangle sphere committed by the
    port, 16,777,216 incoherent rays through both intersect modes and
    occluded; a brute-force check on a few rays; kernel vs plain version
-   on 262,144 of the rays; kernel and wrapper times (CUDA events, median
-   of 5 after a warm-up) and the plain version's time;
+   on 262,144 of the rays, and the full-size launches' outputs on those
+   rays (their warps refill) held against the same plain run, bit for
+   bit; kernel and wrapper times (CUDA events, median of 5 after a
+   warm-up), the plain version's time on the compared rays, and the
+   counts of phase 6 (useful lane-steps, node/leaf split, item rounds);
    then the same sphere with geometry mask 0x2 and random ray masks, to time
-   the masked variants at full size;
+   the masked variants at full size, with the same checks;
 5. the viewer: cube and sphere x eyelight/primID/uv at 96x96 through the
    default differentiable path, each within 10 wrong pixels of
    tests/golden/*.pfm;
@@ -375,6 +381,19 @@ def compare(tr, packed, inputs, n, occ, attrs, label, robust=False,
     return err
 
 
+def check_sample(r, pl, attrs, label):
+    """The outputs ``r`` of a launch on all rays, on the rays of the
+    compare sample ``pl`` (``compare``'s record: every k-th ray), equal
+    the plain run's there, bit for bit."""
+    k, m = pl["stride"], pl["n"]
+    sample = types.SimpleNamespace(
+        t=r.t[::k][:m], best=r.best[::k][:m], visits=r.visits[:, ::k][:, :m],
+        attrs=None if r.attrs is None else r.attrs[:, ::k][:, :m])
+    check_bits(sample, pl["out"], attrs, label)
+    say(f"  {label}: the launch's outputs on the {m} compared rays == "
+        "plain (bits, steps)")
+
+
 def check_bits(k, p, attrs, label):
     """Kernel outputs ``k`` equal the plain version's ``p`` bit for bit:
     prim ids, step counts, t and (``attrs``) u/v/Ng. Returns the max
@@ -442,8 +461,14 @@ def phase_kernel_check(pt, tr, sphere_mesh, errs):
             torch.cuda.synchronize()
             check(int(full.overflow) == 0, "stack overflow on 1M rays")
             label = f"{name}{' masked' if cs.packed.has_mask else ''}"
+            check_sched(full, CHECK_RAYS, f"{label}, 1M rays")
+            plain = {}
             errs[name] = max(errs[name], compare(
-                tr, cs.packed, inputs, CHECK_COMPARE, occ, attrs, label))
+                tr, cs.packed, inputs, CHECK_COMPARE, occ, attrs, label,
+                plain=plain))
+            check_sample(full, plain[tr.packed_variant(cs.packed, occ, attrs,
+                                                       False)],
+                         attrs, f"{label} (1M rays)")
 
 
 def plain_run(tr, packed, inputs, occ, attrs, robust):
@@ -503,15 +528,7 @@ def time_variants(tr, packed, inputs, variants, record, table_bytes, card,
                 # the full-size launch refills its lanes (more rays than
                 # resident lanes): its outputs on the compare sample's rays
                 # equal the plain version's there, bit for bit
-                k, m = plain[name]["stride"], plain[name]["n"]
-                sample = types.SimpleNamespace(
-                    t=r.t[::k][:m], best=r.best[::k][:m],
-                    visits=r.visits[:, ::k][:, :m],
-                    attrs=None if r.attrs is None else r.attrs[:, ::k][:, :m])
-                check_bits(sample, plain[name]["out"], a,
-                           f"{name} (full size)")
-                say(f"  {name}: the full-size launch's outputs on the {m} "
-                    "compared rays == plain (bits, steps)")
+                check_sample(r, plain[name], a, f"{name} (full size)")
             one32, one128 = lane_shares(r.visits)
             steps = (r.visits[0] + r.visits[1]).to(torch.int64)
             top = steps.sort(descending=True).values[:max(n_rays // 100, 1)]
@@ -689,11 +706,14 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
     del hb, hk, hit, occ, valid
 
     inputs = sorted_inputs(tr, rays)
+    plain = {}
     for name, o, a in VARIANTS:
         errs[name] = max(errs.get(name, 0.0), compare(
-            tr, packed, inputs, MAIN_COMPARE, o, a, name))
+            tr, packed, inputs, MAIN_COMPARE, o, a, name, plain=plain))
 
-    # ---- timing at the main-path shape ----
+    # ---- timing at the main-path shape; the plain version timed on the
+    # compare sample, against which the full-size launches (their warps
+    # refill) are held on the same rays ----
     card = card_line()
     total_ms = {
         "closest_attrs": events_ms(
@@ -701,7 +721,7 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
     time_variants(tr, packed, inputs, VARIANTS, record, table_bytes, card,
-                  launches, total_ms=total_ms)
+                  launches, total_ms=total_ms, plain=plain)
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
         " GB")
     del cs, rays, inputs, packed
@@ -735,16 +755,18 @@ def phase_main(pt, tr, sphere_mesh, errs, record):
         "ray mask & 0x2 == 0")
     del hit, hd, occ
     inputs = sorted_inputs(tr, rays)
+    plain = {}
     for name, o, a in VARIANTS:
         errs[f"{name}_masked"] = compare(tr, cs.packed, inputs, MAIN_COMPARE,
-                                         o, a, f"{name}_masked")
+                                         o, a, f"{name}_masked", plain=plain)
     total_ms = {
         "closest_attrs": events_ms(
             lambda: pt.intersect(cs, rays, differentiable=False)),
         "occluded": events_ms(lambda: pt.occluded(cs, rays)),
     }
     time_variants(tr, cs.packed, inputs, VARIANTS, record,
-                  table_mb(cs.packed), card, masked, total_ms=total_ms)
+                  table_mb(cs.packed), card, masked, total_ms=total_ms,
+                  plain=plain)
 
 
 def phase_viewer(pt, tr):
@@ -1842,6 +1864,8 @@ def ptxas_info(ptxas, entry, key=None):
 # the traversal library's ptxas lines by instantiation, filled after the
 # build: {(entry, template flags): registers, stack, spills}
 TRAVERSE_PTXAS = {}
+# traverse_kernel, the retired one-ray-per-thread kernel, is matched too,
+# so that check_traverse_ptxas sees one left in the library
 TRAVERSE_ENTRY = r"(traverse_kernel|persistent_kernel)I((?:Lb[01]E)+)E"
 
 
@@ -1852,18 +1876,23 @@ def traverse_ptxas(ptxas):
 
 
 def check_traverse_ptxas(ptxas):
-    """Fill TRAVERSE_PTXAS; the 66 persistent instantiations (B6's 20
-    moving ones, B7's and B8's 32 curve ones, B2-B5's 14 static ones) keep
-    their stacks in shared memory and spill nothing, and all but B6's 8
-    mixed-class ones fit 16 resident warps per SM (128 registers)."""
+    """Fill TRAVERSE_PTXAS; the library holds the 72 persistent
+    instantiations (B6's 20 moving ones, B7's and B8's 32 curve ones,
+    B1-B5's 20 static ones) and no traverse_kernel; they keep their stacks
+    in shared memory and spill nothing, and all but B6's 8 mixed-class ones
+    fit 16 resident warps per SM (128 registers)."""
     TRAVERSE_PTXAS.update(traverse_ptxas(ptxas))
+    check(all(e == "persistent_kernel" for e, _ in TRAVERSE_PTXAS),
+          "the library holds a traverse_kernel")
     persistent = {f: v for (e, f), v in TRAVERSE_PTXAS.items()
                   if e == "persistent_kernel"}
-    check(len(persistent) == 66,
+    check(len(persistent) == 72,
           f"{len(persistent)} persistent instantiations")
     check(sum(f[6] for f in persistent) == 32, "not 32 curve instantiations")
-    check(sum(not f[5] and not f[6] for f in persistent) == 14,
-          "not 14 static instantiations without curves")
+    check(sum(not f[5] and not f[6] for f in persistent) == 20,
+          "not 20 static instantiations without curves")
+    check(sum(not any(f[3:]) for f in persistent) == 6,
+          "not 6 static triangle instantiations (B1)")
     bad = []
     for flags, info in sorted(persistent.items()):
         say(f"  persistent kernel (occlusion, attrs, mask, robust, kinds, "
@@ -1897,7 +1926,7 @@ def lane_shares(visits):
 def check_sched(res, n, label):
     """The persistent warps' counts of one launch: every ray finished once,
     and the lane steps are the rays' steps; where leaf passes deal items
-    (curve scenes, static B2-B5) their steps are the rays' leaf visits, and
+    (curve scenes, static B1-B5) their steps are the rays' leaf visits, and
     each leaf step's 8 items had a lane of an item round."""
     slots, steps, finished, _ = (int(v) for v in res.sched)
     check(finished == n, f"{label}: {finished} rays finished of {n}")
@@ -1914,7 +1943,7 @@ def check_sched(res, n, label):
 
 def sched_split(res):
     """Useful lane-steps of the node passes and leaf passes of a launch
-    whose leaf passes deal items (curve scenes, static B2-B5), the leaf
+    whose leaf passes deal items (curve scenes, static B1-B5), the leaf
     passes' share of lane slots, and the item rounds' share of lanes that
     tested a slot; {} for a launch without them."""
     slots, steps = int(res.sched[0]), int(res.sched[1])

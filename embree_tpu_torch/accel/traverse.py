@@ -13,18 +13,18 @@ id-table gathers, unsort) and returns the same values. Beneath it:
   (B4), lines (B5), motion blur (B6: fields lerped by the ray time,
   per-slot time windows), flat curves (B7: the ribbon test on 16-field
   Bezier slots) and round curves (B8: cone candidates and a Newton polish
-  on the same slots); ``LAUNCHES`` counts its launches per variant. All
-  but B1 (``uses_scheduler``) run persistent warps that refill finished
-  lanes from a ray counter the wrapper zeroes; their work counts come back
-  in ``TraceResult.sched`` (and, for curve scenes and static B2-B5,
+  on the same slots); ``LAUNCHES`` counts its launches per variant. Every
+  variant runs persistent warps that refill finished lanes from a ray
+  counter the wrapper zeroes; their work counts come back in
+  ``TraceResult.sched`` (and, for curve scenes and static B1-B5,
   ``leaf_sched``).
 - ``traverse_packed_reference`` computes the same function in plain PyTorch
   ops: a loop over steps, vectorized over the rays still active, with the
   kernel's keys, stack discipline and strict ``<``. The tests run the port on
   the CPU through it, and the smoke run holds the kernel against it on the
   card.
-- ``traverse_twin`` runs the kernel's per-ray logic, and the scheduler of
-  B2-B8 over 32 emulated lanes, compiled for the host
+- ``traverse_twin`` runs the kernel's per-ray logic and its scheduler over
+  32 emulated lanes, compiled for the host
   (``csrc/traverse_cpu.cpp``). Test-only: never on the main path.
 
 ``trace`` picks by device: CPU tensors take the plain version, CUDA tensors
@@ -172,11 +172,11 @@ class TraceResult:
     # () int64 round-curve candidates of those slots over all leaf visits
     # (the plain version counts them: the kernel polishes these only)
     round_candidates: Optional[torch.Tensor] = None
-    # (4,) int64 of the persistent warps (kernel and twin;
-    # ``uses_scheduler``): lane slots (warp passes x 32), lane steps that
-    # did work, rays finished, warps resident per SM (the twin: 1)
+    # (4,) int64 of the persistent warps (kernel and twin; None from the
+    # plain version): lane slots (warp passes x 32), lane steps that did
+    # work, rays finished, warps resident per SM (the twin: 1)
     sched: Optional[torch.Tensor] = None
-    # (3,) int64, the persistent warps of curve scenes and static B2-B5:
+    # (3,) int64, the persistent warps of curve scenes and static B1-B5:
     # lane slots of leaf passes (leaf passes x 32), lane steps of leaf
     # passes, and item rounds x 32 (each round deals up to 32 of the pass's
     # (ray, slot) items across the warp; 0 where each lane runs its own
@@ -266,27 +266,16 @@ def _check(packed: PackedScene, org, dir, tnear, tfar, mask, time=None):
         raise ValueError("packed scene has no records")
 
 
-def uses_scheduler(packed: PackedScene, robust: bool = False) -> bool:
-    """Whether a launch on the scene runs the persistent warps that refill
-    finished lanes: all but static triangles in normal mode (B1), so
-    robust mode (B2), kind tags (B3-B5), moving scenes (B6) and curve
-    scenes (B7, B8)."""
-    return (packed.has_motion or has_curves(packed) or packed.has_kinds
-            or robust)
-
-
 def kernel_instantiation(packed: PackedScene, occlusion: bool,
                          want_attrs: bool, robust: bool):
     """The kernel a launch on ``packed`` runs, as ``csrc/launch.cuh``'s
-    dispatch picks it: (entry, its template flags), for its ptxas line.
-    ``traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-    MOTION>`` or ``persistent_kernel<..., MOTION, CURVES, ROUND>``."""
+    dispatch picks it: (entry, its template flags), for its ptxas line:
+    ``persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+    MOTION, CURVES, ROUND>``, the persistent warps every variant runs."""
     flags = (occlusion, want_attrs and not occlusion, packed.has_mask,
-             robust, packed.has_kinds, packed.has_motion)
-    if uses_scheduler(packed, robust):
-        flags += (has_curves(packed), KIND_CURVE_ROUND in packed.kind_classes)
-        return "persistent_kernel", tuple(int(f) for f in flags)
-    return "traverse_kernel", tuple(int(f) for f in flags)
+             robust, packed.has_kinds, packed.has_motion, has_curves(packed),
+             KIND_CURVE_ROUND in packed.kind_classes)
+    return "persistent_kernel", tuple(int(f) for f in flags)
 
 
 # the twin's outputs start as values no traversal writes (a NaN payload, a
@@ -295,10 +284,9 @@ _UNWRITTEN_F32 = 0x7FC0DEAD
 _UNWRITTEN_I32 = -2
 
 
-def _outputs(R, dev, want_attrs, sched, unwritten=False):
-    """t, best, visits, attrs, overflow count; then, where ``sched``, the
-    scheduler's ray counter and its seven counts (``_result``), both zero,
-    else None (null pointers for the one-ray-per-thread kernel)."""
+def _outputs(R, dev, want_attrs, unwritten=False):
+    """t, best, visits, attrs, overflow count; then the scheduler's ray
+    counter and its seven counts (``_result``), both zero."""
     def i32(*shape, fill=_UNWRITTEN_I32):
         if unwritten:
             return torch.full(shape, fill, dtype=torch.int32, device=dev)
@@ -307,19 +295,17 @@ def _outputs(R, dev, want_attrs, sched, unwritten=False):
     def f32(*shape):
         return i32(*shape, fill=_UNWRITTEN_F32).view(torch.float32)
 
-    def zeros(n, dtype):
-        return torch.zeros(n, dtype=dtype, device=dev) if sched else None
+    def zeros(*shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
     return (f32(R), i32(R), i32(2, R), f32(5, R) if want_attrs else None,
-            torch.zeros((), dtype=torch.int32, device=dev),
-            zeros(1, torch.int32), zeros(7, torch.int64))
+            zeros(dtype=torch.int32), zeros(1, dtype=torch.int32),
+            zeros(7, dtype=torch.int64))
 
 
 def _result(outs) -> "TraceResult":
     """The TraceResult of ``_outputs`` after a launch."""
     counts = outs[6]
-    return TraceResult(*outs[:5],
-                       sched=None if counts is None else counts[:4],
-                       leaf_sched=None if counts is None else counts[4:])
+    return TraceResult(*outs[:5], sched=counts[:4], leaf_sched=counts[4:])
 
 
 def _ptr(x):
@@ -387,8 +373,7 @@ def traverse_kernel(packed: PackedScene, org, dir, tnear, tfar, mask,
             raise ValueError(f"{name} must be 16-byte aligned")
     launch = _load("traverse_cuda", "traverse_launch",
                    [ctypes.c_void_p] * 3)
-    outs = _outputs(org.shape[0], org.device, want_attrs,
-                    uses_scheduler(packed, robust))
+    outs = _outputs(org.shape[0], org.device, want_attrs)
     stream = torch.cuda.current_stream(org.device).cuda_stream
     err = launch(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                              occlusion, want_attrs, robust),
@@ -409,8 +394,7 @@ def traverse_twin(packed: PackedScene, org, dir, tnear, tfar, mask,
     time = _time(packed, org, time)
     _check(packed, org, dir, tnear, tfar, mask, time)
     run = _load("traverse_twin", "traverse_twin", [ctypes.c_void_p])
-    outs = _outputs(org.shape[0], org.device, want_attrs,
-                    uses_scheduler(packed, robust), unwritten=True)
+    outs = _outputs(org.shape[0], org.device, want_attrs, unwritten=True)
     if run(*_call_args(packed, org, dir, tnear, tfar, mask, time, outs,
                        occlusion, want_attrs, robust), _ptr(outs[6])) != 0:
         raise ValueError("the twin has no such variant")

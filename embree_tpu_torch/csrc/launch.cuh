@@ -3,26 +3,23 @@
 // (B7) and traverse_round.cu (B8 beside B7), which nvcc compiles in
 // parallel into objects of one library.
 //
-// Two kernels. The static triangle variants (B1, 6 instantiations) run one
-// ray per thread to its end (traverse_kernel): the baseline, which does
-// nothing yet about the latency of each dependent record read or about
-// lanes that idle behind the warp's longest ray. The moving variants (B6,
-// 20 instantiations), every curve variant, static or moving (B7 and B8, 16
-// each), and the static robust triangles (B2, 6) and mixed classes (B3-B5,
-// 8) run persistent warps (persistent_kernel, the scheduler in
+// One kernel. Every variant (72 instantiations: the static triangles B1,
+// robust triangles B2 and mixed classes B3-B5, 6 + 6 + 8; the moving
+// variants B6, 20; the curve variants B7 and B8, static or moving, 16
+// each) runs persistent warps (persistent_kernel, the scheduler in
 // traverse.cuh): as many blocks as stay resident, lanes refilled from a
 // global ray counter as their rays finish, leaves postponed until enough
 // lanes wait at one, and each lane's stack in a column of shared memory
 // instead of local memory. Moving rays are U[0,1) in time, which the
 // coherence sort does not see, so their step counts spread far (p99.9 657
 // steps against a mean of 19 on the 2-step sphere): one ray per thread
-// left 85-91% of lane-steps idle there. A curve leaf visit costs about
-// 14,000 operations against a node's 100, so one ray per thread left the
-// lanes at nodes idle behind those at leaves; the curve variants' leaf
-// pass deals its (ray, slot) items across the warp (curve_pass), with the
-// knot weights and each warp's scratch in shared memory beside the stacks;
-// the static variants' leaf pass (static_pass) keeps its scratch there
-// too.
+// left 85-91% of lane-steps idle there, and 70.5% on the static triangle
+// sphere. A curve leaf visit costs about 14,000 operations against a
+// node's 100, so one ray per thread left the lanes at nodes idle behind
+// those at leaves; the curve variants' leaf pass deals its (ray, slot)
+// items across the warp (curve_pass), with the knot weights and each
+// warp's scratch in shared memory beside the stacks; the static variants'
+// leaf pass (static_pass) keeps its scratch there too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,18 +29,6 @@
 namespace trav {
 
 constexpr int kBlock = 128;
-
-template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION>
-__global__ void __launch_bounds__(kBlock)
-    traverse_kernel(Params p, int32_t* out_overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_rays) return;
-  if (trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION>(p,
-                                                                        i)) {
-    atomicAdd(out_overflow, 1);
-  }
-}
 
 // The scheduler's lane bookkeeping on the card (run_warp's WARP): a thread
 // is one lane; its stack is column threadIdx.x of the block's shared
@@ -137,13 +122,14 @@ struct CudaScratchWarp : CudaWarp {
 // then allocates up to 128 registers. Without the bound its occupancy
 // heuristic stopped at 96 and spilled in some variants
 // (perf/sched_sweep.py times both); the curve variants took 3 (12 warps
-// per SM) no faster. Static B2-B5 use 78-82 registers and 39 KB of shared
+// per SM) no faster. Static B1-B5 use 78-83 registers and 39 KB of shared
 // memory a block, so 5 blocks stay resident (20 warps per SM) at 3 or 4.
 constexpr int kMinBlocks = 4;
 
 // Dynamic shared memory of a persistent block: the stacks, in curve scenes
-// the knot weights, and in curve scenes and static B2-B5 each warp's
-// scratch (traverse.cuh).
+// the knot weights, and in curve scenes and static B1-B5 each warp's
+// scratch (traverse.cuh; a scene without curves: the ray rows and the key
+// rows).
 template <bool MOTION, bool CURVES>
 size_t persistent_smem(const Params& p) {
   size_t words = static_cast<size_t>(kStack) * kBlock;
@@ -160,7 +146,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     persistent_kernel(Params p, int32_t* out_overflow, int32_t* next_ray,
                       unsigned long long* counts, int warps_per_sm) {
   // the stacks (kStack x kBlock, column-major), then in curve scenes the
-  // knot weights and each warp's scratch, in static B2-B5 each warp's
+  // knot weights and each warp's scratch, in static B1-B5 each warp's
   // scratch
   extern __shared__ int32_t smem[];
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[3] = warps_per_sm;
@@ -193,7 +179,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 // The launch's outputs beside the per-ray ones: the stack overflow count,
-// and for the persistent kernel its ray counter (zeroed) and work counts.
+// the ray counter (zeroed) and the work counts.
 struct Counters {
   int32_t* overflow;
   int32_t* next_ray;
@@ -205,7 +191,7 @@ struct Counters {
 // return.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
-void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
+void launch(const Params& p, Counters c, cudaStream_t s) {
   const auto kernel = persistent_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK,
                                         ROBUST, KINDS, MOTION, CURVES, ROUND>;
   const size_t smem = persistent_smem<MOTION, CURVES>(p);
@@ -225,19 +211,6 @@ void launch_persistent(const Params& p, Counters c, cudaStream_t s) {
   const int grid = per_sm * sms < need ? per_sm * sms : need;
   kernel<<<grid, kBlock, smem, s>>>(p, c.overflow, c.next_ray, c.counts,
                                     per_sm * (kBlock / 32));
-}
-
-template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION, bool CURVES, bool ROUND>
-void launch(const Params& p, Counters c, cudaStream_t s) {
-  if constexpr (scheduled(ROBUST, KINDS, MOTION, CURVES)) {
-    launch_persistent<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION,
-                      CURVES, ROUND>(p, c, s);
-  } else {
-    const dim3 grid((p.n_rays + kBlock - 1) / kBlock), block(kBlock);
-    traverse_kernel<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS, MOTION>
-        <<<grid, block, 0, s>>>(p, c.overflow);
-  }
 }
 
 // {mask chunk or not} x {robust or not}; time windows are a uniform

@@ -4,12 +4,9 @@
 // Replaces embree_tpu/accel/traverse_pallas.py::_kernel: triangles (B1),
 // robust mode (B2), kind tags (B3), points (B4), lines (B5) and motion blur
 // (B6); traverse_curves.cu holds flat curves (B7), traverse_round.cu round
-// curves (B8). The static triangle variants (B1) run one ray per thread;
-// the static robust triangles (B2) and mixed classes (B3-B5), the moving
-// and the curve variants run persistent warps that refill finished lanes
-// (launch.cuh); the
-// per-ray logic, what bounds it on the card and what each design does about
-// it are in traverse.cuh and launch.cuh.
+// curves (B8). Every variant runs persistent warps that refill finished
+// lanes (launch.cuh); the per-ray logic, what bounds it on the card and
+// what each design does about it are in traverse.cuh and launch.cuh.
 // Also folds in the Pallas kernel's streamed-table specialization
 // (traverse_pallas.py:347-426): global loads through L2 serve a table of any
 // size, so there is no tile cache to manage.
@@ -27,10 +24,8 @@
 // chunk or not} x {robust or not} x {static or moving}; scenes with the
 // curve tags go to trav::launch_curves (flat only) or trav::launch_round.
 // next_ray: one int32, zero before the launch (the persistent warps' ray
-// counter); counts: seven int64, zero before the launch, which the
-// persistent variants fill (all but B1's 6: run_warp in traverse.cuh,
-// persistent_kernel in launch.cuh); both are read by those variants only,
-// and null for the others.
+// counter); counts: seven int64, zero before the launch, which the warps
+// fill (run_warp in traverse.cuh, persistent_kernel in launch.cuh).
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a variant that does not exist (trav::
 // bad_variant).

@@ -29,30 +29,23 @@
 // with kind tags, in primitive class (a round line costs ~190 operations, a
 // disc ~30).
 //
-// The static triangle variants (B1) do nothing about either yet: one ray
-// per thread, a 64-entry stack in local memory, records read with 16-byte
-// __ldg loads. They are the baseline that later designs (warp-cooperative
-// node tests, a treelet queue, shared-memory top levels) are measured
-// against.
-//
-// Every other variant runs the same per-ray steps under a scheduler
-// (run_warp, at the end of this file; the kernel in launch.cuh): the
-// moving ones (B6), every curve variant, static or moving (B7, B8), and
-// the static robust triangles (B2) and mixed classes (B3-B5), which have a
-// leaf pass of their own (static_pass). Moving rays' times are not part
-// of the coherence key, so a warp's rays differ in length by hundreds of
-// steps (a ray grazing the swept boxes walks thousands). Against
-// divergence: persistent warps whose lanes take a new ray as soon as
-// enough of them are done, and leaves postponed until enough lanes wait at
-// one, so the long leaf code runs converged. Against latency: 16-20
-// resident warps per SM instead of 12, since no whole leaf is held in
-// registers (motion_leaf reads, lerps and tests kSlotGroup = 4 slots at a
-// time, and closest + attrs recomputes the winner's u, v and Ng after the
-// leaf), and the stack in shared memory (a column per lane, no bank
-// conflicts), where a pop does not wait on an L1 that leaf loads keep
-// evicting. Four slots share each 16-byte load: one slot at a time reads
-// every field with a 4-byte load of its own, each a wavefront of the L1 per
-// lane, and ran about 3x slower (perf/sched_sweep.py).
+// Every variant runs the same per-ray steps under a scheduler (run_warp, at
+// the end of this file; the kernel in launch.cuh): the moving ones (B6),
+// every curve variant, static or moving (B7, B8), and the static triangles
+// (B1), robust triangles (B2) and mixed classes (B3-B5), which have a leaf
+// pass of their own (static_pass). Moving rays' times are not part of the
+// coherence key, so a warp's rays differ in length by hundreds of steps (a
+// ray grazing the swept boxes walks thousands). Against divergence:
+// persistent warps whose lanes take a new ray as soon as enough of them are
+// done, and leaves postponed until enough lanes wait at one, so the long leaf
+// code runs converged. Against latency: 16-20 resident warps per SM instead
+// of 12, since no whole leaf is held in registers (motion_leaf reads, lerps
+// and tests kSlotGroup = 4 slots at a time, and closest + attrs recomputes
+// the winner's u, v and Ng after the leaf), and the stack in shared memory (a
+// column per lane, no bank conflicts), where a pop does not wait on an L1
+// that leaf loads keep evicting. Four slots share each 16-byte load: one slot
+// at a time reads every field with a 4-byte load of its own, each a wavefront
+// of the L1 per lane, and ran about 3x slower (perf/sched_sweep.py).
 //
 // B7 is bound by operations, not bytes: a ribbon slot at rate 4 costs 884
 // operations, 16x a triangle's (curve_slot_ops in chip_smoke.py counts them
@@ -84,14 +77,14 @@
 // slowed the flat hair kernel by 19% on an H100 (chip_smoke.py), though no
 // flat scene runs it.
 //
-// The static robust triangles (B2) and mixed classes (B3-B5) deal their
-// leaves too (static_pass): one ray per thread left their lanes idle
-// behind the warp's deepest ray, held the whole 288-byte leaf in
-// registers, and, with kind tags, ran one class test after another in a
-// warp whose lanes met different classes (a round line ~190 operations, a
-// disc ~30). Dealt, a leaf's 8 slots are tested side by side, each lane
-// holds one slot, and the kernels keep 78-83 registers and 5 blocks per
-// SM.
+// The static triangles (B1), robust triangles (B2) and mixed classes
+// (B3-B5) deal their leaves too (static_pass): one ray per thread left
+// their lanes idle behind the warp's deepest ray, held the whole 288-byte
+// leaf in registers and the stack in local memory, and, with kind tags,
+// ran one class test after another in a warp whose lanes met different
+// classes (a round line ~190 operations, a disc ~30). Dealt, a leaf's 8
+// slots are tested side by side, each lane holds one slot, and the
+// kernels keep 78-83 registers and 5 blocks per SM.
 //
 // The file is compiled by nvcc into the kernel (traverse.cu, and
 // traverse_curves.cu and traverse_round.cu for the curve variants) and by
@@ -303,8 +296,7 @@ TRAV_HD Slot slot_fields(const float* f, int s) {
               f[40 + s], f[48 + s], f[56 + s], f[64 + s]};
 }
 
-// ---- class 0: Moeller-Trumbore (fields v0, e1, e2), in kind-tagged
-// scenes; triangle-only scenes run B1's own copy in trace_ray ----
+// ---- class 0: Moeller-Trumbore (fields v0, e1, e2) ----
 TRAV_HD bool leaf_moeller(const Slot& q, const Ray& r, float tf, float& tt,
                           float& uu, float& vv) {
   const float v0x = q.f0, v0y = q.f1, v0z = q.f2;
@@ -875,14 +867,13 @@ TRAV_HD bool leaf_by_tag(int32_t tag, int32_t classes, const Slot& q,
   }
 }
 
-// ---- the per-ray state machine: the one-ray-per-thread kernel, the
-// persistent warps of the moving variants (B6) and the twin all walk a ray
-// through these functions, so each ray takes the same steps in each ----
+// ---- the per-ray state machine: the persistent warps on the card and
+// the twin walk a ray through these functions, so each ray takes the same
+// steps in each ----
 
 // A ray's stack: entry k at base[k * STRIDE]. A local array (STRIDE 1) in
-// the one-ray-per-thread kernel and the twin; a column of the block's
-// shared memory (STRIDE = the block's threads, so lanes at any depths hit
-// distinct banks) in the persistent kernel.
+// the twin; a column of the block's shared memory (STRIDE = the block's
+// threads, so lanes at any depths hit distinct banks) on the card.
 template <int STRIDE>
 struct Stack {
   int32_t* base;
@@ -1147,116 +1138,53 @@ TRAV_HD void motion_attrs(const Params& p, const int32_t* rec, int sl,
   st.a_nz = sq.f3 * sq.f7 - sq.f4 * sq.f6;
 }
 
-// B2 closest + attrs under the scheduler: u, v and Ng of the winning slot
-// sl of a static leaf, from its 9 words by the expressions of its test, so
-// the same bits as if they had been kept through the slot loop.
+// B1 and B2 closest + attrs under the scheduler: u, v and Ng of the
+// winning slot sl of a static leaf, from its 9 words by the expressions of
+// its test (Moeller, or Pluecker when ROBUST), so the same bits as if they
+// had been kept through the slot loop.
+template <bool ROBUST>
 TRAV_HD void static_attrs(const int32_t* rec, int sl, RayState& st) {
   float f[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) f[k] = as_float(load1(rec + 8 * k + sl));
   const Slot sq{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
   float tt;
-  leaf_pluecker(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  if (ROBUST) {
+    leaf_pluecker(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  } else {
+    leaf_moeller(sq, st.ray, st.tf, tt, st.a_u, st.a_v);
+  }
   st.a_nx = sq.f4 * sq.f8 - sq.f5 * sq.f7;
   st.a_ny = sq.f5 * sq.f6 - sq.f3 * sq.f8;
   st.a_nz = sq.f3 * sq.f7 - sq.f4 * sq.f6;
 }
 
-// One leaf: the 8 slots' tests, the best slot key, and the winner accepted
-// only if its exact (clamped) t is strictly nearer than the best so far.
-// Returns true when the hit ends the ray (OCCLUSION).
+// One moving leaf (B6): the 8 slots' tests, each slot's fields lerped by
+// the ray time (p.has_win: per-slot windows, a uniform branch), kSlotGroup
+// slots at a time (motion_leaf), the best slot key, and the winner
+// accepted only if its exact (clamped) t is strictly nearer than the best
+// so far. Returns true when the hit ends the ray (OCCLUSION).
 // ROBUST: B2's leaf. KINDS: per-slot kind tags after the mask words, one
-// class test per slot (B3-B5); without it every slot is a triangle.
-// MOTION: B6, each slot's fields lerped by the ray time (p.has_win:
-// per-slot windows, a uniform branch), kSlotGroup slots at a time
-// (motion_leaf); without motion (B1) the whole leaf is held in registers.
-// Static B2-B5 (static_pass) and curve scenes (B7, B8: curve_pass) deal
-// their leaves across the warp instead.
+// class test per slot (B3-B5); without it every slot is a triangle. Static
+// B1-B5 (static_pass) and curve scenes (B7, B8: curve_pass) deal their
+// leaves across the warp instead.
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION>
+          bool KINDS>
 TRAV_HD bool leaf_step(const Params& p, RayState& st) {
   static_assert(!(KINDS && WANT_ATTRS), "kernel attrs are triangle-only");
-  static_assert(MOTION || !(ROBUST || KINDS), "static B2-B5 run static_pass");
   ++st.n_leaf;
   const int32_t lid = -st.cur - 1;
   const int32_t* rec =
       p.leaves +
       static_cast<size_t>(clampi(lid, 0, p.n_leaves - 1)) * p.leaf_stride;
   int32_t best_key = 0x7FFFFFFF, best_tb = 0;
-  float b_u = 0.0f, b_v = 0.0f, b_nx = 0.0f, b_ny = 0.0f, b_nz = 0.0f;
-  if constexpr (MOTION) {
-    motion_leaf<HAS_MASK, ROBUST, KINDS>(p, rec, st, best_key, best_tb);
-  } else {
-    // B1: the whole leaf in registers, the mask chunk after the fields;
-    // the slot body written out (through leaf_moeller and Slot it computes
-    // the same bits, but ptxas allocates up to 2 more registers)
-    const int mask_at = kLeafFields;
-    const float ox = st.ray.ox, oy = st.ray.oy, oz = st.ray.oz;
-    const float dx = st.ray.dx, dy = st.ray.dy, dz = st.ray.dz;
-    const float tnear = st.ray.tnear, tf = st.tf;
-    float f[kLeafFields];
-#pragma unroll
-    for (int q = 0; q < kLeafFields / 4; ++q) {
-      I4 v = load4(rec + 4 * q);
-      f[4 * q] = as_float(v.x);
-      f[4 * q + 1] = as_float(v.y);
-      f[4 * q + 2] = as_float(v.z);
-      f[4 * q + 3] = as_float(v.w);
-    }
-    int32_t smask[8];
-    if (HAS_MASK) {
-      I4 m0 = load4(rec + mask_at), m1 = load4(rec + mask_at + 4);
-      smask[0] = m0.x; smask[1] = m0.y; smask[2] = m0.z; smask[3] = m0.w;
-      smask[4] = m1.x; smask[5] = m1.y; smask[6] = m1.z; smask[7] = m1.w;
-    }
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float v0x = f[s], v0y = f[8 + s], v0z = f[16 + s];
-      const float e1x = f[24 + s], e1y = f[32 + s], e1z = f[40 + s];
-      const float e2x = f[48 + s], e2y = f[56 + s], e2z = f[64 + s];
-      const float pvx = dy * e2z - dz * e2y;
-      const float pvy = dz * e2x - dx * e2z;
-      const float pvz = dx * e2y - dy * e2x;
-      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-      const bool det_ok = fabsf(det) > 1e-24f;
-      const float inv_det = det_ok ? 1.0f / det : 0.0f;
-      const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-      const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-      const float qvx = tvy * e1z - tvz * e1y;
-      const float qvy = tvz * e1x - tvx * e1z;
-      const float qvz = tvx * e1y - tvy * e1x;
-      const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-      const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-      bool valid = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                   tt >= tnear && tt <= tf;
-      if (HAS_MASK) valid = valid && (smask[s] & st.rmask) != 0;
-      const int32_t tb = as_int(jmax(tt, 0.0f));
-      const int32_t k = valid ? ((tb & ~7) | s) : (kInfBits | s);
-      if (k < best_key) {
-        best_key = k;
-        best_tb = tb;
-        if (WANT_ATTRS) {
-          b_u = uu;
-          b_v = vv;
-          b_nx = e1y * e2z - e1z * e2y;
-          b_ny = e1z * e2x - e1x * e2z;
-          b_nz = e1x * e2y - e1y * e2x;
-        }
-      }
-    }
-  }
+  motion_leaf<HAS_MASK, ROBUST, KINDS>(p, rec, st, best_key, best_tb);
   const float t_new = as_float(best_tb);
   if (best_key < kInfBits && t_new < st.tf) {
     st.tf = t_new;
     st.best = lid * 8 + (best_key & 7);
-    if constexpr (WANT_ATTRS && MOTION) {
+    if constexpr (WANT_ATTRS) {
       motion_attrs<HAS_MASK, ROBUST>(p, rec, best_key & 7, st);
-    } else if (WANT_ATTRS) {
-      st.a_u = b_u;
-      st.a_v = b_v;
-      st.a_nx = b_nx;
-      st.a_ny = b_ny;
-      st.a_nz = b_nz;
     }
     if (OCCLUSION) {
       st.live = false;
@@ -1284,29 +1212,7 @@ TRAV_HD bool finish_ray(const Params& p, const RayState& st) {
   return st.overflow;
 }
 
-// Trace ray i to its end, one ray per thread (the static variants of
-// scenes without curves). Returns true when its stack grew past kStack
-// (must not happen: the caller counts it).
-template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
-          bool KINDS, bool MOTION>
-TRAV_HD bool trace_ray(const Params& p, int i) {
-  RayState st;
-  start_ray<HAS_MASK, MOTION>(p, i, st);
-  int32_t stack[kStack];
-  const Stack<1> stk{stack};
-  while (ray_running(st)) {
-    if (st.cur >= 0) {
-      if (node_step<ROBUST>(p, st, stk)) continue;
-    } else if (leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                         MOTION>(p, st)) {
-      break;
-    }
-    pop(st, stk);
-  }
-  return finish_ray<WANT_ATTRS>(p, st);
-}
-
-// ---- persistent warps that refill finished lanes (B2-B8) ----
+// ---- persistent warps that refill finished lanes (B1-B8) ----
 //
 // Each warp loops until the rays run out. A lane whose ray is done writes
 // its outputs and goes idle; once kRefillLanes lanes are idle, the warp
@@ -1317,7 +1223,7 @@ TRAV_HD bool trace_ray(const Params& p, int i) {
 // at one (or none is left at a node), so the longest code runs converged.
 // Curve scenes take constants of their own (kCurveRefillLanes,
 // kCurveLeafLanes) and a leaf pass of their own (curve_pass), and so do
-// static B2-B5 (kStaticRefillLanes, kStaticLeafLanes, static_pass).
+// static B1-B5 (kStaticRefillLanes, kStaticLeafLanes, static_pass).
 // WARP is the lane bookkeeping: CUDA intrinsics on the card (launch.cuh),
 // 32 emulated lanes in the twin (traverse_cpu.cpp). It provides kLanes
 // (lanes one thread holds), each(f) (f(slot, lane) for each of them),
@@ -1726,37 +1632,34 @@ TRAV_HD void curve_pass(const Params& p, const WARP& w, const RayState* st,
   }
 }
 
-// ---- B2-B5: the static variants' leaf pass ----
+// ---- B1-B5: the static variants' leaf pass ----
 //
-// The static robust triangles (B2) and mixed classes (B3-B5) run the
-// persistent warps with constants of their own (kStaticRefillLanes,
-// kStaticLeafLanes) and a leaf pass of their own: the waiting lanes'
-// (ray, slot) items dealt across the warp, 4 leaves per round of 32, as
-// in curve_pass, with the same scratch rows (a scene without curves has
-// no frame rows). An item reads its ray's constants from the warp's
-// scratch and its slot's 9 words (field k of slot s is word 8k + s, so
-// the 8 lanes of a leaf read each field as one 32-byte sector), and runs
-// its slot's class test; a slot that the mask chunk rejects is not
-// tested. Each waiting lane then takes the least of its 8 slot keys in
-// slot order with a strict <, the slot loop's own result. B2's closest +
-// attrs recomputes the winner's u, v and Ng afterwards (static_attrs).
-// perf/sched_sweep.py on the mixed cell and the robust sphere chose this
-// form and the constants: on an H100, (refill 4, leaf lanes 4) beat (8, 8)
-// by 1.8-5.0% in all five variants, and the forms it beat ran 1.11-1.65x
+// The static triangles (B1), robust triangles (B2) and mixed classes (B3-B5)
+// run the persistent warps with constants of their own (kStaticRefillLanes,
+// kStaticLeafLanes) and a leaf pass of their own: the waiting lanes' (ray,
+// slot) items dealt across the warp, 4 leaves per round of 32, as in
+// curve_pass, with the same scratch rows (a scene without curves has no frame
+// rows). An item reads its ray's constants from the warp's scratch and its
+// slot's 9 words (field k of slot s is word 8k + s, so the 8 lanes of a leaf
+// read each field as one 32-byte sector), and runs its slot's class test (a
+// triangle's Moeller test, or Pluecker's when robust); a slot that the mask
+// chunk rejects is not tested and keeps the invalid key kInfBits | s, as the
+// slot loop's own mask test gives it. Each waiting lane then takes the least of
+// its 8 slot keys in slot order with a strict <, the slot loop's own result.
+// B1's and B2's closest + attrs recompute the winner's u, v and Ng afterwards
+// (static_attrs). perf/sched_sweep.py on the mixed cell and the robust sphere
+// chose this form and the constants: on an H100, (refill 4, leaf lanes 4) beat
+// (8, 8) by 1.8-5.0% in all five variants, and the forms it beat ran 1.11-1.65x
 // as long: each lane its own ray's leaf, kSlotGroup slots per 16-byte load
-// (more registers, divergent classes); only the items that the mask chunk
-// and the scene's classes let through, listed by rank, and that list
-// grouped by kind tag (the list's scratch left 4 blocks per SM instead of
-// 5, and building it cost more than the tests it saved). PERF.md has the
-// times.
+// (more registers, divergent classes); only the items that the mask chunk and
+// the scene's classes let through, listed by rank, and that list grouped by
+// kind tag (the list's scratch left 4 blocks per SM instead of 5, and building
+// it cost more than the tests it saved). On the main sphere, as is and masked,
+// B1 keeps them: no other pair beat (4, 4) by 3% in all six variants, and each
+// lane its own ray's whole leaf in registers (B1's old slot loop, 118-128
+// registers, 16 warps per SM) ran 1.22-1.31x as long. PERF.md has the times.
 constexpr int kStaticRefillLanes = 4;  // idle lanes before a warp refills
 constexpr int kStaticLeafLanes = 4;    // lanes at leaves before they run
-
-// Whether a variant runs the persistent warps: all but B1.
-TRAV_HD constexpr bool scheduled(bool robust, bool kinds, bool motion,
-                                 bool curves) {
-  return motion || curves || robust || kinds;
-}
 
 TRAV_HD const int32_t* leaf_record(const Params& p, int32_t lid) {
   return p.leaves +
@@ -1783,13 +1686,14 @@ TRAV_HD void static_item(const Params& p, const ItemRay& r, int s,
                                   q, r.ray, r.tf, tt);
     } else {
       float uu, vv;
-      valid = leaf_pluecker(q, r.ray, r.tf, tt, uu, vv);
+      valid = ROBUST ? leaf_pluecker(q, r.ray, r.tf, tt, uu, vv)
+                     : leaf_moeller(q, r.ray, r.tf, tt, uu, vv);
     }
   }
   slot_key(valid, tt, s, key, tb);
 }
 
-// One leaf pass of B2-B5 over the waiting lanes go: each one's least slot
+// One leaf pass of B1-B5 over the waiting lanes go: each one's least slot
 // key and its t bits, into best_key and best_tb; rounds counts the item
 // rounds.
 template <class WARP, bool HAS_MASK, bool ROBUST, bool KINDS>
@@ -1840,9 +1744,9 @@ TRAV_HD void static_pass(const Params& p, const WARP& w, const RayState* st,
 
 // Take a leaf's best key if its t is strictly nearer than the ray's best
 // so far; returns true when the hit ends the ray (OCCLUSION). leaf_step's
-// acceptance, where closest + attrs (static B2) recomputes the winner's u,
-// v and Ng (static_attrs).
-template <bool OCCLUSION, bool WANT_ATTRS = false>
+// acceptance, where closest + attrs (static B1, B2) recomputes the
+// winner's u, v and Ng (static_attrs).
+template <bool OCCLUSION, bool WANT_ATTRS, bool ROBUST>
 TRAV_HD bool take_leaf_hit(const Params& p, RayState& st, int32_t key,
                            int32_t tb) {
   const int32_t lid = -st.cur - 1;
@@ -1850,7 +1754,7 @@ TRAV_HD bool take_leaf_hit(const Params& p, RayState& st, int32_t key,
   if (key < kInfBits && t_new < st.tf) {
     st.tf = t_new;
     st.best = lid * 8 + (key & 7);
-    if (WANT_ATTRS) static_attrs(leaf_record(p, lid), key & 7, st);
+    if (WANT_ATTRS) static_attrs<ROBUST>(leaf_record(p, lid), key & 7, st);
     if (OCCLUSION) {
       st.live = false;
       return true;
@@ -1870,15 +1774,13 @@ constexpr uint32_t kFlushPasses = 1u << 26;
 
 // The persistent warps of the moving variants (B6: MOTION, scenes without
 // curves), of the curve variants (B7, B8: CURVES, static or moving) and of
-// the static robust triangles and mixed classes (B2-B5); wt: the knot
-// weights (CURVES).
+// the static triangles, robust triangles and mixed classes (B1-B5); wt:
+// the knot weights (CURVES).
 template <class WARP, bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK,
           bool ROBUST, bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
                       int32_t* out_overflow, unsigned long long* counts,
                       const float* wt) {
-  static_assert(scheduled(ROBUST, KINDS, MOTION, CURVES),
-                "static triangles (B1) run one ray per thread");
   static_assert(!CURVES || (KINDS && !WANT_ATTRS),
                 "curve scenes carry kind tags and no kernel attrs");
   static_assert(!ROUND || CURVES, "round slots are 16-field curve slots");
@@ -1958,8 +1860,8 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
         w.each([&](int l, int lane) {
           if (!((go >> lane) & 1u)) return;
           ++st[l].n_leaf;
-          if (!take_leaf_hit<OCCLUSION, WANT_ATTRS>(p, st[l], key[l],
-                                                    tb[l])) {
+          if (!take_leaf_hit<OCCLUSION, WANT_ATTRS, ROBUST>(p, st[l], key[l],
+                                                            tb[l])) {
             pop(st[l], w.stack(l));
           }
           if (!ray_running(st[l])) done(l);
@@ -1975,7 +1877,7 @@ TRAV_HD void run_warp(const Params& p, const WARP& w, int32_t* next_ray,
         kept = node_step<ROBUST>(p, st[l], stk);
       } else {
         kept = leaves ? leaf_step<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST,
-                                  KINDS, MOTION>(p, st[l])
+                                  KINDS>(p, st[l])
                       : node_step<ROBUST>(p, st[l], stk);
       }
       if (!kept) pop(st[l], stk);

@@ -1,10 +1,10 @@
 // CPU twin of the Hopper traversal kernels (test-only).
 //
 // Compiles the kernels' per-ray logic and the persistent warps of every
-// variant but the static triangles' (traverse.cuh: the scheduler, the
-// curve leaf pass, which deals slots across the warp and queues
-// round-curve candidates, and the static variants' leaf pass) for the
-// host with g++ and -ffp-contract=off, so a machine
+// variant (traverse.cuh: the scheduler, the curve leaf pass, which deals
+// slots across the warp and queues round-curve candidates, and the static
+// variants' leaf pass) for the host with g++ and -ffp-contract=off, so a
+// machine
 // without a GPU can hold the kernels' arithmetic and bookkeeping against
 // the plain PyTorch version bit for bit. Never on the main path.
 //
@@ -76,25 +76,16 @@ struct HostWarp {
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
 void run(const trav::Params& p, int32_t* ovf, unsigned long long* counts) {
-  if constexpr (trav::scheduled(ROBUST, KINDS, MOTION, CURVES)) {
-    // one persistent warp takes every ray
-    std::vector<int32_t> stacks(HostWarp::kLanes * trav::kStack);
-    std::vector<int32_t> scratch(
-        CURVES || !MOTION ? trav::curve_scratch_words(p.kind_classes) : 0);
-    int32_t next_ray = 0;
-    trav::run_warp<HostWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                   MOTION, CURVES, ROUND>(
-        p, HostWarp{stacks.data(), scratch.data()}, &next_ray, ovf, counts,
-        p.curve_w);
-    counts[3] = 1;
-  } else {
-    for (int i = 0; i < p.n_rays; ++i) {
-      *ovf += trav::trace_ray<OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
-                              MOTION>(p, i)
-                  ? 1
-                  : 0;
-    }
-  }
+  // one persistent warp takes every ray
+  std::vector<int32_t> stacks(HostWarp::kLanes * trav::kStack);
+  std::vector<int32_t> scratch(
+      CURVES || !MOTION ? trav::curve_scratch_words(p.kind_classes) : 0);
+  int32_t next_ray = 0;
+  trav::run_warp<HostWarp, OCCLUSION, WANT_ATTRS, HAS_MASK, ROBUST, KINDS,
+                 MOTION, CURVES, ROUND>(
+      p, HostWarp{stacks.data(), scratch.data()}, &next_ray, ovf, counts,
+      p.curve_w);
+  counts[3] = 1;
 }
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool KINDS, bool MOTION,
@@ -129,8 +120,7 @@ void run_motion(const trav::Params& p, int has_mask, int robust,
 
 // Same arguments as traverse_launch (traverse.cu) without the ray counter
 // and the stream; host pointers. counts: seven int64 (zero before the
-// call), filled by the persistent variants (all but B1) as on the card,
-// with [3] = 1 (one warp); null for the others, which do not read it.
+// call), filled as on the card, with [3] = 1 (one warp).
 // Returns 0, or 1 for a variant that does not exist.
 extern "C" int traverse_twin(const int32_t* nodes, int n_nodes,
                              const int32_t* leaves, int n_leaves,

@@ -6,7 +6,8 @@ wait there (or none is left at a node); ``persistent_kernel``
 (``csrc/launch.cuh``) asks ptxas for a number of resident blocks per SM.
 All are constants of the source, not knobs, with their own values for the
 moving variants of scenes without curves (B6), for the curve variants
-(B7, B8) and for the static robust triangles and mixed classes (B2-B5).
+(B7, B8) and for the static triangles, robust triangles and mixed classes
+(B1-B5).
 For each configuration given, this script builds a copy of
 ``csrc/`` with the constants replaced, every copy at once, and times the
 cell's kernel one configuration after another in turns, CUDA events,
@@ -27,11 +28,19 @@ coherence-sorted rays, from ``chip_smoke.py`` in the tree's root:
   kMinBlocks); the copies compile ``traverse.cu`` with the curve
   launchers as stubs;
 - ``robust`` (B2, phase 7): the 2,097,152-triangle sphere in robust mode;
-  the same constants.
+  the same constants;
+- ``main`` (B1, phase 4): the 2,097,152-triangle sphere in normal mode;
+  the same constants;
+- ``main_masked`` (B1 with the mask chunk, phase 4b): the same sphere
+  with geometry mask 0x2, ray masks from {1, 2, 3} (numpy seed 1); the
+  same constants.
 
 For the curve cells the copies compile the family's own source and
 ``traverse.cu`` with its launches of scenes without curves skipped, so
 that kMinBlocks there moves the curve variants' bound alone.
+
+``--cell`` takes several cells of one family of constants, comma
+separated (``main,main_masked``): the copies are built once for all.
 
 Usage: python -m embree_tpu_torch.perf.sched_sweep [--cell motion]
            [--configs 8:4:4:4,...] [--variants closest,occluded]
@@ -86,6 +95,8 @@ STATIC_CONFIGS = ((8, 8, 4), (1, 8, 4), (2, 8, 4), (4, 8, 4), (16, 8, 4),
 CELLS = {"motion": (MOTION_CONSTANTS, MOTION_CONFIGS, ()),
          "mixed": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
          "robust": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
+         "main": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
+         "main_masked": (STATIC_CONSTANTS, STATIC_CONFIGS, ()),
          "hair": (CURVE_CONSTANTS, CURVE_CONFIGS, ("traverse_curves.cu",)),
          "round_hair": (CURVE_CONSTANTS, CURVE_CONFIGS,
                         ("traverse_round.cu",))}
@@ -188,7 +199,9 @@ def build(cell, configs, tmp):
 FAMILY = {"motion": lambda f: f[5] and not f[6],
           "hair": lambda f: f[6], "round_hair": lambda f: f[6],
           "mixed": lambda f: f[4] and not f[5] and not f[6],
-          "robust": lambda f: f[3] and not f[4] and not f[5]}
+          "robust": lambda f: f[3] and not f[4] and not f[5],
+          "main": lambda f: not any(f[3:]),
+          "main_masked": lambda f: not any(f[3:])}
 
 
 def ptxas_summary(log, cell):
@@ -214,7 +227,7 @@ def ptxas_summary(log, cell):
 def launch(fn, packed, x, occ, attrs, robust):
     """One launch of a configuration's library, as ``traverse_kernel``
     makes it."""
-    outs = tr._outputs(x[0].shape[0], x[0].device, attrs, True)
+    outs = tr._outputs(x[0].shape[0], x[0].device, attrs)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*tr._call_args(packed, *x[:5], tr._time(packed, x[0], x[5]),
                             outs, occ, attrs, robust),
@@ -226,7 +239,8 @@ def launch(fn, packed, x, occ, attrs, robust):
 
 def cell(name, n_rays):
     """The cell's packed scene, whether it is robust, and its sorted rays
-    (time U[0, 1) in the motion cell)."""
+    (time U[0, 1) in the motion cell, ray masks in the masked main
+    cell)."""
     import chip_smoke as cs
     import embree_tpu_torch as pt
     from embree_tpu_torch import scene as pscene
@@ -234,15 +248,20 @@ def cell(name, n_rays):
     spread = 4 if name == "mixed" else 2
     org = rng.uniform(-spread, spread, (n_rays, 3)).astype(np.float32)
     d = rng.standard_normal((n_rays, 3), dtype=np.float32)
-    if name in ("mixed", "robust"):
+    if name in ("mixed", "robust", "main", "main_masked"):
         if name == "mixed":
             s = cs.mixed_full_scene(pt)
         else:
             from embree_tpu_torch.tools.viewer import sphere_mesh
-            s = pt.Scene(robust=True)
-            s.attach(pt.TriangleGeometry(*sphere_mesh(*MESH)))
+            s = pt.Scene(robust=name == "robust")
+            s.attach(pt.TriangleGeometry(
+                *sphere_mesh(*MESH),
+                mask=0x2 if name == "main_masked" else 0xFFFFFFFF))
         committed = s.commit(device="cuda")
-        rays = pt.make_rays(org, d, device="cuda")
+        rmask = (np.random.default_rng(1).choice(
+            np.array([1, 2, 3], np.uint32), n_rays)
+            if name == "main_masked" else 0xFFFFFFFF)
+        rays = pt.make_rays(org, d, mask=rmask, device="cuda")
     elif name == "motion":
         from embree_tpu_torch.tools.viewer import sphere_mesh
         v, idx = sphere_mesh(*MESH)
@@ -272,66 +291,81 @@ def same(a, b):
                                                 b.attrs.view(torch.int32))))
 
 
+def sweep(name, fns, configs, names, args, card):
+    """Time the cell ``name`` in every configuration; its rows."""
+    packed, robust, x = cell(name, args.rays)
+    n = args.rays
+    rows = []
+    variants = ([v for v in VARIANTS if packed.tri_attrs
+                 or not VARIANTS[v][1]] if args.variants == "all"
+                else args.variants.split(","))
+    for var in variants:
+        occ, attrs = VARIANTS[var]
+        ref = tr.traverse_kernel(packed, *x[:5], occ, attrs, robust,
+                                 time=x[5])
+        times = {c: [] for c in configs}
+        stats = {}
+        for rep in range(REPS + 1):          # round 0 warms up
+            for c in configs:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                res = launch(fns[c], packed, x, occ, attrs, robust)
+                b.record()
+                torch.cuda.synchronize()
+                if int(res.sched[2]) != n or not same(res, ref):
+                    raise AssertionError(f"{c} {var}: outputs differ")
+                if rep:
+                    times[c].append(a.elapsed_time(b))
+                stats[c] = (int(res.sched[1]) / int(res.sched[0]),
+                            int(res.sched[3]),
+                            [int(v) for v in res.leaf_sched])
+                del res
+        for c in configs:
+            ms = statistics.median(times[c])
+            share, warps, leaf = stats[c]
+            rows.append(dict(cell=name, variant=var,
+                             **dict(zip(names, c)), ms=ms,
+                             warps_per_sm=warps,
+                             useful_lane_steps=share, leaf_sched=leaf,
+                             card=card))
+            print(f"{name} {var} "
+                  + " ".join(f"{k} {v}" for k, v in zip(names, c))
+                  + f": {ms:.3f} ms, useful lane-steps {share:.4f}, "
+                  f"{warps} warps per SM [{card}]", flush=True)
+    del packed, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", default="motion", choices=sorted(CELLS))
+    ap.add_argument("--cell", default="motion")
     ap.add_argument("--configs", default=None)
     ap.add_argument("--variants", default="closest")
     ap.add_argument("--rays", type=int, default=1 << 24)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    cells = args.cell.split(",")
+    if not set(cells) <= set(CELLS) or len(
+            {CELLS[c][0] + (CELLS[c][2],) for c in cells}) != 1:
+        ap.error(f"--cell: cells of one family of constants from "
+                 f"{sorted(CELLS)}")
     if not torch.cuda.is_available():
         raise SystemExit("sched_sweep times the card; no CUDA device")
     configs = ([tuple(int(v) for v in c.split(":"))
                 for c in args.configs.split(",")] if args.configs
-               else list(CELLS[args.cell][1]))
-    names = [n for _, n in CELLS[args.cell][0]]
+               else list(CELLS[cells[0]][1]))
+    names = [n for _, n in CELLS[cells[0]][0]]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(args.cell, configs, tmp)
-        packed, robust, x = cell(args.cell, args.rays)
-        n = args.rays
-        rows = []
-        variants = ([v for v in VARIANTS if packed.tri_attrs
-                     or not VARIANTS[v][1]] if args.variants == "all"
-                    else args.variants.split(","))
-        for var in variants:
-            occ, attrs = VARIANTS[var]
-            ref = tr.traverse_kernel(packed, *x[:5], occ, attrs, robust,
-                                     time=x[5])
-            times = {c: [] for c in configs}
-            stats = {}
-            for rep in range(REPS + 1):          # round 0 warms up
-                for c in configs:
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    res = launch(fns[c], packed, x, occ, attrs, robust)
-                    b.record()
-                    torch.cuda.synchronize()
-                    if int(res.sched[2]) != n or not same(res, ref):
-                        raise AssertionError(f"{c} {var}: outputs differ")
-                    if rep:
-                        times[c].append(a.elapsed_time(b))
-                    stats[c] = (int(res.sched[1]) / int(res.sched[0]),
-                                int(res.sched[3]),
-                                [int(v) for v in res.leaf_sched])
-                    del res
-            for c in configs:
-                ms = statistics.median(times[c])
-                share, warps, leaf = stats[c]
-                rows.append(dict(cell=args.cell, variant=var,
-                                 **dict(zip(names, c)), ms=ms,
-                                 warps_per_sm=warps,
-                                 useful_lane_steps=share, leaf_sched=leaf,
-                                 card=card))
-                print(f"{args.cell} {var} "
-                      + " ".join(f"{k} {v}" for k, v in zip(names, c))
-                      + f": {ms:.3f} ms, useful lane-steps {share:.4f}, "
-                      f"{warps} warps per SM [{card}]", flush=True)
+        fns = build(cells[0], configs, tmp)
+        for name in cells:
+            rows += sweep(name, fns, configs, names, args, card)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

@@ -1,13 +1,17 @@
-"""The static robust triangles (B2) and mixed classes (B3-B5) timed over
-many launches, small batches and full size, to hold two trees of the port
-against each other on one card.
+"""The static triangles (B1), robust triangles (B2) and mixed classes
+(B3-B5) timed over many launches, small batches and full size, to hold two
+trees of the port against each other on one card.
 
 Run it from the root of a tree (it takes the scenes from that tree's
 ``chip_smoke.py``), one tree after another in one call, in the order
 A, B, B, A:
 
     python -m embree_tpu_torch.perf.static_batches [--reps 41]
-        [--full-reps 5] [--out file.json]
+        [--full-reps 5] [--cases tri,kinds] [--out file.json]
+
+(``--cases``: only the cases whose label holds one of these words.) A
+tree older than a case's kernel may lack the case: copy this script into
+that tree and run it from there.
 
 Cases, each on the rays sorted as the wrapper hands them to the kernel:
 - the kind check scene of phase 6 of ``chip_smoke.py`` at 65,536 rays, as
@@ -16,13 +20,18 @@ Cases, each on the rays sorted as the wrapper hands them to the kernel:
 - the mixed cell of phase 8 (1,574,400 prims) at 16,777,216 rays from
   U(-4, 4)^3, as is, masked, robust and both;
 - the robust sphere of phase 7 (2,097,152 triangles) at 16,777,216 rays:
+  closest + attrs, closest and occluded;
+- B1: the 16,384-triangle sphere of phase 3 at 65,536 rays, and the main
+  sphere of phase 4 (2,097,152 triangles) at 16,777,216 rays, as is and
+  masked as in phase 4b (geometry mask 0x2, ray masks from {1, 2, 3}):
   closest + attrs, closest and occluded.
 
 Each variant: the median, least and most of ``reps`` launches after one
 warm-up, timed as ``b6_batches`` times them (CUDA events around one
 ``traverse_kernel`` call each), with the card's name and power limit, and
 where the tree's wrapper reports the persistent warps' counts, their
-useful share of lane slots.
+useful share of lane slots (a tree whose B1 runs one ray per thread
+reports none for it).
 """
 from __future__ import annotations
 
@@ -65,6 +74,16 @@ def _robust_sphere(pt, cs):
     return s
 
 
+def _sphere(pt, cs, mesh, masked=False):
+    """The sphere of ``mesh`` in normal mode, with geometry mask 0x2 when
+    ``masked``."""
+    from embree_tpu_torch.tools.viewer import sphere_mesh
+    s = pt.Scene()
+    s.attach(pt.TriangleGeometry(*sphere_mesh(*mesh),
+                                 mask=0x2 if masked else 0xFFFFFFFF))
+    return s
+
+
 def _cases(pt, cs):
     """(label, a function that builds the scene, masked, robust, the
     variants, ray origins' half-width or None for 65,536 incoherent
@@ -80,12 +99,19 @@ def _cases(pt, cs):
                robust, cs.KIND_VARIANTS, 4.0)
     yield ("robust sphere", lambda: _robust_sphere(pt, cs), False, True,
            cs.VARIANTS, 2.0)
+    yield ("tri check sphere", lambda: _sphere(pt, cs, cs.CHECK_MESH), False,
+           False, cs.VARIANTS, None)
+    for masked in (False, True):
+        yield (f"tri main masked={masked}",
+               lambda m=masked: _sphere(pt, cs, cs.MAIN_MESH, m), masked,
+               False, cs.VARIANTS, 2.0)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=41)
     ap.add_argument("--full-reps", type=int, default=5)
+    ap.add_argument("--cases", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -96,7 +122,10 @@ def main(argv=None):
     card = cs.card_line()
     print(card, flush=True)
     rows = []
+    words = args.cases.split(",") if args.cases else None
     for label, scene, masked, robust, variants, spread in _cases(pt, cs):
+        if words and not any(w in label for w in words):
+            continue
         c = scene().commit(device="cuda")
         assert not c.has_motion and not tr.has_curves(c.packed)
         full = spread is not None

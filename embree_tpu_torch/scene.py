@@ -509,7 +509,8 @@ class Scene:
         for gid, g in sorted(self._geoms.items()):
             if getattr(g, "enabled", True):
                 m.add(g, gid)
-        if not m.rows:
+        # geometries with no prims emit blocks of no rows
+        if sum(len(r) for r in m.rows) == 0:
             raise ValueError("commit() on empty scene")
         self.committed = _finalize(
             np.concatenate(m.rows), m.tables(), np.concatenate(m.windows),

@@ -180,7 +180,7 @@ def twin_with(fn, cs, x, occ):
     """The twin entry ``fn`` of a library built from this tree's csrc or a
     copy of it, as ``traverse_twin`` calls it."""
     time = tr._time(cs.packed, x[0], x[5])
-    outs = tr._outputs(x[0].shape[0], x[0].device, False, True,
+    outs = tr._outputs(x[0].shape[0], x[0].device, False,
                        unwritten=True)
     assert fn(*tr._call_args(cs.packed, *x[:5], time, outs, occ, False,
                              cs.robust), tr._ptr(outs[6])) == 0
@@ -239,7 +239,6 @@ def test_every_variant(family, masked, robust, steps, occ):
     (its own persistent kernel: mask, robust, motion and round flags as
     named)."""
     cs = check_scene(family, masked, robust, steps)
-    assert tr.uses_scheduler(cs.packed)
     entry, flags = tr.kernel_instantiation(cs.packed, occ, False, robust)
     assert entry == "persistent_kernel"
     assert flags == (int(occ), 0, int(masked), int(robust), 1,

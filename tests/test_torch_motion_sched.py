@@ -143,7 +143,8 @@ def test_batch_sizes(n, occ, attrs):
     """1, 31, 32, 33 and 4,097 rays on the moving sphere: every ray
     written once, bit-equal to the plain version."""
     cs = sphere_scene()
-    assert tr.uses_scheduler(cs.packed)
+    assert tr.kernel_instantiation(cs.packed, False, False, False)[0] == \
+        "persistent_kernel"
     a, _ = run_both(cs, rays(n, seed=n), occ, attrs)
     if n > 1000:
         assert int((a.best >= 0).sum()) > 100
@@ -210,7 +211,8 @@ def test_kinds_and_windows(name):
     variants at 4,097 rays."""
     from test_torch_motion import build
     cs = build(pt, name, threads=1).commit(device="cpu")
-    assert tr.uses_scheduler(cs.packed)
+    assert tr.kernel_instantiation(cs.packed, False, False, False)[0] == \
+        "persistent_kernel"
     r = rays(4097, seed=11)
     for occ, attrs in VARIANTS:
         if attrs and not cs.packed.tri_attrs:

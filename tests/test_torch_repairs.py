@@ -10,6 +10,11 @@
    JAX brute force does through ``_make_prim_test`` and ``_kind_test``
    (embree_tpu/scene.py:1369-1380, :1505-1528), also on scenes whose
    queries ride the kernel (a chain of thin round lines is packed).
+3. A scene whose geometries hold no prims is empty. ``commit()`` counts
+   the merged rows, as the JAX package does (``m.total() == 0``,
+   embree_tpu/scene.py:285), and raises ``ValueError("commit() on empty
+   scene")``; the port's merger appends a block of no rows for each such
+   geometry, which passed its old check and failed in the native builder.
 
 The JAX side runs in this process: both checks hold the port to a
 tolerance (t within 1e-4 relative), not to the bit.
@@ -140,3 +145,66 @@ def test_brute_force_clips_like_jax():
                                   np.asarray(hj.prim_id)[vj])
     np.testing.assert_allclose(hp.t.numpy()[vj], np.asarray(hj.t)[vj],
                                rtol=1e-4)
+
+
+def _empty(pkg, kind):
+    """One geometry of ``kind`` with no prims, in package ``pkg``."""
+    z = np.zeros
+    return {
+        "triangles": lambda: pkg.TriangleGeometry(
+            z((3, 3), F32), z((0, 3), np.int32)),
+        "quads": lambda: pkg.QuadGeometry(z((4, 3), F32), z((0, 4), np.int32)),
+        "points": lambda: pkg.PointGeometry(z((0, 4), F32), kind="sphere"),
+        "lines": lambda: pkg.LineSegmentsGeometry(
+            z((2, 4), F32), z((0,), np.int32), kind="round"),
+        "curves": lambda: pkg.CurveGeometry(
+            z((4, 4), F32), z((0,), np.int32), basis="bezier", kind="flat"),
+    }[kind]()
+
+
+EMPTY_KINDS = ("triangles", "quads", "points", "lines", "curves")
+
+
+@pytest.mark.parametrize("kind", EMPTY_KINDS)
+def test_empty_geometry_alone_raises(kind):
+    """Repair 3: a scene of one empty geometry of each packed kind raises
+    ValueError in both packages."""
+    _, et = _jax()
+    for pkg, kw in ((et, {}), (pt, {"device": "cpu"})):
+        s = pkg.Scene()
+        s.attach(_empty(pkg, kind))
+        with pytest.raises(ValueError, match="empty scene"):
+            s.commit(**kw)
+
+
+@pytest.mark.parametrize("kind", EMPTY_KINDS)
+def test_empty_geometry_beside_mesh(kind):
+    """Repair 3: an empty geometry of each packed kind beside a triangle
+    sphere commits in both packages, and 256 rays hit alike: hit masks,
+    prim and geometry ids equal, t within 1e-4 relative."""
+    jax, et = _jax()
+    import jax.numpy as jnp
+    from embree_tpu_torch.tools.viewer import sphere_mesh
+    v, idx = sphere_mesh(8, 12)
+    rng = np.random.default_rng(33)
+    org = rng.uniform(-2, 2, (256, 3)).astype(F32)
+    d = (rng.uniform(-0.5, 0.5, (256, 3)) - org).astype(F32)
+    out = []
+    for pkg in (et, pt):
+        s = pkg.Scene()
+        s.attach(_empty(pkg, kind))
+        s.attach(pkg.TriangleGeometry(v, idx))
+        if pkg is et:
+            h = jax.jit(et.intersect)(s.commit(), et.make_rays(
+                jnp.asarray(org), jnp.asarray(d)))
+        else:
+            h = pt.intersect(s.commit(device="cpu"),
+                             pt.make_rays(org, d, device="cpu"))
+        out.append([np.asarray(getattr(h, f)) for f in
+                    ("valid", "t", "prim_id", "geom_id")])
+    (vj, tj, pj, gj), (vp, tp, pp, gp) = out
+    assert vj.sum() > 100
+    np.testing.assert_array_equal(vp, vj)
+    np.testing.assert_array_equal(pp[vj], pj[vj])
+    np.testing.assert_array_equal(gp[vj], gj[vj])
+    np.testing.assert_allclose(tp[vj], tj[vj], rtol=1e-4)

@@ -1,7 +1,7 @@
-"""The static robust triangles (B2) and mixed classes (B3-B5) on persistent
-warps, through the kernel's g++ twin.
+"""The static triangles (B1), robust triangles (B2) and mixed classes
+(B3-B5) on persistent warps, through the kernel's g++ twin.
 
-On the card these 14 instantiations run persistent warps (``run_warp`` in
+On the card these 20 instantiations run persistent warps (``run_warp`` in
 ``csrc/traverse.cuh``): lanes refilled from a global ray counter as their
 rays finish, leaves postponed until enough lanes wait at one, and a leaf
 pass of their own (``static_pass``) that deals the waiting lanes' (ray,
@@ -12,11 +12,12 @@ equal the plain version's bit for bit) and written once (the
 rays-finished count equals the batch), and that the lane steps the
 scheduler counted are the rays' steps:
 
-- batches of 1, 31, 32, 33 and 4,097 rays in each of the 14
+- batches of 1, 31, 32, 33 and 4,097 rays in each of the 20
   instantiations: mixed classes {closest, occluded} x {mask chunk or not}
-  x {robust or not} on the kind check scene of test_torch_kinds.py, robust
+  x {robust or not} on the kind check scene of test_torch_kinds.py,
   triangles {closest + attrs, closest, occluded} x {mask chunk or not} on
-  its robust sphere (a second, smaller sphere with mask 0x2 when masked);
+  its sphere, robust (B2) and in normal mode (B1; a Moeller leaf), with a
+  second, smaller sphere with mask 0x2 when masked;
 - batches of dead rays only;
 - a scene of small prims of every class scattered through one box, so
   that its leaves mix classes and one round of items runs several class
@@ -52,10 +53,12 @@ SIZES = (1, 31, 32, 33, 4097)
 BIG = SIZES[-1]
 FLAGS = [(m, r) for m in (False, True) for r in (False, True)]
 TRI_VARIANTS = ((False, True), (False, False), (True, False))  # (occ, attrs)
-# the 14 instantiations: (family, masked, robust, occ, attrs)
+# the 20 instantiations: (family, masked, robust, occ, attrs)
 INSTANTIATIONS = ([("kinds", m, r, occ, False) for m, r in FLAGS
                    for occ in (False, True)]
                   + [("robust", m, True, occ, attrs) for m in (False, True)
+                     for occ, attrs in TRI_VARIANTS]
+                  + [("tri", m, False, occ, attrs) for m in (False, True)
                      for occ, attrs in TRI_VARIANTS])
 
 
@@ -78,10 +81,10 @@ def kinds_scene(masked=False, robust=False, device="cpu"):
     return s.commit(device=device)
 
 
-def robust_scene(masked=False, device="cpu"):
-    """The robust sphere_mesh(16, 24); ``masked``: a second, smaller sphere
-    inside it with mask 0x2."""
-    s = pt.Scene(robust=True)
+def sphere_scene(masked=False, robust=True, device="cpu"):
+    """sphere_mesh(16, 24), robust or in normal mode; ``masked``: a second,
+    smaller sphere inside it with mask 0x2."""
+    s = pt.Scene(robust=robust)
     for g in robust_geoms(pt):
         s.attach(g)
     if masked:
@@ -130,8 +133,10 @@ SCENES = {
     ("kinds", True, False): lambda d="cpu": kinds_scene(True, False, d),
     ("kinds", False, True): lambda d="cpu": kinds_scene(False, True, d),
     ("kinds", True, True): lambda d="cpu": kinds_scene(True, True, d),
-    ("robust", False, True): lambda d="cpu": robust_scene(False, d),
-    ("robust", True, True): lambda d="cpu": robust_scene(True, d),
+    ("robust", False, True): lambda d="cpu": sphere_scene(False, True, d),
+    ("robust", True, True): lambda d="cpu": sphere_scene(True, True, d),
+    ("tri", False, False): lambda d="cpu": sphere_scene(False, False, d),
+    ("tri", True, False): lambda d="cpu": sphere_scene(True, False, d),
     ("scattered", False, False): scattered_scene,
 }
 _scenes, _plain = {}, {}
@@ -206,7 +211,7 @@ def twin(key, x, occ, attrs, fn=None):
     cs = scene(key)
     if fn is None:
         return tr.traverse_twin(cs.packed, *x, occ, attrs, cs.robust)
-    outs = tr._outputs(x[0].shape[0], x[0].device, attrs, True,
+    outs = tr._outputs(x[0].shape[0], x[0].device, attrs,
                        unwritten=True)
     assert fn(*tr._call_args(cs.packed, *x, None, outs, occ, attrs,
                              cs.robust), tr._ptr(outs[6])) == 0
@@ -229,13 +234,12 @@ def run_both(key, n, occ, attrs, fn=None):
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("family,masked,robust,occ,attrs", INSTANTIATIONS)
 def test_batch_sizes(family, masked, robust, occ, attrs, n):
-    """Each of the 14 instantiations (its own persistent kernel) at 1, 31,
+    """Each of the 20 instantiations (its own persistent kernel) at 1, 31,
     32, 33 and 4,097 rays: every ray written once, bit-equal to the plain
     version."""
     key = (family, masked, robust)
     cs = scene(key)
     assert cs.packed.has_mask == masked and cs.robust == robust
-    assert tr.uses_scheduler(cs.packed, robust)
     entry, flags = tr.kernel_instantiation(cs.packed, occ, attrs, robust)
     assert entry == "persistent_kernel"
     assert flags == (int(occ), int(attrs), int(masked), int(robust),
@@ -245,23 +249,11 @@ def test_batch_sizes(family, masked, robust, occ, attrs, n):
         assert int((a.best >= 0).sum()) > 200
 
 
-def test_triangles_stay_one_ray_per_thread():
-    """Static triangles in normal mode (B1) keep the one-ray-per-thread
-    kernel, with no work counts."""
-    s = pt.Scene()
-    for g in robust_geoms(pt):
-        s.attach(g)
-    cs = s.commit(device="cpu")
-    assert not tr.uses_scheduler(cs.packed)
-    assert tr.kernel_instantiation(cs.packed, False, True, False) == (
-        "traverse_kernel", (0, 1, 0, 0, 0, 0))
-    x = inputs(rays(64))
-    assert tr.traverse_twin(cs.packed, *x, False, True).sched is None
-
-
 @pytest.mark.parametrize("key", [("kinds", False, False),
                                  ("kinds", True, True),
-                                 ("robust", True, True)])
+                                 ("robust", True, True),
+                                 ("tri", False, False),
+                                 ("tri", True, False)])
 def test_dead_rays_only(key):
     """A batch of dead rays (tnear > tfar, and ray mask 0 where the scene
     has no mask chunk) ends before any step: every ray written with tfar,
@@ -346,16 +338,18 @@ def twin_forms(tmp):
 
 def test_design_forms(tmp_path):
     """Refills at 1, 8 and 32 idle lanes and leaf passes at 1, 8 and 32
-    waiting lanes: the same bits as the plain version on the masked robust mixed
-    scene, the scattered scene and the masked robust sphere, with the
-    counts as check_counts holds them."""
+    waiting lanes: the same bits as the plain version on the masked robust
+    mixed scene, the scattered scene, the masked robust sphere and the
+    masked sphere in normal mode, with the counts as check_counts holds
+    them."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     fns = twin_forms(str(tmp_path))
     for key, variants in ((("kinds", True, True), ((False, False),
                                                    (True, False))),
                           (("scattered", False, False), ((False, False),)),
-                          (("robust", True, True), TRI_VARIANTS)):
+                          (("robust", True, True), TRI_VARIANTS),
+                          (("tri", True, False), TRI_VARIANTS)):
         for fn in fns.values():
             for occ, attrs in variants:
                 run_both(key, 1025, occ, attrs, fn=fn)
@@ -363,7 +357,7 @@ def test_design_forms(tmp_path):
 
 @pytest.mark.cuda
 def test_static_scheduler_on_card():
-    """On an NVIDIA GPU: the 14 instantiations and the scattered scene at
+    """On an NVIDIA GPU: the 20 instantiations and the scattered scene at
     4,097 rays and at twice as many rays as an SM's thread limit over all
     SMs allows lanes (so every warp refills); bit-equal to the plain
     version, every ray finished once."""
@@ -374,7 +368,7 @@ def test_static_scheduler_on_card():
     big = 2 * lanes + 33
     for key, make in SCENES.items():
         cs = make("cuda")
-        variants = (TRI_VARIANTS if key[0] == "robust"
+        variants = (TRI_VARIANTS if key[0] in ("robust", "tri")
                     else ((False, False), (True, False)))
         for n in (BIG, big):
             x = [t.cuda() for t in inputs(rays(n, seed=n, masked=key[1]))]
