@@ -129,9 +129,31 @@ Hopper traversal kernel against its plain PyTorch version:
    probe timed below it fails the run: its loop was folded; a fold too
    small to take it below is not caught), registers and stack frame, and
    the plain version's time at 64 iterations;
-20. the kernels line, then the result line.
+20. the builders on the card (the default route sends every scene under
+   50,000 prims through the SAH builder, as the JAX package does):
+   sphere_mesh(128, 192), 49,152 triangles, committed at MEDIUM and LOW
+   on the card, each tree and packed table equal to the CPU build's node
+   for node; B1's three variants driven through the entry points at
+   16,777,216 rays and held against the plain version on 65,536 of them;
+   hit masks equal to the native-route commit's and t bit-equal wherever
+   both give the same prim; commit seconds, sah_cost and kernel ms on both
+   trees. Then the 2,097,152-triangle main sphere on the SAH route
+   (EMBREE_TPU_NATIVE_BUILD=0 for that commit) against its native tree:
+   commit seconds, sah_cost, B1's ms at 16,777,216 rays, equal hit masks.
+   REFIT: the main sphere shifted 0.25 along x and re-committed, the tree
+   refit on the card with its topology kept, its hits against a fresh
+   commit's; HIGH: 32,768 diagonal slivers, pre-split, at a lower SAH cost
+   than MEDIUM with the same hit masks;
+21. the rest of Scene on the card: the main sphere committed compact, whose
+   differentiable intersect takes B1's attribute path and equals the
+   non-compact fast path bit for bit (both scenes' sizes in MB); a filter
+   rejecting odd prim ids in both contexts and 65,536 user spheres, each
+   through the generic engine at 1,048,576 rays and held against brute
+   force on a sample; the progress monitor's milestones, a cancel raising
+   CommitCancelled and a commit after it;
+22. the kernels line, then the result line.
 
-Launch counts are zeroed just before each driven path (4-19) and read just
+Launch counts are zeroed just before each driven path (4-21) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -144,6 +166,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -285,6 +308,15 @@ MICRO_REPLACES = {"micro_ops": "perf/micro_ops.py:41",
 MICRO_CHECK_ITERS = (64, 67)
 MICRO_LONG_ITERS = 1000
 MICRO_PLAIN_ITERS = 64
+# phases 20-21, the builders and the rest of Scene
+BUILD_MESH = (128, 192)      # 49,152 tris: the SAH route's largest sphere
+BUILD_COMPARE = 1 << 16
+REFIT_SHIFT = 0.25           # the main sphere moved along x
+SLIVERS = 32768              # tests/test_sah.py:104-127's slivers, scaled
+SLIVER_RAYS = 1 << 16
+ENGINE_SCENE_RAYS = 1 << 20  # the filter and user-geometry scenes' rays
+USER_SPHERES = 1 << 16
+BRUTE_SAMPLE = 64
 
 
 def say(*a):
@@ -2206,6 +2238,410 @@ def phase_micro(record, ptx):
                   f"{bound:.4f} ms: the loop was folded away")
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21: the builders and the rest of Scene
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def build_route(flag):
+    """EMBREE_TPU_NATIVE_BUILD set to ``flag`` for the commits inside."""
+    old = os.environ.get("EMBREE_TPU_NATIVE_BUILD")
+    os.environ["EMBREE_TPU_NATIVE_BUILD"] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("EMBREE_TPU_NATIVE_BUILD")
+        else:
+            os.environ["EMBREE_TPU_NATIVE_BUILD"] = old
+
+
+def tri_scene(pt, verts, idx, **kw):
+    s = pt.Scene(**kw)
+    s.attach(pt.TriangleGeometry(verts, idx))
+    return s
+
+
+def slivers(n, seed=9):
+    """Long diagonal slivers (tests/test_sah.py:104-127)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    v1 = starts + np.float32(4.0)
+    v2 = v1 + rng.uniform(0.01, 0.02, (n, 3)).astype(np.float32)
+    idx = np.stack([np.arange(n), np.arange(n) + n, np.arange(n) + 2 * n],
+                   axis=1).astype(np.int32)
+    return np.concatenate([starts, v1, v2]), idx
+
+
+def b1_ms(tr, packed, inputs):
+    """Each B1 variant's kernel time on the sorted rays (CUDA events)."""
+    return {name: events_ms(lambda o=o, a=a: run_kernel(
+        tr, packed, inputs, occlusion=o, want_attrs=a))
+        for name, o, a in VARIANTS}
+
+
+def drive_b1(pt, tr, cs, rays, label):
+    """The three entry points on cs, launch counts zeroed just before and
+    read just after; every B1 variant must run. Returns the fast path's
+    hits."""
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    check(all(launches.get(n, 0) > 0 for n, _, _ in VARIANTS),
+          f"{label}: the path did not launch every B1 variant")
+    check(torch.equal(hd.valid, hit.valid) and torch.equal(hd.t, hit.t),
+          f"{label}: the two intersect modes disagree")
+    check(torch.equal(occ, hit.valid), f"{label}: occluded disagrees")
+    say(f"  {label}: launches {launches}; {int(hit.valid.sum())} hits")
+    return hit
+
+
+def same_hits(a, b, label):
+    """Equal hit masks, and t bit-equal wherever both hit the same prim."""
+    check(torch.equal(a.valid, b.valid), f"{label}: hit masks differ")
+    same = a.valid & (a.prim_id == b.prim_id)
+    check(torch.equal(a.t[same].view(torch.int32),
+                      b.t[same].view(torch.int32)),
+          f"{label}: t differs on the same prim")
+    share = int(same.sum()) / max(int(a.valid.sum()), 1)
+    say(f"  {label}: hit masks equal; {share:.6f} of the hits on the same "
+        "prim, t bit-equal there")
+    return share
+
+
+def trees_equal(a, b):
+    """Two BVHs (or packed tables) equal node for node, floats by bits."""
+    for k in ("node_lower", "node_upper", "node_child", "prim_order"):
+        x, y = getattr(a.bvh, k).cpu(), getattr(b.bvh, k).cpu()
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return all(torch.equal(getattr(a.packed, k).cpu(),
+                           getattr(b.packed, k).cpu())
+               for k in ("nodes", "leaves", "pid_map"))
+
+
+def tri_bounds(verts, idx):
+    """The triangles' bounds on the card, as commit computes them."""
+    tri = torch.as_tensor(verts[idx], device=DEV)
+    return tri.amin(1), tri.amax(1)
+
+
+def build_s(lo, up, top_levels):
+    """Seconds of build_sah + collapse alone on the card (host clock after
+    a synchronize): the builder's share of a commit."""
+    from embree_tpu_torch.accel.collapse import collapse
+    from embree_tpu_torch.accel.sah import build_sah
+    ms, _ = host_ms(lambda: collapse(build_sah(
+        lo, up, leaf_size=8, max_top_levels=top_levels), 8))
+    return ms / 1e3
+
+
+def phase_builders(pt, tr, sphere_mesh, out):
+    from embree_tpu_torch.accel.bvh import sah_cost
+    from embree_tpu_torch.accel.refit import refit_bvh
+    say("phase 20: the builders on the card")
+    t_phase = time.perf_counter()
+    card = card_line()
+    out["card"] = card
+
+    # ---- the default route's largest sphere, MEDIUM and LOW ----
+    verts, idx = sphere_mesh(*BUILD_MESH)
+    org, d = incoherent_rays(MAIN_RAYS, 3)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    inputs = sorted_inputs(tr, rays)
+    with build_route("1"):
+        native, native_s = commit_timed(tri_scene(pt, verts, idx),
+                                        "native route")
+    native_hit = pt.intersect(native, rays, differentiable=False)
+    native_ms = b1_ms(tr, native.packed, inputs)
+    native_cost = float(sah_cost(native.bvh))
+    for quality in ("MEDIUM", "LOW"):
+        q = getattr(pt.BuildQuality, quality)
+        with build_route("auto"):
+            cs, secs = commit_timed(tri_scene(pt, verts, idx, quality=q),
+                                    f"default route, {quality}")
+            check(cs.bvh.n_nodes > cs.packed.nodes.shape[0],
+                  f"{quality}: not built by the SAH builder")
+            t0 = time.perf_counter()
+            cpu = tri_scene(pt, verts, idx, quality=q).commit(device="cpu")
+            cpu_s = time.perf_counter() - t0
+        check(trees_equal(cs, cpu), f"{quality}: the card's tree differs "
+              "from the CPU's")
+        say(f"  {quality}: the card's tree and packed table == the CPU "
+            f"build's ({cs.bvh.n_nodes} binary rows, "
+            f"{cs.packed.nodes.shape[0]} wide nodes; CPU commit "
+            f"{cpu_s:.3f} s)")
+        hit = drive_b1(pt, tr, cs, rays, f"{quality} SAH tree")
+        share = same_hits(hit, native_hit, f"{quality} SAH vs native")
+        for name, o, a in VARIANTS:
+            compare(tr, cs.packed, inputs, BUILD_COMPARE, o, a,
+                    f"{name} ({quality} SAH tree)")
+        ms = b1_ms(tr, cs.packed, inputs)
+        cost = float(sah_cost(cs.bvh))
+        alone = build_s(*tri_bounds(verts, idx), 16 if quality == "MEDIUM"
+                        else 0)
+        say(f"  {quality}: build_sah + collapse alone {alone:.3f} s; "
+            f"commit {secs:.3f} s (native {native_s:.3f} s); "
+            f"sah_cost {cost:.4f} (native {native_cost:.4f}); B1 ms "
+            + ", ".join(f"{n} {ms[n]:.3f} (native {native_ms[n]:.3f})"
+                        for n in ms) + f"; {card}")
+        out[f"sphere49k_{quality}"] = dict(
+            commit_s=secs, native_commit_s=native_s, cpu_commit_s=cpu_s,
+            build_s=alone,
+            sah_cost=cost, native_sah_cost=native_cost, ms=ms,
+            native_ms=native_ms, same_prim_share=share)
+        del cs, cpu, hit
+    del native, native_hit, rays, inputs
+    torch.cuda.empty_cache()
+
+    # ---- the SAH builder at scale: the main sphere ----
+    verts, idx = sphere_mesh(*MAIN_MESH)
+    org, d = incoherent_rays(MAIN_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    inputs = sorted_inputs(tr, rays)
+    with build_route("1"):
+        native, native_s = commit_timed(tri_scene(pt, verts, idx),
+                                        "main sphere, native route")
+    with build_route("0"):
+        sah, sah_s = commit_timed(tri_scene(pt, verts, idx),
+                                  "main sphere, SAH route")
+    hit_s = drive_b1(pt, tr, sah, rays, "main sphere SAH tree")
+    hit_n = pt.intersect(native, rays, differentiable=False)
+    share = same_hits(hit_s, hit_n, "main sphere SAH vs native")
+    ms_s, ms_n = b1_ms(tr, sah.packed, inputs), b1_ms(tr, native.packed,
+                                                         inputs)
+    c_s, c_n = float(sah_cost(sah.bvh)), float(sah_cost(native.bvh))
+    lo, up = tri_bounds(verts, idx)
+    alone = build_s(lo, up, 16)
+    say(f"  main sphere: build_sah + collapse alone {alone:.3f} s; "
+        f"SAH commit {sah_s:.3f} s, native {native_s:.3f} s;"
+        f" sah_cost SAH {c_s:.4f}, native {c_n:.4f}; B1 ms "
+        + ", ".join(f"{n} SAH {ms_s[n]:.3f} native {ms_n[n]:.3f}"
+                    for n in ms_s) + f"; {card}")
+    out["main_sah"] = dict(commit_s=sah_s, native_commit_s=native_s,
+                           build_s=alone,
+                           sah_cost=c_s, native_sah_cost=c_n, ms=ms_s,
+                           native_ms=ms_n, same_prim_share=share)
+    del sah, hit_s, hit_n, inputs
+    torch.cuda.empty_cache()
+
+    # ---- REFIT: the main sphere moved, its tree refit on the card ----
+    s = tri_scene(pt, verts, idx, quality=pt.BuildQuality.REFIT)
+    cs0, full_s = commit_timed(s, "REFIT scene, first commit (a build)")
+    moved = verts + np.array([REFIT_SHIFT, 0, 0], np.float32)
+    s.get(0).vertices = moved
+    cs1, refit_s = commit_timed(s, "REFIT re-commit (the refit)")
+    check(torch.equal(cs0.bvh.node_child, cs1.bvh.node_child),
+          "REFIT changed the topology")
+    lo, up = tri_bounds(moved, idx)
+    refit_ms, _ = host_ms(lambda: refit_bvh(cs0.bvh, lo, up))
+    del cs0, native
+    fresh, _ = commit_timed(tri_scene(pt, moved, idx), "moved, fresh")
+    tr.reset_launch_counts()
+    hit_r = pt.intersect(cs1, rays, differentiable=False)
+    torch.cuda.synchronize()
+    check(tr.LAUNCHES.get("closest_attrs", 0) > 0, "REFIT: no B1 launch")
+    hit_f = pt.intersect(fresh, rays, differentiable=False)
+    share = same_hits(hit_r, hit_f, "REFIT vs a fresh commit")
+    say(f"  REFIT: re-commit {refit_s:.3f} s (refit_bvh alone "
+        f"{refit_ms / 1e3:.3f} s) against the full build's {full_s:.3f} s; "
+        f"{card}")
+    out["refit"] = dict(refit_s=refit_s, build_s=full_s,
+                        refit_alone_s=refit_ms / 1e3,
+                        same_prim_share=share)
+    del cs1, fresh, hit_r, hit_f, rays
+    torch.cuda.empty_cache()
+
+    # ---- HIGH: pre-split slivers ----
+    verts, idx = slivers(SLIVERS)
+    org, d = incoherent_rays(SLIVER_RAYS, 12)
+    rays = pt.make_rays(org * np.float32(1.5), d, device=DEV)
+    trees = {}
+    for quality in ("MEDIUM", "HIGH"):
+        with build_route("auto"):
+            cs, secs = commit_timed(tri_scene(
+                pt, verts, idx, quality=getattr(pt.BuildQuality, quality)),
+                f"slivers, {quality}")
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays, differentiable=False)
+        torch.cuda.synchronize()
+        check(tr.LAUNCHES.get("closest_attrs", 0) > 0,
+              f"slivers {quality}: no B1 launch")
+        trees[quality] = (cs, secs, float(sah_cost(cs.bvh)), hit)
+    (med, med_s, c_med, h_med), (high, high_s, c_high, h_high) = (
+        trees["MEDIUM"], trees["HIGH"])
+    check(c_high < c_med, f"HIGH sah_cost {c_high} !< MEDIUM {c_med}")
+    check(torch.equal(h_high.valid, h_med.valid),
+          "slivers: HIGH and MEDIUM hit masks differ")
+    check(torch.allclose(h_high.t[h_med.valid], h_med.t[h_med.valid],
+                         rtol=1e-5), "slivers: HIGH and MEDIUM hit t differ")
+    say(f"  slivers: {high.bvh.n_prims} refs for {med.num_prims} prims; "
+        f"sah_cost HIGH {c_high:.4f} < MEDIUM {c_med:.4f}; commits "
+        f"{high_s:.3f} / {med_s:.3f} s; {int(h_med.valid.sum())} hits, "
+        "masks equal, t within 1e-5")
+    out["high"] = dict(sah_cost=c_high, medium_sah_cost=c_med,
+                       commit_s=high_s, medium_commit_s=med_s,
+                       refs=int(high.bvh.n_prims))
+    del trees, med, high, h_med, h_high
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 20 took {out['phase_s']:.1f} s")
+
+
+def scene_mb(cs):
+    """Bytes of every tensor of a committed scene, in MB."""
+    n = 0
+    for f in dataclasses.fields(cs):
+        x = getattr(cs, f.name)
+        for y in ((x.nodes, x.leaves, x.pid_map) if f.name == "packed"
+                  and x is not None else
+                  (x.node_lower, x.node_upper, x.node_child, x.prim_order)
+                  if f.name == "bvh" else (x,)):
+            if isinstance(y, torch.Tensor):
+                n += y.numel() * y.element_size()
+    return n / 1e6
+
+
+def user_spheres(n, seed=5):
+    """n small spheres in the ray box: (centers, radii, intersect_fn) on
+    the card; the function is the UserGeometry callback."""
+    rng = np.random.default_rng(seed)
+    c = torch.tensor(rng.uniform(-2, 2, (n, 3)), dtype=torch.float32,
+                     device=DEV)
+    r = torch.tensor(rng.uniform(0.01, 0.03, n), dtype=torch.float32,
+                     device=DEV)
+
+    def fn(didx, org, dir, tnear, tfar):
+        oc = org - c[didx]
+        rr = r[didx]
+        a = (dir * dir).sum(-1)
+        b = (oc * dir).sum(-1)
+        disc = b * b - a * ((oc * oc).sum(-1) - rr * rr)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0, t1 = (-b - sq) / a, (-b + sq) / a
+        t = torch.where(t0 >= tnear, t0, t1)
+        hit = (disc >= 0) & (t >= tnear) & (t <= tfar)
+        ng = oc + dir * t[..., None]
+        return hit, t, torch.zeros_like(t), torch.zeros_like(t), ng
+    return c, r, fn
+
+
+def engine_vs_brute(pt, cs, rays, label):
+    """The generic engine's intersect and occluded on the rays (host ms),
+    held against brute force on the first BRUTE_SAMPLE of them."""
+    ms_i, h = host_ms(lambda: pt.intersect(cs, rays))
+    ms_o, occ = host_ms(lambda: pt.occluded(cs, rays))
+    check(torch.equal(occ, h.valid), f"{label}: occluded != intersect")
+    sub = pt.RayBatch(*(getattr(rays, f)[:BRUTE_SAMPLE] for f in
+                        ("org", "dir", "tnear", "tfar", "time", "mask")))
+    hb = pt.intersect_brute(cs, sub, chunk=1 << 12)
+    hk = pt.intersect(cs, sub)
+    check(torch.equal(hb.valid, hk.valid), f"{label}: brute masks differ")
+    m = hb.valid
+    check(torch.allclose(hb.t[m], hk.t[m], rtol=1e-6),
+          f"{label}: brute t differs")
+    check(bool((hb.prim_id[m] == hk.prim_id[m]).float().mean() > 0.95),
+          f"{label}: brute prims differ")
+    say(f"  {label}: {int(h.valid.sum())} of {rays.shape[0]} rays hit; "
+        f"intersect {ms_i:.1f} ms, occluded {ms_o:.1f} ms (host clock); "
+        f"brute force on {BRUTE_SAMPLE} rays: {int(m.sum())} hits, equal")
+    return h, ms_i, ms_o
+
+
+def phase_scene_api(pt, tr, sphere_mesh, out):
+    say("phase 21: the rest of Scene on the card")
+    t_phase = time.perf_counter()
+    card = out.get("card") or card_line()
+    verts, idx = sphere_mesh(*MAIN_MESH)
+    org, d = incoherent_rays(MAIN_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+
+    # ---- compact: B1's attributes serve the differentiable intersect ----
+    base, _ = commit_timed(tri_scene(pt, verts, idx), "main sphere")
+    comp, _ = commit_timed(tri_scene(pt, verts, idx, compact=True),
+                           "main sphere, compact")
+    check(comp.compact and comp.tri_v0.shape[0] == 0,
+          "compact: triangle tables kept")
+    tr.reset_launch_counts()
+    hc = pt.intersect(comp, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    check(launches.get("closest_attrs", 0) > 0 and
+          launches.get("closest", 0) == 0,
+          f"compact: not B1's attribute path ({launches})")
+    hb = pt.intersect(base, rays, differentiable=False)
+    for f in ("t", "u", "v", "ng", "prim_id", "geom_id", "inst_id"):
+        x, y = getattr(hc, f), getattr(hb, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        check(torch.equal(x, y), f"compact: {f} differs")
+    mb_c, mb_b = scene_mb(comp), scene_mb(base)
+    say(f"  compact: launches {launches}; intersect == the fast path of the "
+        f"full scene bit for bit; {mb_c:.1f} MB against {mb_b:.1f} MB")
+    out["compact"] = dict(mb=mb_c, full_mb=mb_b)
+    del base, comp, hc, hb
+    torch.cuda.empty_cache()
+
+    # ---- a filter rejecting odd prim ids, both contexts ----
+    sub = pt.RayBatch(*(getattr(rays, f)[:ENGINE_SCENE_RAYS] for f in
+                        ("org", "dir", "tnear", "tfar", "time", "mask")))
+    del rays
+    s = tri_scene(pt, verts, idx)
+    s.get(0).filter = (lambda org, dir, t, u, v, ng, prim_id, geom_id:
+                       prim_id % 2 == 0)
+    cs, secs = commit_timed(s, "main sphere, odd prims filtered")
+    check(cs.packed is None, "a filter scene has a packed table")
+    h, ms_i, ms_o = engine_vs_brute(pt, cs, sub, "filter")
+    check(bool((h.prim_id[h.valid] % 2 == 0).all()),
+          "filter: an odd prim was hit")
+    out["filter"] = dict(intersect_ms=ms_i, occluded_ms=ms_o, rays=
+                         ENGINE_SCENE_RAYS, commit_s=secs)
+    del cs, h
+    torch.cuda.empty_cache()
+
+    # ---- user geometry: spheres with a torch intersect function ----
+    c, r, fn = user_spheres(USER_SPHERES)
+    s = pt.Scene()
+    s.attach(pt.UserGeometry(
+        bounds_lower=(c - r[:, None]).cpu().numpy(),
+        bounds_upper=(c + r[:, None]).cpu().numpy(), intersect_fn=fn))
+    cs, secs = commit_timed(s, "user spheres")
+    h, ms_i, ms_o = engine_vs_brute(pt, cs, sub, "user spheres")
+    check(int(h.valid.sum()) > ENGINE_SCENE_RAYS // 100,
+          "user spheres: too few hits")
+    out["user"] = dict(intersect_ms=ms_i, occluded_ms=ms_o,
+                       rays=ENGINE_SCENE_RAYS, commit_s=secs)
+    del cs, h, sub
+
+    # ---- the progress monitor ----
+    s = tri_scene(pt, *sphere_mesh(*BUILD_MESH))
+    seen = []
+    s.set_progress_monitor(lambda f: (seen.append(f), True)[1])
+    s.commit(device=DEV)
+    check(seen == [0.0, 0.25, 0.5, 0.8, 1.0], f"milestones {seen}")
+    s.set_progress_monitor(lambda f: f < 0.4)
+    try:
+        s.commit(device=DEV)
+        check(False, "a vetoed commit went through")
+    except pt.CommitCancelled:
+        pass
+    s.set_progress_monitor(None)
+    check(s.commit(device=DEV).num_prims == 2 * BUILD_MESH[0] * BUILD_MESH[1],
+          "no commit after a cancel")
+    say(f"  progress: {seen}; a veto at 0.5 raised CommitCancelled; the "
+        "scene committed afterwards")
+    out["phase21_s"] = time.perf_counter() - t_phase
+    say(f"  phase 21 took {out['phase21_s']:.1f} s; {card}")
+
+
 def kernel_entries(record, errs):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it."""
@@ -2312,11 +2748,15 @@ def main():
     phase_ablations(pt, tr, record,
                     ptxas_info(ptxas_ablate, r"(v[57])_kernelILi(\d+)E"))
     phase_micro(record, micro_ptx)
+    builders = {}
+    phase_builders(pt, tr, sphere_mesh, builders)
+    phase_scene_api(pt, tr, sphere_mesh, builders)
 
     kernels = kernel_entries(record, errs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
+                   "builders": builders,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

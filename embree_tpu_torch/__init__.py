@@ -8,27 +8,31 @@ unless the caller passes ``device="cpu"``; on the CPU every kernel is replaced
 by its plain PyTorch version.
 
 The port covers scenes of triangles, quads, points (sphere, disc, oriented
-disc), line segments (round, flat) and cubic curves of every basis (flat,
+disc), line segments (round, flat), cubic curves of every basis (flat,
 round, oriented and distance native curves; tessellated curves as line
-segments), static or moving, in normal and robust mode, with min-width:
-Scene -> commit (native BVH8 build + record packing) -> intersect /
-occluded -> HitBatch, and the viewer. Scenes the traversal kernel serves
-run it; the others run the generic engine (accel/traverse_generic.py).
+segments) and user geometry, static or moving, in normal and robust mode,
+with min-width, intersection filters and compact scenes: Scene -> commit
+(a BVH8 build on the JAX package's route: the binned-SAH builder on the
+device below 50,000 prims, the native builder above; HIGH pre-splits,
+REFIT refits; then record packing) -> intersect / occluded -> HitBatch, and
+the viewer. Scenes the traversal kernel serves run it; the others run the
+generic engine (accel/traverse_generic.py).
 
 The package imports torch and numpy, never jax, and nothing of embree_tpu.
 """
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, make_rays, select_hits)
 from .geometry import (CurveGeometry, GeometryBase, LineSegmentsGeometry,
-                       PointGeometry, QuadGeometry, TriangleGeometry)
-from .scene import (BuildQuality, CommittedScene, Scene, from_arrays,
-                    intersect, intersect_brute, occluded)
+                       PointGeometry, QuadGeometry, TriangleGeometry,
+                       UserGeometry)
+from .scene import (BuildQuality, CommitCancelled, CommittedScene, Scene,
+                    from_arrays, intersect, intersect_brute, occluded)
 
 __all__ = [
-    "BuildQuality", "CommittedScene", "CurveGeometry", "GeometryBase",
-    "HitBatch",
+    "BuildQuality", "CommitCancelled", "CommittedScene", "CurveGeometry",
+    "GeometryBase", "HitBatch",
     "INVALID_ID", "LineSegmentsGeometry", "MAX_INSTANCE_LEVELS",
     "PointGeometry", "QuadGeometry", "RayBatch", "Scene", "TriangleGeometry",
-    "from_arrays", "intersect", "intersect_brute",
+    "UserGeometry", "from_arrays", "intersect", "intersect_brute",
     "make_miss_hits", "make_rays", "occluded", "select_hits",
 ]

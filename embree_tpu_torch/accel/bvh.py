@@ -1,6 +1,6 @@
 """BVH container: a dataclass of flat tensors (no pointers, no allocator).
 
-Port of embree_tpu/accel/bvh.py:25-80 (the analog of the reference's BVHN +
+Port of embree_tpu/accel/bvh.py:25-98 (the analog of the reference's BVHN +
 NodeRef, kernels/bvh/bvh.h:42, bvh_node_ref.h):
 
 - ``node_lower/node_upper``: (n_nodes, W, 3) child AABBs.
@@ -10,6 +10,7 @@ NodeRef, kernels/bvh/bvh.h:42, bvh_node_ref.h):
 - ``prim_order``: (n_prims,) int32 permutation from leaf slots to prim ids.
 
 The leaf helpers use only operators, so they take numpy arrays and tensors.
+``sah_cost`` is the tree's SAH cost, the builders' quality metric.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..core.math import aabb_half_area, amax, amin
 
 INVALID_NODE = np.int32(-0x7FFFFFFF)  # empty child slot sentinel
 LEAF_COUNT_BITS = 4
@@ -56,3 +59,58 @@ class BVH:
     @property
     def n_prims(self):
         return self.prim_order.shape[0]
+
+
+def _row_sums(x):
+    """Each row of a 2-D tensor summed from zero, element by element."""
+    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def tree_sum(x, window: int = 32):
+    """The float32 sum of every element of x, in the order XLA's CPU backend
+    sums (its tree-reduction rewrite): the leading dimension is padded with
+    zeros, evenly at both ends, to a multiple of ``window`` rows, each
+    window of rows is summed in row-major order, and the partial sums are
+    reduced the same way until ``window`` or fewer remain, which are summed
+    in order. So the result is bit-equal with the JAX package's
+    ``jnp.sum``."""
+    x = x.reshape(x.shape[0], -1)
+    n = x.shape[0]
+    if n <= window:
+        return _row_sums(x.reshape(1, -1))[0]
+    p = -(-n // window) * window
+    lo = (p - n) // 2
+    xp = torch.nn.functional.pad(x, (0, 0, lo, p - n - lo))
+    return tree_sum(_row_sums(xp.reshape(p // window, -1)), window)
+
+
+def scene_bounds(bvh: BVH):
+    """Scene bounds: the union over the root's valid children."""
+    valid = (bvh.node_child[0] != int(INVALID_NODE))[:, None]
+    inf = torch.tensor(float("inf"), device=bvh.node_lower.device)
+    lo = amin(torch.where(valid, bvh.node_lower[0], inf), 0)
+    up = amax(torch.where(valid, bvh.node_upper[0], -inf), 0)
+    return lo, up
+
+
+def sah_cost(bvh: BVH, trav_cost: float = 1.0, int_cost: float = 1.0):
+    """SAH cost of the tree relative to its root's area (the parity metric
+    of the reference's bvh_statistics.cpp; embree_tpu/accel/bvh.py:82-98).
+    A 0-d float32 tensor on the tree's device, bit-equal with the JAX
+    package's on the same tree."""
+    child = bvh.node_child.long()
+    valid = child != int(INVALID_NODE)
+    leaf = is_leaf(child)
+    area = aabb_half_area(bvh.node_lower, bvh.node_upper)
+    area = torch.where(valid, area, torch.zeros_like(area))
+    _, counts = decode_leaf(child)
+    counts = torch.where(leaf, counts, torch.zeros_like(counts))
+    root_lo, root_up = scene_bounds(bvh)
+    root_area = torch.clamp(aabb_half_area(root_lo, root_up), min=1e-30)
+    cost_internal = trav_cost * tree_sum(
+        torch.where(valid & ~leaf, area, torch.zeros_like(area)))
+    cost_leaf = int_cost * tree_sum(area * counts.to(area.dtype))
+    return (cost_internal + cost_leaf) / root_area

@@ -1,16 +1,16 @@
 """Geometry types, the subset the port covers: triangles, quads, points, line
-segments and cubic curves, static or moving.
+segments, cubic curves and user geometry, static or moving.
 
 Port of embree_tpu/geometry.py:24-35 (kind tags), :40-106 (time steps) and
-:109-222 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
-ROUND/FLAT_LINEAR_CURVE and the *_BEZIER/BSPLINE/HERMITE/CATMULL_ROM_CURVE
-types; role parity with kernels/common/scene_*.h).
+:109-246 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
+ROUND/FLAT_LINEAR_CURVE, the *_BEZIER/BSPLINE/HERMITE/CATMULL_ROM_CURVE
+types and USER; role parity with kernels/common/scene_*.h).
 Buffers stay on the host (numpy or tensors); ``Scene.commit`` reads them.
 A buffer with a leading time axis, (S, n, C) with 2 <= S <= 129, declares
 S-step linear motion blur over the geometry's ``time_range``
 (rtcSetGeometryTimeStepCount / rtcSetGeometryTimeRange); traversal lerps by
-the ray's time. Intersection filters are accepted here, as in the JAX
-package, and refused by ``commit`` until the port covers them.
+the ray's time. An intersection filter and a user geometry's intersect
+function are called with torch tensors on the scene's device.
 """
 from __future__ import annotations
 
@@ -35,7 +35,9 @@ KIND_CURVE_ROUND = 9
 KIND_CURVE_ORIENTED = 10
 KIND_CURVE_DISTANCE = 11
 
-FilterFn = Callable  # (org, dir, t, u, v, ng, prim_id, geom_id) -> bool mask
+# (org, dir, t, u, v, ng, prim_id, geom_id) -> bool mask, or with a leading
+# context ("intersect" or "occluded") -> (bool mask, updates of u/v/ng)
+FilterFn = Callable
 
 MAX_TIME_STEPS = 129   # reference RTC_MAX_TIME_STEP_COUNT (rtcore_common.h:54)
 
@@ -201,3 +203,26 @@ class CurveGeometry:
         if self.algorithm == "native" and self.basis != BASIS_LINEAR:
             return n
         return n * self.tessellation_rate
+
+
+@dataclasses.dataclass
+class UserGeometry:
+    """RTC_GEOMETRY_TYPE_USER: user bounds and an intersect function.
+
+    The reference's RTCIntersectFunctionN callback (object_intersector.h)
+    becomes a function of torch tensors, called on candidate prims during
+    traversal:
+      intersect_fn(prim_data, org, dir, tnear, tfar) -> (hit, t, u, v, ng)
+    ``prim_data`` is the prim's row in the scene's table of user prims, as
+    in the JAX package."""
+    bounds_lower: object         # (n, 3)
+    bounds_upper: object         # (n, 3)
+    intersect_fn: Callable = None
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    filter: Optional[FilterFn] = None
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        return np.asarray(self.bounds_lower).shape[0]

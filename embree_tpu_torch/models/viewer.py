@@ -81,12 +81,18 @@ def shade_occlusion(scene: CommittedScene, rays: RayBatch, hits):
 def shade_ao(scene: CommittedScene, rays: RayBatch, hits):
     """Ambient-occlusion-ish secondary shader (renderPixelAOShader analog,
     single cosine sample instead of 64 — a separate mode, not a parity
-    target)."""
+    target). Pixels whose primary ray missed trace no secondary ray (their
+    colour is masked anyway): from an infinite origin with a zero
+    direction, its every slab test enters at +inf, and the kernel's walk
+    (the JAX package's, followed bit for bit) then takes an empty slot for
+    a hit on trees whose empty slot lies between valid ones, as the SAH
+    builder's root does, and runs to its step limit (ROADMAP C)."""
     p = rays.org + rays.dir * hits.t[..., None]
     ng = normalize(hits.ng)
     d = normalize(rays.dir)
     ng = torch.where(dot(ng, d)[..., None] > 0, -ng, ng)
-    srays = make_rays(p + ng * 1e-3, ng, tnear=1e-3)
+    srays = make_rays(p + ng * 1e-3, ng, tnear=1e-3,
+                      tfar=torch.where(hits.valid, math.inf, -math.inf))
     occ = occluded(scene, srays)
     col = torch.where(occ, 0.2, 1.0)
     return _masked(hits, col[..., None].expand(col.shape + (3,)))

@@ -1,19 +1,28 @@
 """Scene: geometry container + commit (BVH build) + intersect/occluded queries.
 
-Port of embree_tpu/scene.py (:194-308 Scene, :323-701 merging, :878-1170
-finalize, :1172-1286 packing and the native build route, :1310-1720
-queries), without filters, user geometry and instances. Role parity with
-the reference runtime core (kernels/common/scene.{h,cpp}, query dispatch
-kernels/common/rtcore.cpp:599 rtcIntersect1):
+Port of embree_tpu/scene.py (:188-308 Scene, :323-819 merging, :878-1170
+finalize, :1172-1286 packing and the build route, :1310-1720 queries),
+without instances. Role parity with the reference runtime core
+(kernels/common/scene.{h,cpp}, query dispatch kernels/common/rtcore.cpp:599
+rtcIntersect1):
 
-- ``Scene`` is the mutable host-side container of geometries.
+- ``Scene`` is the mutable host-side container of geometries, with an
+  optional progress monitor that may cancel a commit (``CommitCancelled``).
 - ``Scene.commit(device=...)`` merges triangles, quads, points, line
-  segments and curves, builds a BVH8 with the native builder (the JAX
-  package's ``EMBREE_TPU_NATIVE_BUILD=1`` route, at every prim count),
-  packs the records where the kernel serves the scene (the packable gate,
-  ``PACKED_KINDS``), fits strand-aligned leaf OBBs for hair scenes and
-  returns a ``CommittedScene``: a dataclass of tensors on one device, CUDA
-  unless the caller asks for the CPU.
+  segments, curves and user geometry, builds a BVH8 on the JAX package's
+  route (``_native_build_enabled``): below 50,000 prims the binned-SAH
+  builder and the BVH8 collapse run as torch ops on the commit's device
+  (16 SAH levels at MEDIUM, none at LOW; accel/sah.py, accel/collapse.py),
+  from 50,000 prims on the native builder runs on the host;
+  ``EMBREE_TPU_NATIVE_BUILD=0/1`` forces one. HIGH quality pre-splits
+  large triangles first (accel/presplit.py), and REFIT re-fits the previous
+  commit's tree on the device when the prim count is unchanged
+  (accel/refit.py). Commit then packs the records where the kernel serves
+  the scene (the packable gate, ``PACKED_KINDS``), fits strand-aligned leaf
+  OBBs for hair scenes and returns a ``CommittedScene``: a dataclass of
+  tensors on one device, CUDA unless the caller asks for the CPU. A
+  ``compact`` scene of packed triangles drops its triangle tables and
+  answers from the kernel's attributes.
 - Curves: native curves of every cubic basis are one prim per curve, stored
   as world-space Bezier CPs (oriented curves with a Bezier normal spline),
   flat, round, oriented or distance, each at its own tessellation rate;
@@ -31,20 +40,22 @@ kernels/common/rtcore.cpp:599 rtcIntersect1):
   CUDA; its plain PyTorch version on the CPU) for scenes with a packed
   table, the generic engine (accel/traverse_generic.py) for the others:
   native round, oriented and distance curves, flat curves of several
-  rates, fat round-line joints, min-width. ``backend="jnp"`` or
-  ``"pallas"`` picks one, as in the JAX package.
+  rates, fat round-line joints, min-width, intersection filters and user
+  geometry. ``backend="jnp"`` or ``"pallas"`` picks one, as in the JAX
+  package. Filters take and return torch tensors on the scene's device, in
+  the JAX package's two calling conventions.
 
 What the port does not cover yet, commit refuses with NotImplementedError:
-grids, subdivision, user geometry, instances and two-level scenes (so
-quaternion and transform motion), filters, compact scenes, HIGH and REFIT
-quality.
+grids, subdivision, instances and two-level scenes (so quaternion and
+transform motion).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,7 +63,11 @@ import torch
 from .accel import pack as pack_mod
 from .accel import traverse_generic
 from .accel.bvh import BVH
+from .accel.collapse import collapse
 from .accel.obb import leaf_obbs
+from .accel.presplit import presplit
+from .accel.refit import refit_bvh
+from .accel.sah import build_sah
 from .accel.traverse import traverse_packed
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, resolve_device, select_hits)
@@ -62,8 +77,8 @@ from .geometry import (KIND_CURVE_DISTANCE, KIND_CURVE_FLAT,
                        KIND_FLAT_LINE, KIND_ORIENTED_DISC, KIND_QUAD,
                        KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE, KIND_USER,
                        CurveGeometry, LineSegmentsGeometry, PointGeometry,
-                       QuadGeometry, TriangleGeometry, _split_timesteps,
-                       motion_knots)
+                       QuadGeometry, TriangleGeometry, UserGeometry,
+                       _split_timesteps, motion_knots)
 from .native import build_bvh8_native
 from .ops import curve as curve_ops
 from .ops import line as line_ops
@@ -73,6 +88,11 @@ from .ops.triangle import intersect_moeller, intersect_pluecker
 
 # Static leaf block size for scene BVHs (TriangleM M=4 analog, triangle.h:14).
 LEAF_SIZE = 8
+# the build route's threshold: from this many prims on, commit builds with
+# the native builder, below it with the SAH builder (scene.py:1274-1286)
+NATIVE_BUILD_MIN_PRIMS = 50000
+# SAH levels of the builder by quality (scene.py:1041)
+SAH_TOP_LEVELS = 16
 # the kinds the packed kernel serves (scene.py:1172-1187). Round curves
 # join them only on request: the JAX package keeps them on its generic
 # engine by default (its kernel's cone candidates miss roots the 32-seed
@@ -115,15 +135,16 @@ _TABLES = {"tri_v0": (3,), "tri_v1": (3,), "tri_v2": (3,),
            "line_r1b": (), "line_pLb": (3,), "line_rLb": (),
            "line_pRb": (3,), "line_rRb": (),
            "curve_cp": (4, 4), "curve_cpb": (4, 4), "curve_n": (4, 3),
-           "curve_nb": (4, 3), "curve_prate": ()}
+           "curve_nb": (4, 3), "curve_prate": (),
+           "user_lo": (3,), "user_up": (3,)}
 
 
 class BuildQuality:
     """RTCBuildQuality analog (rtcore_common.h)."""
-    LOW = 0      # the JAX package's Morton/LBVH tier
+    LOW = 0      # Morton order: the SAH builder with no SAH level
     MEDIUM = 1   # binned SAH
-    HIGH = 2     # SAH + spatial splits (not ported yet)
-    REFIT = 3    # refit existing topology (not ported yet)
+    HIGH = 2     # SAH + spatial pre-splits
+    REFIT = 3    # refit the previous commit's topology
 
 
 @dataclasses.dataclass
@@ -138,6 +159,7 @@ class CommittedScene:
     prim_mask: torch.Tensor    # (T,) int64 geometry mask (uint32 value)
     prim_t0: torch.Tensor      # (T,) float32 time window ([0, 1] = whole)
     prim_t1: torch.Tensor
+    prim_filter: torch.Tensor  # (T,) int32 filter slot (-1 = none)
     tri_v0: torch.Tensor       # (Tt, 3) float32
     tri_v1: torch.Tensor
     tri_v2: torch.Tensor
@@ -177,6 +199,8 @@ class CommittedScene:
     curve_n: torch.Tensor      # (Tc, 4, 3) Bezier normal spline (oriented
     curve_nb: torch.Tensor     # curves; zero for the others), both steps
     curve_prate: torch.Tensor  # (Tc,) int32 each curve's tessellation rate
+    user_lo: torch.Tensor      # (Tu, 3) user geometry bounds
+    user_up: torch.Tensor
     leaf_obb_rot: torch.Tensor  # (L, 3, 3) hair-tier leaf frames by leaf
     leaf_obb_lo: torch.Tensor   # start slot, (L, 3) local bounds; L = 0
     leaf_obb_up: torch.Tensor   # when the tier is off
@@ -194,6 +218,13 @@ class CommittedScene:
     # max_radius_scale times (context.h:65-74); 0 = off
     min_width_factor: float = 0.0
     max_radius_scale: float = 1.0
+    # intersection filters: (geometry id, fn) by slot (prim_filter), and
+    # user geometry's (geometry id, intersect_fn), in merge order
+    filters: tuple = ()
+    user_fns: tuple = ()
+    # RTC_SCENE_FLAG_COMPACT analog: the triangle tables are dropped and
+    # hits come from the kernel's attributes
+    compact: bool = False
 
     @property
     def num_prims(self):
@@ -204,23 +235,36 @@ class CommittedScene:
         return self.prim_kind.device
 
 
+class CommitCancelled(RuntimeError):
+    """Raised when a progress monitor vetoes a commit in flight
+    (rtcSetSceneProgressMonitorFunction returning false, RTC_ERROR_CANCELLED
+    semantics: the scene stays valid and can be committed again)."""
+
+
 def _refuse(what: str):
     raise NotImplementedError(
         f"embree_tpu_torch does not cover {what} yet (see ROADMAP.md)")
 
 
 class _Merger:
-    """The merged prim table (scene.py:323-579 for the packed kinds).
+    """The merged prim table (scene.py:323-579 and :806-815).
 
     Every emitted prim carries the current time window. A geometry's
     ``time_range`` clips that window and drops the geometry when the two do
     not overlap; an S-step buffer splits it at the buffer's interior knots,
-    one prim copy per linear segment (``_segmented``)."""
+    one prim copy per linear segment (``_segmented``). A geometry's filter
+    takes a slot, shared by every geometry with the same callable
+    (scene.py:456-469), that its prims carry."""
 
     def __init__(self):
-        self.rows = []          # (n, 5): kind, gid, local id, data, mask
+        # (n, 6): kind, gid, local id, data, mask, filter slot
+        self.rows = []
         self.tab = {k: [] for k in _TABLES}
-        self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0, "curve": 0}
+        self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0, "curve": 0,
+                      "user": 0}
+        self.filters = []       # (gid, fn) per slot
+        self.user_fns = []      # (gid, intersect_fn) per user geometry
+        self._fidx = -1         # filter slot of the geometry being added
         self.curve_rate = DEFAULT_CURVE_RATE   # max rate of native curves
         self.windows = []       # (n, 2) per emit: [t0, t1]
         self.has_motion = False
@@ -231,12 +275,13 @@ class _Merger:
         self._trange = (0.0, 1.0)   # time_range of the geometry being added
 
     def _emit(self, kind, gid, n, group, mask):
-        r = np.empty((n, 5), np.int64)
+        r = np.empty((n, 6), np.int64)
         r[:, 0] = kind
         r[:, 1] = gid
         r[:, 2] = np.arange(n)
         r[:, 3] = self.count[group] + np.arange(n)
         r[:, 4] = int(mask) & 0xFFFFFFFF
+        r[:, 5] = self._fidx
         self.rows.append(r)
         self.windows.append(np.tile(np.asarray(self._window, np.float32),
                                     (n, 1)))
@@ -266,17 +311,29 @@ class _Merger:
             fn()
         self._window = outer
 
+    def total(self):
+        return sum(len(r) for r in self.rows)
+
     def add(self, g, gid):
         if not isinstance(g, (TriangleGeometry, QuadGeometry, PointGeometry,
-                              LineSegmentsGeometry, CurveGeometry)):
+                              LineSegmentsGeometry, CurveGeometry,
+                              UserGeometry)):
             _refuse(type(g).__name__)
-        if g.filter is not None:
-            _refuse("intersection filters")
         # the geometry exists only within its time range (scene.py:403-418)
         tr = tuple(float(x) for x in g.time_range)
         cw = (max(self._window[0], tr[0]), min(self._window[1], tr[1]))
         if cw[0] > cw[1]:
             return
+        # filters are deduped by callable identity (scene.py:456-469)
+        self._fidx = -1
+        if g.filter is not None:
+            for fi, (_, fn) in enumerate(self.filters):
+                if fn is g.filter:
+                    self._fidx = fi
+                    break
+            else:
+                self.filters.append((gid, g.filter))
+                self._fidx = len(self.filters) - 1
         outer = self._window
         self._window = cw
         self._trange = tr
@@ -322,6 +379,13 @@ class _Merger:
                       pnt_cb=pb[:, :3], pnt_rb=pb[:, 3], pnt_nb=nb)
         elif isinstance(g, CurveGeometry):
             self._add_curves(g, gid)
+        elif isinstance(g, UserGeometry):
+            # user bounds and the intersect function (scene.py:806-815)
+            lo = np.asarray(g.bounds_lower, np.float32).reshape(-1, 3)
+            up = np.asarray(g.bounds_upper, np.float32).reshape(-1, 3)
+            self.user_fns.append((gid, g.intersect_fn))
+            self._emit(KIND_USER, gid, lo.shape[0], "user", g.mask)
+            self._put(user_lo=lo, user_up=up)
         else:
             va, vb = self._steps(g.vertices, "vertices")
             idx = np.asarray(g.indices, np.int64)
@@ -472,17 +536,34 @@ class Scene:
                  robust: bool = False, threads: int = 0,
                  min_width_factor: float = 0.0,
                  max_radius_scale: float = 1.0,
-                 compact: bool = False):
+                 compact: bool = False,
+                 max_spatial_split_replications: float = 1.2):
         self.quality = quality
         self.threads = threads     # native-builder OpenMP team size (0 = all)
         self.robust = robust       # RTC_SCENE_FLAG_ROBUST analog
         # min-width (rtcSetGeometryMaxRadiusScale + minWidthDistanceFactor)
         self.min_width_factor = min_width_factor
         self.max_radius_scale = max_radius_scale
+        # RTC_SCENE_FLAG_COMPACT analog: a packed pure-triangle scene drops
+        # its triangle tables and serves hits from the kernel's attributes
         self.compact = compact
+        # HIGH quality's replication budget (state.h:117)
+        self.max_spatial_split_replications = max_spatial_split_replications
         self._geoms: Dict[int, object] = {}
         self._next_id = 0
         self.committed: Optional[CommittedScene] = None
+        self._n_wide = None        # wide nodes of the last full build
+        self._progress_fn: Optional[Callable] = None
+
+    def set_progress_monitor(self, fn: Optional[Callable]):
+        """rtcSetSceneProgressMonitorFunction analog: fn(fraction) -> bool;
+        returning False cancels the commit (CommitCancelled is raised at
+        that milestone; the build so far is discarded)."""
+        self._progress_fn = fn
+
+    def _progress(self, frac: float):
+        if self._progress_fn is not None and not self._progress_fn(frac):
+            raise CommitCancelled(f"commit cancelled at {frac:.0%}")
 
     def attach(self, geom) -> int:
         """rtcAttachGeometry analog; returns the geometry id."""
@@ -494,31 +575,46 @@ class Scene:
     def detach(self, geom_id: int):
         del self._geoms[geom_id]
 
+    def get(self, geom_id: int):
+        return self._geoms[geom_id]
+
     def commit(self, device=None, two_level: bool = None) -> CommittedScene:
-        """Merge geometries, build + pack the BVH (rtcCommitScene analog).
-        The build runs on the host; the finished traversable goes to
-        ``device`` (CUDA unless the caller passes device='cpu')."""
+        """Merge geometries, build + pack the BVH (rtcCommitScene analog) on
+        ``device`` (CUDA unless the caller passes device='cpu'). The SAH
+        builder and the refit run there; the native builder, the packer and
+        the hair tier's OBB fit run on the host. The progress monitor sees
+        0.0, 0.25 (merged), 0.5 (bounds), 0.8 (built) and 1.0, as in the JAX
+        package (scene.py:279, :287, :967, :1056, :1162)."""
         dev = resolve_device(device)
         if two_level:
             _refuse("two-level (instanced) scenes")
-        if self.compact:
-            _refuse("compact scenes")
-        if self.quality not in (BuildQuality.LOW, BuildQuality.MEDIUM):
-            _refuse(f"build quality {self.quality}")
+        self._progress(0.0)
         m = _Merger()
         for gid, g in sorted(self._geoms.items()):
             if getattr(g, "enabled", True):
                 m.add(g, gid)
         # geometries with no prims emit blocks of no rows
-        if sum(len(r) for r in m.rows) == 0:
+        if m.total() == 0:
             raise ValueError("commit() on empty scene")
-        self.committed = _finalize(
-            np.concatenate(m.rows), m.tables(), np.concatenate(m.windows),
-            m.has_motion, self.threads, self.robust, dev,
-            (m.curve_rate, m.curve_rates()),
-            min_width=(float(self.min_width_factor),
-                       float(np.float32(self.max_radius_scale))),
-            fat_round_joints=m.fat_round_joints)
+        self._progress(0.25)
+        opts = dict(threads=self.threads, robust=self.robust,
+                    min_width=(float(self.min_width_factor),
+                               float(np.float32(self.max_radius_scale))),
+                    compact=self.compact,
+                    max_ssr=self.max_spatial_split_replications,
+                    progress=self._progress)
+        if (self.quality == BuildQuality.REFIT and self.committed is not None
+                and m.total() == self.committed.num_prims):
+            # dynamic update: keep the topology, refresh the bounds
+            # bottom-up (bvh_refit.h, scene.py:295-302)
+            self.committed, _ = _finalize(
+                m, dev, BuildQuality.REFIT, refit_from=self.committed.bvh,
+                n_wide=self._n_wide, **opts)
+        else:
+            self.committed, self._n_wide = _finalize(
+                m, dev, BuildQuality.MEDIUM
+                if self.quality == BuildQuality.REFIT else self.quality,
+                **opts)
         return self.committed
 
 
@@ -552,6 +648,8 @@ def _bounds(kind, data, tab, mrs):
             rmax = mrs * cpx[..., 3].max(axis=1)[:, None]
             a = cpx[..., :3].min(axis=1) - rmax
             b = cpx[..., :3].max(axis=1) + rmax
+        elif k == KIND_USER:
+            a, b = tab["user_lo"][d], tab["user_up"][d]
         else:
             ends = [(tab[f"line_p{j}{s}"][d],
                      mrs * tab[f"line_r{j}{s}"][d][:, None])
@@ -623,27 +721,29 @@ def _slot_encoding(rows, tab, factor):
     return fields[0], fields[1], skind, spid
 
 
-def _packable(kinds_present, rates, min_width_factor, fat_round_joints):
+def _packable(kinds_present, rates, min_width_factor, fat_round_joints,
+              callbacks=False):
     """The packable gate of scene.py:982-992: the kernel serves the scene
-    when every kind is in PACKED_KINDS, min-width is off, flat curves run
-    one rate (over every native curve's rate) and no round-line joint is
-    fat. (Filters and user geometry, the gate's other terms, are refused
-    before.)"""
-    return (set(kinds_present) <= PACKED_KINDS and min_width_factor == 0.0
+    when every kind is in PACKED_KINDS, no filter or user function is set
+    (``callbacks``), min-width is off, flat curves run one rate (over every
+    native curve's rate) and no round-line joint is fat."""
+    return (set(kinds_present) <= PACKED_KINDS and not callbacks
+            and min_width_factor == 0.0
             and (KIND_CURVE_FLAT not in kinds_present or len(rates) <= 1)
             and not fat_round_joints)
 
 
-def _hair_obbs(rows, tab, mrs, node_child, prim_order):
+def _hair_obbs(rows, tab, mrs, node_child, prim_order, presplit=False):
     """The hair tier's leaf OBBs (scene.py:1077-1117): fitted when at least
     half the prims are curves or lines and the scene holds 8 prims or more,
-    unless EMBREE_TPU_HAIR_OBB=0. Returns (rot, lo, up); zero-size tables
-    when the tier is off."""
+    unless EMBREE_TPU_HAIR_OBB=0 or the refs were pre-split (``presplit``:
+    replicated refs share leaf slots). Returns (rot, lo, up); zero-size
+    tables when the tier is off."""
     T = rows.shape[0]
     kind = rows[:, 0]
     data = rows[:, 3]
     elig = np.isin(kind, list(HAIR_KINDS))
-    if not (T >= 8 and elig.mean() >= 0.5
+    if not (T >= 8 and elig.mean() >= 0.5 and not presplit
             and os.environ.get("EMBREE_TPU_HAIR_OBB", "1") != "0"):
         return (np.zeros((0, 3, 3), np.float32), np.zeros((0, 3), np.float32),
                 np.zeros((0, 3), np.float32))
@@ -674,32 +774,101 @@ def _hair_obbs(rows, tab, mrs, node_child, prim_order):
                      eligible=elig)
 
 
-def _finalize(rows, tab, windows, has_motion, threads, robust, device,
-              curves, min_width=(0.0, 1.0), fat_round_joints=False):
-    """Bounds, native BVH8 build, packing where the kernel serves the scene
-    and the hair tier's leaf OBBs (scene.py:878-1117). ``curves``: (the
-    kernel's ribbon rate, the distinct rates of the native curves);
-    ``min_width``: (min_width_factor, max_radius_scale)."""
+def _native_build_enabled(n_prims: int) -> bool:
+    """The JAX package's build route (scene.py:1274-1286):
+    EMBREE_TPU_NATIVE_BUILD=0/off/false takes the SAH builder, 1/on/true
+    the native builder, anything else (auto) the native builder from
+    NATIVE_BUILD_MIN_PRIMS prims on. The JAX package also takes its SAH
+    builder when its native one cannot be loaded; the port raises
+    instead."""
+    flag = os.environ.get("EMBREE_TPU_NATIVE_BUILD", "auto")
+    if flag in ("0", "off", "false"):
+        return False
+    if flag in ("1", "on", "true"):
+        return True
+    return n_prims >= NATIVE_BUILD_MIN_PRIMS
+
+
+def _build(lo, up, quality, leaf_size, threads, device, native):
+    """A BVH8 of the prim bounds (numpy): (BVH on ``device``, n_wide). The
+    native builder (``native``) runs on the host; the SAH builder and the
+    collapse run on ``device``."""
+    if native:
+        nl, nu, nc, order, n_wide = build_bvh8_native(
+            lo, up, leaf_size=leaf_size, threads=threads)
+        bvh = BVH(node_lower=torch.from_numpy(nl).to(device),
+                  node_upper=torch.from_numpy(nu).to(device),
+                  node_child=torch.from_numpy(nc).to(device),
+                  prim_order=torch.from_numpy(order).to(device))
+        return bvh, n_wide
+    top = 0 if quality == BuildQuality.LOW else SAH_TOP_LEVELS
+    bvh2 = build_sah(torch.from_numpy(lo).to(device),
+                     torch.from_numpy(up).to(device), leaf_size=leaf_size,
+                     max_top_levels=top)
+    return collapse(bvh2, width=8)
+
+
+def _finalize(m: _Merger, device, quality, *, threads, robust, min_width,
+              compact=False, max_ssr=1.2, refit_from: Optional[BVH] = None,
+              n_wide=None, progress: Callable = lambda f: None):
+    """Bounds, the BVH8 (built on the route, or ``refit_from`` refit),
+    packing where the kernel serves the scene, the compact drop and the
+    hair tier's leaf OBBs (scene.py:878-1170) of merger ``m``.
+    ``min_width``: (min_width_factor, max_radius_scale); ``max_ssr``: HIGH
+    quality's replication budget; ``n_wide``: the refit tree's wide node
+    count. Returns (CommittedScene, n_wide)."""
+    rows = np.concatenate(m.rows)
+    tab = m.tables()
+    windows = np.concatenate(m.windows)
     T = rows.shape[0]
     kind = rows[:, 0]
     kinds_present = tuple(sorted(int(k) for k in np.unique(kind)))
-    curve_rate, rates = curves
+    curves = (m.curve_rate, m.curve_rates())
     mwf, mrs = min_width
-    packable = _packable(kinds_present, rates, mwf, fat_round_joints)
+    packable = _packable(kinds_present, curves[1], mwf, m.fat_round_joints,
+                         callbacks=bool(m.filters or m.user_fns))
     # windowed prims ride the motion path even where both steps are equal
     # (scene.py:970-976)
     has_windows = bool((windows[:, 0] != 0.0).any()
                        or (windows[:, 1] != 1.0).any())
-    has_motion = bool(has_motion or has_windows)
+    has_motion = bool(m.has_motion or has_windows)
     lo, up = _bounds(kind, rows[:, 3], tab, np.float32(mrs))
+    progress(0.5)
     # quads expand to two triangle slots of the kernel's records: its
     # leaves hold half the prims
     factor = 2 if KIND_QUAD in kinds_present else 1
-    nl, nu, nc, order, n_wide = build_bvh8_native(
-        lo, up, leaf_size=LEAF_SIZE // (factor if packable else 1),
-        threads=threads)
-    bvh_np = dict(node_lower=nl, node_upper=nu, node_child=nc,
-                  prim_order=order)
+    leaf_size = LEAF_SIZE // (factor if packable else 1)
+    # HIGH: spatial pre-splits within the replication budget, exact clips
+    # for static triangles (scene.py:1003-1018)
+    ref_ids = None
+    if quality == BuildQuality.HIGH and refit_from is None and T >= 8:
+        tsel = kind == KIND_TRIANGLE
+        tv = np.zeros((T, 3, 3), np.float32)
+        for j in range(3):
+            tv[tsel, j] = tab[f"tri_v{j}"][rows[tsel, 3]]
+        lo, up, ref_ids = presplit(
+            lo, up, np.arange(T, dtype=np.int32),
+            tsel if not has_motion else np.zeros(T, bool),
+            tv[:, 0], tv[:, 1], tv[:, 2], budget_factor=max_ssr)
+        if ref_ids.shape[0] == T:
+            ref_ids = None          # nothing split
+    if refit_from is not None:
+        bvh = refit_bvh(BVH(*(x.to(device) for x in (
+            refit_from.node_lower, refit_from.node_upper,
+            refit_from.node_child, refit_from.prim_order))),
+            torch.from_numpy(lo).to(device), torch.from_numpy(up).to(device))
+    else:
+        bvh, n_wide = _build(lo, up, quality, leaf_size, threads, device,
+                             _native_build_enabled(T))
+    if ref_ids is not None:
+        # replicated refs back to merged prim ids (a duplicated leaf entry
+        # tests its prim twice, scene.py:1048-1054)
+        bvh = dataclasses.replace(bvh, prim_order=torch.from_numpy(
+            ref_ids).to(device)[bvh.prim_order.long()])
+    progress(0.8)
+    # the host packer and the OBB fit read the tree
+    nc = bvh.node_child.cpu().numpy()
+    order = bvh.prim_order.cpu().numpy()
     packed = None
     if packable:
         fields_a, fields_b, skind, spid = _slot_encoding(rows, tab, factor)
@@ -709,7 +878,8 @@ def _finalize(rows, tab, windows, has_motion, threads, robust, device,
         has_mask = bool(np.any(rows[:, 4] != 0xFFFFFFFF))
         # every expansion slot inherits its prim's window (:1261-1267)
         nodes, leaves, pid_map = pack_mod.pack_arrays(
-            nc, nl, nu, order, n_wide, fields_a, smask, spid, has_mask,
+            nc, bvh.node_lower.cpu().numpy(), bvh.node_upper.cpu().numpy(),
+            order, n_wide, fields_a, smask, spid, has_mask,
             slot_kind=skind if has_kinds else None, slot_factor=factor,
             slot_fields_b=fields_b if has_motion else None,
             slot_t01=np.repeat(windows, factor, axis=0) if has_windows
@@ -719,29 +889,43 @@ def _finalize(rows, tab, windows, has_motion, threads, robust, device,
             tri_attrs=classes == (KIND_TRIANGLE,) and factor == 1,
             has_kinds=has_kinds, kind_classes=classes,
             has_motion=has_motion, has_win=has_windows,
-            nf=fields_a.shape[1], curve_rate=curve_rate)
-    obb = _hair_obbs(rows, tab, np.float32(mrs), nc, order)
+            nf=fields_a.shape[1], curve_rate=curves[0])
+    # compact: the kernel's attributes serve every hit of a packed
+    # pure-triangle scene, so the triangle tables go (scene.py:1068-1075)
+    compact = bool(compact and packed is not None and packed.tri_attrs)
+    if compact:
+        tab = dict(tab, **{k: np.zeros((0, 3), np.float32) for k in tab
+                           if k.startswith("tri_")})
+    obb = _hair_obbs(rows, tab, np.float32(mrs), nc, order,
+                     presplit=ref_ids is not None)
     prims = dict(kind=kind, geom=rows[:, 1], local=rows[:, 2],
                  inst=np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64),
                  data=rows[:, 3], mask=rows[:, 4], t0=windows[:, 0],
-                 t1=windows[:, 1])
-    return _to_device(bvh_np, prims, tab, packed, kinds_present, robust,
-                      has_motion, has_windows, device, curves, obb,
-                      min_width)
+                 t1=windows[:, 1], filter=rows[:, 5])
+    cs = _to_device(bvh, prims, tab, packed, kinds_present, robust,
+                    has_motion, has_windows, device, curves, obb, min_width,
+                    callbacks=(tuple(m.filters), tuple(m.user_fns)),
+                    compact=compact)
+    progress(1.0)
+    return cs, n_wide
 
 
-def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
-               has_windows, device, curves, obb, min_width):
-    """The CommittedScene on ``device`` from host arrays; ``packed`` holds
-    numpy arrays or CPU tensors, or is None; ``curves`` and ``min_width``
-    as for ``_finalize``; ``obb``: the leaf OBB tables (rot, lo, up)."""
+def _to_device(bvh, prims, tab, packed, kinds_present, robust, has_motion,
+               has_windows, device, curves, obb, min_width, callbacks=((), ()),
+               compact=False):
+    """The CommittedScene on ``device`` from host arrays; ``bvh`` holds
+    numpy arrays or tensors, ``packed`` numpy arrays or CPU tensors, or is
+    None; ``curves`` and ``min_width`` as for ``_finalize``; ``obb``: the
+    leaf OBB tables (rot, lo, up); ``callbacks``: (filters, user_fns)."""
     def t(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype)
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
-    bvh = BVH(node_lower=t(bvh_np["node_lower"], torch.float32),
-              node_upper=t(bvh_np["node_upper"], torch.float32),
-              node_child=t(bvh_np["node_child"], torch.int32),
-              prim_order=t(bvh_np["prim_order"], torch.int32))
+    bvh = BVH(node_lower=t(bvh.node_lower, torch.float32),
+              node_upper=t(bvh.node_upper, torch.float32),
+              node_child=t(bvh.node_child, torch.int32),
+              prim_order=t(bvh.prim_order, torch.int32))
     if packed is not None:
         packed = dataclasses.replace(
             packed, nodes=t(packed.nodes, torch.int32),
@@ -760,6 +944,7 @@ def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
         prim_mask=t(prims["mask"], torch.int64),
         prim_t0=t(prims["t0"], torch.float32),
         prim_t1=t(prims["t1"], torch.float32),
+        prim_filter=t(prims["filter"], torch.int32),
         leaf_obb_rot=t(obb[0], torch.float32),
         leaf_obb_lo=t(obb[1], torch.float32),
         leaf_obb_up=t(obb[2], torch.float32),
@@ -768,39 +953,42 @@ def _to_device(bvh_np, prims, tab, packed, kinds_present, robust, has_motion,
         has_windows=bool(has_windows), curve_rate=int(curves[0]),
         curve_rates_present=tuple(int(r) for r in curves[1]),
         min_width_factor=float(min_width[0]),
-        max_radius_scale=float(min_width[1]), **tables)
+        max_radius_scale=float(min_width[1]), filters=tuple(callbacks[0]),
+        user_fns=tuple(callbacks[1]), compact=bool(compact), **tables)
 
 
-def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
-                device) -> CommittedScene:
+def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict, device,
+                filters=(), user_fns=()) -> CommittedScene:
     """Build the port's CommittedScene from the JAX package's committed
     arrays (converted to numpy by the caller) — the state carried across.
 
     arrays: ``bvh.node_lower``, ``bvh.node_upper``, ``bvh.node_child``,
     ``bvh.prim_order``, ``prim_kind``, ``prim_geom``, ``prim_local``,
     ``prim_inst``, ``prim_data``, ``prim_mask``, ``prim_t0``, ``prim_t1``
-    (missing: [0, 1]), ``packed.table`` (the unified tile table; missing
+    (missing: [0, 1]), ``prim_filter`` (missing: no slot), ``packed.table`` (the unified tile table; missing
     for a scene the kernel does not serve, whose ``packed`` is None),
     ``packed.pid_map``, ``leaf_obb_rot``/``_lo``/``_up`` (the hair tier;
     missing: off) and the kind tables the scene has (``tri_v0`` ..
-    ``curve_prate``, the names of CommittedScene; missing ones are empty).
+    ``user_up``, the names of CommittedScene; missing ones are empty).
     flags: ``gn``, ``has_mask``, ``tri_attrs``, ``has_kinds`` and
     ``kind_classes`` (scenes with a packed table), ``kinds_present``,
     ``robust``, ``has_motion`` and ``has_windows`` (the JAX package's
     packed ``has_motion``/``has_win`` equal them), ``nf``, ``curve_rate``
     and ``curve_rates_present`` (curve scenes), ``min_width_factor`` and
-    ``max_radius_scale`` (min-width scenes), and the scene flags the port
-    refuses when set (``compact``, ``filters``). ``packed.table`` is
-    re-laid into the port's records; the record contents are unchanged, so
-    both packages traverse the same records."""
+    ``max_radius_scale`` (min-width scenes), ``compact``, and ``filters``
+    and ``user_fns``: the JAX scene's counts of filter slots and user
+    functions. ``filters`` and ``user_fns`` (the arguments) are the torch
+    counterparts of the JAX scene's ``filters`` and ``user_fns``, (geometry
+    id, fn) pairs in its slot order; each count must match. ``packed.table``
+    is re-laid into the port's records; the record contents are unchanged,
+    so both packages traverse the same records."""
     dev = resolve_device(device)
-    if flags.get("compact"):
-        _refuse("compact scenes")
-    if flags.get("filters"):
-        _refuse("intersection filters")
+    filters, user_fns = tuple(filters), tuple(user_fns)
+    for name, given in (("filters", filters), ("user_fns", user_fns)):
+        if int(flags.get(name, 0)) != len(given):
+            raise ValueError(f"the scene has {int(flags.get(name, 0))} "
+                             f"{name}, {len(given)} were given")
     kinds_present = tuple(flags.get("kinds_present", (KIND_TRIANGLE,)))
-    if KIND_USER in kinds_present:
-        _refuse("user geometry")
     curve_rate = int(flags.get("curve_rate", DEFAULT_CURVE_RATE))
     rates = tuple(flags.get("curve_rates_present", (curve_rate,)))
     has_windows = bool(flags.get("has_windows", False))
@@ -815,8 +1003,8 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
             kind_classes=tuple(flags.get("kind_classes", (KIND_TRIANGLE,))),
             has_motion=has_motion, has_win=has_windows,
             nf=int(flags.get("nf", pack_mod.N_FIELDS)), curve_rate=curve_rate)
-    bvh_np = {k: arrays["bvh." + k] for k in
-              ("node_lower", "node_upper", "node_child", "prim_order")}
+    bvh = BVH(**{k: arrays["bvh." + k] for k in
+                 ("node_lower", "node_upper", "node_child", "prim_order")})
     tab = {k: (np.asarray(arrays[k], np.float32) if k in arrays else
                np.zeros((0,) + shape, np.float32))
            for k, shape in _TABLES.items()}
@@ -835,7 +1023,8 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
                  local=arrays["prim_local"], inst=arrays["prim_inst"],
                  data=arrays["prim_data"], mask=arrays["prim_mask"],
                  t0=arrays.get("prim_t0", np.zeros(T, np.float32)),
-                 t1=arrays.get("prim_t1", np.ones(T, np.float32)))
+                 t1=arrays.get("prim_t1", np.ones(T, np.float32)),
+                 filter=arrays.get("prim_filter", np.full(T, -1)))
     prims = {k: np.asarray(v).astype(np.float32 if k in ("t0", "t1")
                                      else np.int64)
              for k, v in prims.items()}
@@ -844,9 +1033,11 @@ def from_arrays(arrays: Dict[str, np.ndarray], flags: Dict,
         for k, shape in (("rot", (3, 3)), ("lo", (3,)), ("up", (3,))))
     min_width = (float(flags.get("min_width_factor", 0.0)),
                  float(flags.get("max_radius_scale", 1.0)))
-    return _to_device(bvh_np, prims, tab, packed, kinds_present,
+    return _to_device(bvh, prims, tab, packed, kinds_present,
                       bool(flags.get("robust", False)), has_motion,
-                      has_windows, dev, (curve_rate, rates), obb, min_width)
+                      has_windows, dev, (curve_rate, rates), obb, min_width,
+                      callbacks=(filters, user_fns),
+                      compact=bool(flags.get("compact", False)))
 
 
 # =====================================================================
@@ -895,12 +1086,14 @@ def _ray_slice(rays: RayBatch, a: int, b: int) -> RayBatch:
 
 
 def _generic_select(scene: CommittedScene, flat: RayBatch, occlusion: bool):
-    """best_prim from the generic engine, GENERIC_CHUNK rays at a time."""
+    """best_prim from the generic engine, GENERIC_CHUNK rays at a time;
+    filters run in the query's context (scene.py:1561-1562)."""
     out = []
+    context = "occluded" if occlusion else "intersect"
     for a in range(0, flat.shape[0], GENERIC_CHUNK):
         sub = _ray_slice(flat, a, a + GENERIC_CHUNK)
         res = traverse_generic.traverse(
-            scene.bvh, _make_prim_test(scene, sub), sub.org, sub.dir,
+            scene.bvh, _make_prim_test(scene, sub, context), sub.org, sub.dir,
             sub.tnear, sub.tfar, occlusion=occlusion,
             max_leaf_size=LEAF_SIZE, robust=scene.robust,
             leaf_obb=_scene_leaf_obb(scene))
@@ -933,11 +1126,13 @@ def intersect(scene: CommittedScene, rays: RayBatch,
     differentiable=False: on pure-triangle scenes through the kernel,
     moving or not, the kernel emits the exact t/u/v/Ng itself (the fast
     path; no gradient flows through the returned hit); other scenes
-    re-intersect the winning primitive as above.
+    re-intersect the winning primitive as above. A compact scene, which
+    has no triangle tables, always takes the fast path (scene.py:1603).
     """
     shape, flat = _flat(scene, rays)
     kernel = _use_kernel(scene, backend)
-    if not differentiable and kernel and scene.packed.tri_attrs:
+    fast = not differentiable or scene.compact
+    if fast and kernel and scene.packed.tri_attrs:
         with torch.no_grad():
             t_k, best, attrs = traverse_packed(
                 scene.packed, flat.org, flat.dir, flat.tnear, flat.tfar,
@@ -1072,6 +1267,23 @@ def _kind_test(scene: CommittedScene, k: int, didx, org, dir, time, tnear,
                 out = [torch.where(sel[..., None] if a.ndim > sel.ndim
                                    else sel, a, b) for a, b in zip(hr, out)]
         return tuple(out)
+    if k == KIND_USER:
+        # every user function runs on every user prim; the nearest hit
+        # wins (scene.py:1418-1431)
+        hit = torch.zeros(tnear.shape, dtype=torch.bool, device=tnear.device)
+        t = torch.full_like(tnear, math.inf)
+        u = torch.zeros_like(tnear)
+        v = torch.zeros_like(tnear)
+        ng = torch.zeros(tnear.shape + (3,), device=tnear.device)
+        for _, fn in scene.user_fns:
+            h2, t2, u2, v2, ng2 = fn(didx, org, dir, tnear, tfar)
+            use = h2 & (t2 < t)
+            hit = hit | h2
+            u = torch.where(use, u2, u)
+            v = torch.where(use, v2, v)
+            ng = torch.where(use[..., None], ng2, ng)
+            t = torch.where(use, t2, t)
+        return hit, t, u, v, ng
     p0, r0, p1, r1 = lerp("line_p0", "line_r0", "line_p1", "line_r1")
     r0 = minw(p0, r0)
     r1 = minw(p1, r1)
@@ -1149,16 +1361,77 @@ def _kinds_select(scene, prim, org, dir, time, tnear, tfar, clip=False):
     return hit, t, u, v, ng
 
 
-def _make_prim_test(scene: CommittedScene, rays: RayBatch):
-    """The generic engine's primitive test (scene.py:1505-1528, without
-    filters): the test of each prim's kind with the neighbor clip, window
-    and geometry-mask rejection. ``rays``: the batch the engine
-    traverses."""
+def _run_filter(fn, context, org, dir, t, u, v, ng, prim_local, geom):
+    """Call a geometry filter in either calling convention
+    (scene.py:1435-1453).
+
+    Legacy (8 args): fn(org, dir, t, u, v, ng, prim_id, geom_id) -> keep.
+    Full (9 args, filter.h:15 parity): fn(context, org, dir, t, u, v, ng,
+    prim_id, geom_id) -> (keep, updates), where context is "intersect" or
+    "occluded" and updates is None or a dict that may override the
+    reported hit's "u", "v" or "ng". Every argument is a tensor on the
+    scene's device but ``context``."""
+    try:
+        nargs = len(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        nargs = 8
+    if nargs >= 9:
+        return fn(context, org, dir, t, u, v, ng, prim_local, geom)
+    return fn(org, dir, t, u, v, ng, prim_local, geom), None
+
+
+def _apply_filters(scene, accept, prim, org, dir, t, u, v, ng,
+                   context="intersect"):
+    """Run the intersection filters (filter.h:15 analog): a filter may
+    reject a hit, and traversal goes on past it (scene.py:1456-1469)."""
+    if not scene.filters:
+        return accept
+    geom = scene.prim_geom[prim]
+    local = scene.prim_local[prim]
+    fslot = scene.prim_filter[prim]
+    for fi, (_, fn) in enumerate(scene.filters):
+        keep, _ = _run_filter(fn, context, org, dir, t, u, v, ng, local, geom)
+        accept = torch.where(fslot == fi, accept & keep, accept)
+    return accept
+
+
+def _apply_filter_updates(scene, prim, org, dir, t, u, v, ng):
+    """Re-run full-convention filters on the accepted hit and fold in their
+    changes of u, v and Ng (scene.py:1472-1491)."""
+    if not scene.filters:
+        return u, v, ng
+    geom = scene.prim_geom[prim]
+    local = scene.prim_local[prim]
+    fslot = scene.prim_filter[prim]
+    for fi, (_, fn) in enumerate(scene.filters):
+        _, updates = _run_filter(fn, "intersect", org, dir, t, u, v, ng,
+                                 local, geom)
+        if not updates:
+            continue
+        sel = fslot == fi
+        if "u" in updates:
+            u = torch.where(sel, updates["u"], u)
+        if "v" in updates:
+            v = torch.where(sel, updates["v"], v)
+        if "ng" in updates:
+            ng = torch.where(sel[..., None], updates["ng"], ng)
+    return u, v, ng
+
+
+def _make_prim_test(scene: CommittedScene, rays: RayBatch,
+                    context: str = "intersect"):
+    """The generic engine's primitive test (scene.py:1505-1528): the test
+    of each prim's kind with the neighbor clip, window and geometry-mask
+    rejection, then the filters in ``context`` ("intersect" or
+    "occluded"). ``rays``: the batch the engine traverses."""
     def prim_test(ridx, prim, org, dir, tnear, tfar):
-        hit, t, _, _, _ = _kinds_select(scene, prim.long(), org, dir,
-                                        rays.time[ridx], tnear, tfar,
-                                        clip=True)
-        hit = hit & ((rays.mask[ridx] & scene.prim_mask[prim.long()]) != 0)
+        prim = prim.long()
+        hit, t, u, v, ng = _kinds_select(scene, prim, org, dir,
+                                         rays.time[ridx], tnear, tfar,
+                                         clip=True)
+        hit = hit & ((rays.mask[ridx] & scene.prim_mask[prim]) != 0)
+        hit = _apply_filters(scene, hit, prim, org, dir, t, u, v, ng,
+                             context)
         return hit, t
     return prim_test
 
@@ -1192,6 +1465,9 @@ def _reconstruct_hits(scene: CommittedScene, rays: RayBatch,
     wide_far = torch.full_like(rays.tfar, math.inf)
     _, t, u, v, ng = _kinds_select(scene, prim, rays.org, rays.dir,
                                    rays.time, wide_near, wide_far, clip)
+    # filters may change the reported hit (filter.h semantics)
+    u, v, ng = _apply_filter_updates(scene, prim, rays.org, rays.dir, t, u,
+                                     v, ng)
     miss = make_miss_hits(rays.shape, device=rays.device)
     hit = HitBatch(t=t, u=u, v=v, ng=ng,
                    prim_id=scene.prim_local[prim],
@@ -1205,9 +1481,9 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
     """Ground-truth O(R*T) intersector for testing (no BVH). The nearest
     hit wins; among exact ties the lowest prim id (the JAX package's
     ascending scan with strict improvement). Round lines always take the
-    neighbor clip, as the JAX package's brute force does (its
-    ``_make_prim_test``, scene.py:1369-1380), whatever route the scene's
-    queries take."""
+    neighbor clip, and filters run in the "intersect" context, as in the
+    JAX package's brute force (its ``_make_prim_test``, scene.py:1369-1380,
+    :1698-1719), whatever route the scene's queries take."""
     shape, flat = _flat(scene, rays)
     T = scene.num_prims
     R = flat.shape[0]
@@ -1222,11 +1498,12 @@ def intersect_brute(scene: CommittedScene, rays: RayBatch,
             pr = prims[None].expand(R, n).reshape(-1)
             rep = torch.arange(R, device=dev)[:, None].expand(R, n) \
                 .reshape(-1)
-            hit, t, _, _, _ = _kinds_select(
+            hit, t, u, v, ng = _kinds_select(
                 scene, pr, flat.org[rep], flat.dir[rep], flat.time[rep],
                 flat.tnear[rep], t_far[rep], clip=True)
-            hit = (hit & ((flat.mask[rep] & scene.prim_mask[pr]) != 0)) \
-                .reshape(R, n)
+            hit = hit & ((flat.mask[rep] & scene.prim_mask[pr]) != 0)
+            hit = _apply_filters(scene, hit, pr, flat.org[rep],
+                                 flat.dir[rep], t, u, v, ng).reshape(R, n)
             t = t.reshape(R, n)
             tm = torch.where(hit, t, math.inf)
             tmin = tm.amin(dim=1)

@@ -44,6 +44,18 @@ from embree_tpu_torch.perf import scenes, tables
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_route():
+    """The port's commits take the JAX side's build route: the native
+    builder (EMBREE_TPU_NATIVE_BUILD=1) at every prim count, so both
+    packages pack the same tree."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMBREE_TPU_NATIVE_BUILD", "1")
+        yield
+
+
 MESH = (32, 64)
 N_RAYS = 4096
 V5_UGRP = 4

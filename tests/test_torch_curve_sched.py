@@ -54,6 +54,17 @@ from test_torch_curves import BACKDROP, fat_curves, steps_of
 from test_torch_motion_sched import bits
 from test_torch_round import one_thread  # noqa: F401 (module-wide autouse)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_route():
+    """The native builder's route (EMBREE_TPU_NATIVE_BUILD=1) at every
+    prim count: the mixed-leaf scene's expected slot order is the
+    native builder's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMBREE_TPU_NATIVE_BUILD", "1")
+        yield
+
+
 F32 = np.float32
 KIND_CURVE_ROUND = 9
 FLAGS = [(m, r) for m in (False, True) for r in (False, True)]

@@ -54,6 +54,18 @@ from test_torch_traverse import bits, port_rays, ray_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_route():
+    """The port's commits take the JAX side's build route: the native
+    builder (EMBREE_TPU_NATIVE_BUILD=1) at every prim count, so both
+    packages pack the same tree."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMBREE_TPU_NATIVE_BUILD", "1")
+        yield
+
+
 BASES = ("bezier", "bspline", "catmull_rom", "hermite")
 F32 = np.float32
 
@@ -699,16 +711,20 @@ def _served(case):
 
 
 CURVE_CASES = ["round", "oriented", "distance", "mixed_rates", "fat_joint"]
-# what each case is committed with, all of it still refused
+# what each case is committed with: the port refused all of it until it
+# covered filters, compact scenes, HIGH and REFIT; two-level scenes it
+# still refuses
 REFUSED_WITH = {"round": "filter", "oriented": "compact", "distance": "high",
                 "mixed_rates": "refit", "fat_joint": "two_level"}
 
 
 @pytest.mark.parametrize("case", CURVE_CASES)
 def test_refused_curves(case):
-    """The curve scenes the generic engine serves, committed with what the
-    port still refuses (an intersection filter, a compact scene, HIGH or
-    REFIT quality, a two-level scene), raise NotImplementedError."""
+    """The curve scenes the generic engine serves, committed with an
+    intersection filter, as a compact scene, at HIGH or REFIT quality:
+    each commits without a packed table (compact keeps its tables: it
+    drops only a packed triangle scene's) and agrees with brute force. A
+    two-level scene raises NotImplementedError."""
     how = REFUSED_WITH[case]
     s = pt.Scene(compact=how == "compact",
                  quality={"high": pt.BuildQuality.HIGH,
@@ -718,8 +734,22 @@ def test_refused_curves(case):
         if how == "filter":
             g.filter = lambda *a: True
         s.attach(g)
-    with pytest.raises(NotImplementedError):
-        s.commit(device="cpu", two_level=how == "two_level")
+    if how == "two_level":
+        with pytest.raises(NotImplementedError):
+            s.commit(device="cpu", two_level=True)
+        return
+    cs = s.commit(device="cpu")
+    if how == "refit":                # the second commit refits the first
+        cs = s.commit(device="cpu")
+    assert cs.packed is None and not cs.compact
+    org, d, tn, tf, mask, time = rays_for("served", lambda et: _served(case))
+    r = pt.make_rays(org[32:], d[32:], device="cpu")
+    h = pt.intersect(cs, r)
+    hb = pt.intersect_brute(cs, r)
+    m = hb.valid.numpy()
+    assert m.sum() > 5
+    np.testing.assert_array_equal(h.valid.numpy(), m)
+    np.testing.assert_allclose(h.t.numpy()[m], hb.t.numpy()[m], rtol=1e-5)
 
 
 @pytest.mark.parametrize("case", CURVE_CASES)

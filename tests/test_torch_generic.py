@@ -58,6 +58,18 @@ from test_torch_traverse import bits, ray_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_route():
+    """The port's commits take the JAX side's build route: the native
+    builder (EMBREE_TPU_NATIVE_BUILD=1) at every prim count, so both
+    packages pack the same tree."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMBREE_TPU_NATIVE_BUILD", "1")
+        yield
+
+
 F32 = np.float32
 LEAF_SIZE = 8
 

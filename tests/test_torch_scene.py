@@ -237,16 +237,42 @@ def _round_curve():
         np.array([0], np.int32), basis="bezier", kind="round")
 
 
+# cases the port refused until it covered them: each now commits, and its
+# hits agree with brute force (compact: with the same scene not compact)
+NOW_SERVED = ("curve", "min_width", "filter", "compact", "high", "refit")
+
+
+def _agree_with_brute(cs, s):
+    rng = np.random.default_rng(5)
+    org = rng.uniform(-2, 3, (256, 3)).astype(np.float32)
+    v = np.concatenate([np.asarray(g.vertices)[..., :3].reshape(-1, 3)
+                        for g in s._geoms.values()])
+    aim = v[rng.integers(0, len(v), 256)] + rng.normal(0, 0.3, (256, 3))
+    r = pt.make_rays(org, (aim - org).astype(np.float32), device="cpu")
+    h = pt.intersect(cs, r)
+    if cs.compact:
+        s.compact = False
+        hb = pt.intersect(s.commit(device="cpu"), r, differentiable=False)
+    else:
+        hb = pt.intersect_brute(cs, r)
+    m = hb.valid.numpy()
+    assert m.sum() > 10
+    np.testing.assert_array_equal(h.valid.numpy(), m)
+    np.testing.assert_allclose(h.t.numpy()[m], hb.t.numpy()[m], rtol=1e-5)
+
+
 @pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width",
                                   "moving_instance", "filter", "compact",
                                   "high", "refit", "two_level",
                                   "from_arrays_motion_curve"])
 def test_refused_scenes(case):
-    """What the port does not cover raises NotImplementedError: filters
-    (here on a native round curve), instances (here of a fat-jointed
-    chain, and moving), compact scenes, HIGH quality (here with min-width),
-    REFIT quality, two-level scenes, and scenes carried across with
-    filters."""
+    """What the port does not cover raises NotImplementedError: instances
+    (here of a fat-jointed chain, and moving) and two-level scenes. The
+    cases it refused until it covered them now commit and agree with brute
+    force: filters (here on a native round curve), HIGH quality (with
+    min-width and without), compact scenes and REFIT quality. A scene
+    carried across whose flags count filters that are not given raises
+    ValueError."""
     v, i = _tri()
     kw = {}
     if case == "compact":
@@ -280,17 +306,22 @@ def test_refused_scenes(case):
         s.attach(pt.TriangleGeometry(v, i, filter=lambda *a: True))
     else:
         s.attach(pt.TriangleGeometry(v, i))
-    with pytest.raises(NotImplementedError):
-        if case == "two_level":
-            s.commit(device="cpu", two_level=True)
-        elif case == "from_arrays_motion_curve":
-            # a moving round-curve scene is carried across, but not one
-            # with filters
+    if case in NOW_SERVED:
+        cs = s.commit(device="cpu")
+        if case == "refit":           # a second commit refits the first
+            s.get(0).vertices = v + np.float32(0.5)
+            cs = s.commit(device="cpu")
+        _agree_with_brute(cs, s)
+    elif case == "from_arrays_motion_curve":
+        # a moving round-curve scene whose flags count a filter that is
+        # not passed in
+        with pytest.raises(ValueError):
             pt.from_arrays({}, {"has_motion": True, "has_windows": True,
                                 "kinds_present": (0, 9), "filters": True},
                            "cpu")
-        else:
-            s.commit(device="cpu")
+    else:
+        with pytest.raises(NotImplementedError):
+            s.commit(device="cpu", two_level=case == "two_level")
 
 
 @pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width"])
