@@ -15,7 +15,10 @@ Hopper traversal kernel against its plain PyTorch version:
    32 curve variants of B7 and B8, static and moving, and the 20 static
    triangle, robust-triangle and mixed-class variants of B1-B5), and they
    must use no local memory (0 B stack frame, no spill) and all but B6's
-   mixed-class ones at most 128 registers;
+   mixed-class ones at most 128 registers; and no function of its SASS
+   reads or overwrites a register before the wait on the load that
+   writes it (perf/sass_hazards.py: fault C.2, a pop that read the next
+   record before its shared-memory load landed);
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow, and the 1M-ray launch's
@@ -151,9 +154,34 @@ Hopper traversal kernel against its plain PyTorch version:
    through the generic engine at 1,048,576 rays and held against brute
    force on a sample; the progress monitor's milestones, a cancel raising
    CommitCancelled and a commit after it;
-22. the kernels line, then the result line.
+22. flattened instances (the default route below 16 instances): 8
+   instances of sphere_mesh(512, 512) under random similarities (scale
+   0.5-1.5, on a ring; numpy seed 5), 4,194,304 flattened triangles on the
+   native route, 16,777,216 incoherent rays through both intersect modes
+   and occluded; each hit point in the world box of the instance it
+   reports; B1's three variants held against the plain version on a
+   strided sample and timed (commit seconds, table MB); then at check size
+   (the 16K-tri sphere, 65,536 rays) a 2-step translated instance (B6), a
+   quaternion-rotated one (90 degrees about z, resampled: B6 with windows)
+   and a nested two-level one (B1), each variant held bit for bit;
+23. the two-level cell: an instance array of 4,096 transforms of
+   sphere_mesh(128, 192) (its BLAS on the SAH route) on a 64 x 64 grid
+   (random turn about y, scale U(0.5, 1.2), numpy seed 5) and the main
+   sphere raised above it (native route): 4,097 instances, 203,423,744
+   instanced triangles in two BLASes; BLAS and TLAS commit seconds, REFIT
+   after moving every transform (update_transforms: no BLAS rebuilt, the
+   tensors kept), 4,194,304 rays from the grid's box: waves, rays and
+   overflows per wave, collect and BLAS-pass ms per wave, each BLAS
+   launch of the first wave held against the plain version on a strided
+   sample of its object-space rays and timed, the entry points' ms; then
+   an 8 x 8 sub-grid two-level against its own flattening (t within 2e-4
+   of max(t, 1) wherever both hit the same prim; ids may differ only at
+   near-ties, masks only at a ray's origin or a silhouette:
+   same_up_to_ties);
+24. the kernels line (each traversal variant with its launches on the
+   instance paths), then the result line.
 
-Launch counts are zeroed just before each driven path (4-21) and read just
+Launch counts are zeroed just before each driven path (4-23) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -316,6 +344,19 @@ SLIVERS = 32768              # tests/test_sah.py:104-127's slivers, scaled
 SLIVER_RAYS = 1 << 16
 ENGINE_SCENE_RAYS = 1 << 20  # the filter and user-geometry scenes' rays
 USER_SPHERES = 1 << 16
+INST_MESH = (512, 512)       # 524,288 tris per instance
+INST_COUNT = 8               # under TWO_LEVEL_AUTO: flattened
+INST_RING = 2.5              # the instances' ring radius
+INST_RAYS = 1 << 24
+GRID = 64                    # phase 23's grid of instances, GRID x GRID
+GRID_SPACING = 2.5
+GRID_MESH = (128, 192)       # 49,152 tris: its BLAS takes the SAH route
+BIG_SCALE = 20.0             # the main sphere raised above the grid
+BIG_HEIGHT = 30.0
+TWO_LEVEL_RAYS = 1 << 22
+TWO_LEVEL_COMPARE = 1 << 16  # plain-version sample of each BLAS launch
+SUB_GRID = 8                 # the sub-grid held against its flattening
+SUB_RAYS = 1 << 20
 BRUTE_SAMPLE = 64
 
 
@@ -1940,6 +1981,29 @@ def check_traverse_ptxas(ptxas):
     check(not bad, "persistent kernels: " + "; ".join(bad))
 
 
+def check_traverse_sass(library):
+    """Fault C.2's check: no function of the traversal library reads or
+    overwrites a register before the wait on the load that writes it
+    (perf/sass_hazards.py over cuobjdump's SASS). The faulty build read the
+    pop's next record before its shared-memory load landed."""
+    from embree_tpu_torch.perf import sass_hazards
+    t0 = time.perf_counter()
+    funcs = sass_hazards.parse(sass_hazards.disassemble(library))
+    found = {f: sass_hazards.hazards(code) for f, code in funcs.items()}
+    n = sum(map(len, found.values()))
+    say(f"  SASS dependency barriers: {n} hazards in {len(funcs)} functions "
+        f"({sum(map(len, funcs.values()))} instructions, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for f, hz in found.items():
+        for h in hz[:4]:
+            say(f"    {f}: {h.kind} on barrier {h.barrier} for {h.reg}: "
+                f"{h.source.addr:#x} {h.source.text} -> {h.at.addr:#x} "
+                f"{h.at.text}")
+    check(sum("persistent_kernel" in f for f in funcs) == 72,
+          "the SASS does not hold the 72 persistent instantiations")
+    check(n == 0, f"{n} dependency-barrier hazards in the traversal SASS")
+
+
 def lane_shares(visits):
     """Useful lane-steps of one ray per thread over the rays in launch
     order: the share of lane slots that did work when each warp of 32 runs
@@ -2642,9 +2706,403 @@ def phase_scene_api(pt, tr, sphere_mesh, out):
     say(f"  phase 21 took {out['phase21_s']:.1f} s; {card}")
 
 
-def kernel_entries(record, errs):
+def similarity(rng, scale, t):
+    """A (3, 4) similarity: a random rotation (a unit axis, an angle in
+    [0, 2 pi)), a uniform scale and a translation."""
+    from embree_tpu_torch.core.math import quat_from_axis_angle, \
+        quat_to_matrix
+    axis = rng.standard_normal(3).astype(np.float32)
+    q = quat_from_axis_angle(axis, np.float32(rng.uniform(0, 2 * np.pi)))
+    r = quat_to_matrix(q) * np.float32(scale)
+    return np.concatenate([r, np.asarray(t, np.float32)[:, None]],
+                          1).astype(np.float32)
+
+
+def instance_ring(n, seed=5, radius=INST_RING):
+    """Phase 22's transforms: similarities with scale U(0.5, 1.5) on a ring
+    of ``radius`` in the xy plane (numpy seed 5)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        out.append(similarity(rng, rng.uniform(0.5, 1.5),
+                              (radius * np.cos(a), radius * np.sin(a), 0.0)))
+    return np.stack(out)
+
+
+def check_instance_boxes(rays, hit, xfs, gids, n, label):
+    """On the first n rays: each hit point lies in the world box of the
+    instance its hit reports (the unit sphere under that instance's
+    transform: center t, radius |scale|)."""
+    valid = hit.valid[:n]
+    p = (rays.org[:n] + hit.t[:n, None] * rays.dir[:n])[valid].double()
+    inst = hit.inst_id[:n, 0][valid]
+    xf = torch.as_tensor(xfs, device=p.device).double()
+    slot = torch.searchsorted(torch.as_tensor(gids, device=p.device), inst)
+    center = xf[slot, :, 3]
+    radius = xf[slot, :, :3].norm(dim=1).amax(1)
+    inside = ((p - center).abs() <= radius[:, None] * (1 + 1e-4)
+              + 1e-4).all(1)
+    check(bool(inside.all()), f"{label}: a hit lies outside its instance's "
+          "box")
+    say(f"  {label}: {int(valid.sum())} hits of {n} rays, each in the world "
+        "box of the instance it reports")
+
+
+def instance_check_cells(pt, tr, sphere_mesh, errs):
+    """Phase 22's check-size scenes: the 16K-tri check sphere under a
+    2-step translated instance, a quaternion-rotated instance (90 degrees
+    about z, tests/test_motion_blur.py:104) and a nested two-level
+    instance; 65,536 rays each, through the entry points, every variant
+    held against the plain version on all rays."""
+    from embree_tpu_torch.core.math import (QuaternionDecomposition,
+                                            affine_identity,
+                                            quat_from_axis_angle,
+                                            quat_identity)
+    verts, idx = sphere_mesh(*CHECK_MESH)
+    child = tri_scene(pt, verts, idx)
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    time = ray_times(KINDS_RAYS)
+    moving_xf = np.stack([affine_identity()] * 2)
+    moving_xf[1, 0, 3] = MOTION_SHIFT
+    shift = affine_identity()
+    shift[0, 3] = 1.0
+    qd0 = QuaternionDecomposition(shift, quat_identity(),
+                                  np.zeros(3, np.float32))
+    qd1 = QuaternionDecomposition(
+        shift, quat_from_axis_angle(np.array([0, 0, 1], np.float32),
+                                    np.pi / 2), np.zeros(3, np.float32))
+    mid = pt.Scene()
+    inner = mid.attach(pt.InstanceGeometry(child, shift))
+    cells = {"moving": pt.InstanceGeometry(child, moving_xf),
+             "quaternion": pt.InstanceGeometry(child, (qd0, qd1)),
+             "nested": pt.InstanceGeometry(mid, similarity(
+                 np.random.default_rng(6), 0.8, (0.0, -0.5, 0.2)))}
+    launches = {}
+    for label, g in cells.items():
+        s = pt.Scene()
+        gid = s.attach(g)
+        cs = s.commit(device=DEV)
+        check(isinstance(cs, pt.CommittedScene), f"{label}: not flattened")
+        check(cs.has_motion == (label != "nested")
+              and cs.packed.has_win == (label == "quaternion"),
+              f"{label}: wrong motion flags")
+        rays = pt.make_rays(org, d, time=time, device=DEV)
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays, differentiable=False)
+        hd = pt.intersect(cs, rays)
+        occ = pt.occluded(cs, rays)
+        torch.cuda.synchronize()
+        got = dict(tr.LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        check(torch.equal(occ, hit.valid) and torch.equal(hd.valid,
+                                                          hit.valid),
+              f"{label}: the entry points disagree")
+        v = hit.valid
+        check(int(v.sum()) > KINDS_RAYS // 64, f"{label}: too few hits")
+        check(bool((hit.inst_id[v, 0] == gid).all()),
+              f"{label}: wrong instance id")
+        check(bool((hit.inst_id[v, 1] == (inner if label == "nested"
+                                          else pt.INVALID_ID)).all()),
+              f"{label}: wrong nested instance id")
+        inputs = sorted_inputs(tr, rays)
+        for _, o, a in VARIANTS:
+            name = tr.packed_variant(cs.packed, o, a, False)
+            check(got.get(name, 0) > 0, f"{label}: {name} not launched")
+            errs[name] = max(errs.get(name, 0.0), compare(
+                tr, cs.packed, inputs, KINDS_RAYS, o, a,
+                f"{label} instance: {name}"))
+        say(f"  {label} instance: {cs.num_prims} prims, {int(v.sum())} "
+            f"hits; launches {got}")
+    return launches
+
+
+def phase_instances(pt, tr, sphere_mesh, errs, out):
+    """Phase 22: flattened instances at full size, and the check-size
+    motion and nesting cells."""
+    say(f"phase 22: flattened instances: {INST_COUNT} instances of "
+        f"sphere_mesh{INST_MESH} under similarities, {INST_RAYS} rays")
+    t_phase = time.perf_counter()
+    verts, idx = sphere_mesh(*INST_MESH)
+    child = tri_scene(pt, verts, idx)
+    xfs = instance_ring(INST_COUNT)
+    s = pt.Scene()
+    gids = [s.attach(pt.InstanceGeometry(child, x)) for x in xfs]
+    cs, commit_s = commit_timed(s, f"{INST_COUNT} instances, flattened")
+    check(isinstance(cs, pt.CommittedScene)
+          and cs.num_prims == INST_COUNT * 2 * INST_MESH[0] * INST_MESH[1],
+          "the instances were not flattened")
+    org, d = incoherent_rays(INST_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  launches on the flattened-instance path: {launches}")
+    check(all(launches.get(n, 0) > 0 for n, _, _ in VARIANTS),
+          "the instance path did not launch every B1 variant")
+    v = hit.valid
+    check(torch.equal(occ, v) and torch.equal(hd.valid, v),
+          "instances: the entry points disagree")
+    check(bool(torch.isfinite(hit.t[v]).all())
+          and bool(torch.isfinite(hit.ng[v]).all()), "non-finite hits")
+    check_instance_boxes(rays, hit, xfs, gids, CHECK_RAYS, "instances")
+    del hit, hd, occ, v
+    inputs = sorted_inputs(tr, rays)
+    plain = {}
+    for name, o, a in VARIANTS:
+        errs[name] = max(errs.get(name, 0.0), compare(
+            tr, cs.packed, inputs, MAIN_COMPARE, o, a,
+            f"instances: {name}", plain=plain))
+    card = card_line()
+    total_ms = {
+        "closest_attrs": events_ms(
+            lambda: pt.intersect(cs, rays, differentiable=False)),
+        "occluded": events_ms(lambda: pt.occluded(cs, rays)),
+    }
+    rec = {}
+    time_variants(tr, cs.packed, inputs, VARIANTS, rec, table_mb(cs.packed),
+                  card, launches, total_ms=total_ms, plain=plain)
+    out["flattened"] = dict(commit_s=commit_s,
+                            table_mb=table_mb(cs.packed) / 1e6,
+                            prims=cs.num_prims, kernels=rec, card=card)
+    del cs, rays, inputs
+    torch.cuda.empty_cache()
+    out["check_launches"] = instance_check_cells(pt, tr, sphere_mesh, errs)
+    for k, n in out["check_launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 22: {out['phase_s']:.1f} s")
+    return launches
+
+
+def same_up_to_ties(a, b, rays, label):
+    """Hits ``a`` of a two-level scene against ``b`` of its flattening.
+    Object space and world space round differently, by about the
+    coordinates' ulp (about 8e-6 at this grid's 100), an absolute error:
+    where both hit the same prim of the same instance, t agrees within
+    2e-4 of max(t, 1) over the cosine of the incidence, clamped at 0.05 (a
+    grazing ray's hit moves along the surface), on every ray. A near-tie is
+    a ray that passes within rounding of a triangle's edge (the shared edge
+    of two prims, a crack of the non-watertight Moeller test, or the
+    silhouette of a grazing ray: the least barycentric times the cosine
+    under 1e-3) or that starts within rounding of a surface (its hit under
+    1e-5 of its origin's distance from 0 away). Only there may the prim or
+    instance ids differ (then t is that of another triangle); a hit mask
+    may differ only where the ray starts on a surface (one side puts the
+    hit behind tnear) or at a silhouette (a near-tie at a cosine under
+    0.05). PERF.md section 4 gives the counts on the card behind each
+    part: a bound relative to t alone, or equal masks everywhere, fails
+    there. Returns the number of rays that differ and the hits in both."""
+    def cosine(h):
+        return (h.ng * rays.dir).sum(1).abs() / (
+            h.ng.norm(dim=1) * rays.dir.norm(dim=1)).clamp(min=1e-30)
+
+    def start(h):
+        return h.valid & (h.t * rays.dir.norm(dim=1) < 1e-5 * rays.org.norm(
+            dim=1).clamp(min=1.0))
+
+    def edge(h):
+        bary = torch.minimum(torch.minimum(h.u, h.v), 1.0 - h.u - h.v)
+        return h.valid & (bary.abs() * cosine(h) < 1e-3)
+    starts = start(a) | start(b)
+    near_tie = edge(a) | edge(b) | starts
+    silhouette = (edge(a) & (cosine(a) < 0.05)) | (
+        edge(b) & (cosine(b) < 0.05))
+    mask_diff = a.valid != b.valid
+    m = a.valid & b.valid
+    diff = m & ((a.prim_id != b.prim_id) | (a.inst_id != b.inst_id).any(1))
+    same = m & ~diff
+    dt = (a.t - b.t).abs() / b.t.abs().clamp(min=1.0)
+    scaled = dt * torch.minimum(cosine(a), cosine(b)).clamp(min=0.05)
+    far = same & (scaled > 2e-4)
+    bad = (mask_diff & ~(starts | silhouette)) | far | (diff & ~near_tie)
+    for i in torch.nonzero(bad).squeeze(1)[:4].tolist():
+        say(f"  ray {i}: " + "; ".join(
+            f"{n} valid {bool(h.valid[i])} t {float(h.t[i])!r} prim "
+            f"{int(h.prim_id[i])} u {float(h.u[i]):.3e} v "
+            f"{float(h.v[i]):.3e} cos {float(cosine(h)[i]):.3e}"
+            for n, h in (("two-level", a), ("flattened", b))))
+    check(not bool(bad.any()), f"{label}: {int(bad.sum())} rays differ "
+          "beyond the rule")
+    ties = int((mask_diff | diff).sum())
+    say(f"  {label}: {int(m.sum())} hits in both, {int(same.sum())} on the "
+        f"same prim, their t within 2e-4 of max(t, 1) over the cosine "
+        f"(max {scaled[same].max().item():.3e}); "
+        f"{int(mask_diff.sum())} hit masks differ ({int((mask_diff & starts).sum())} "
+        f"at a start, {int((mask_diff & silhouette & ~starts).sum())} at a "
+        f"silhouette) and {int(diff.sum())} prim or instance ids, all at "
+        f"near-ties ({int(near_tie.sum())} rays near an edge or their "
+        f"origin, {int(starts.sum())} of them at their origin)")
+    return ties, int(m.sum())
+
+
+def grid_transforms(seed=5):
+    """Phase 23's grid: GRID x GRID instances on the xz plane at spacing
+    GRID_SPACING, each turned by a random angle about y and scaled by
+    U(0.5, 1.2) (numpy seed 5)."""
+    rng = np.random.default_rng(seed)
+    n = GRID * GRID
+    ang = rng.uniform(0, 2 * np.pi, n)
+    sc = rng.uniform(0.5, 1.2, n)
+    c, s_ = np.cos(ang) * sc, np.sin(ang) * sc
+    xf = np.zeros((n, 3, 4), np.float32)
+    xf[:, 0, 0], xf[:, 0, 2] = c, s_
+    xf[:, 1, 1] = sc
+    xf[:, 2, 0], xf[:, 2, 2] = -s_, c
+    half = (GRID - 1) * GRID_SPACING / 2
+    ij = np.stack(np.meshgrid(np.arange(GRID), np.arange(GRID),
+                              indexing="ij"), -1).reshape(-1, 2)
+    xf[:, 0, 3] = ij[:, 0] * GRID_SPACING - half
+    xf[:, 2, 3] = ij[:, 1] * GRID_SPACING - half
+    return xf
+
+
+def box_rays(n, lo, up, seed=0):
+    """n rays with origins uniform over the box [lo, up] grown by 10% and
+    directions N(0, 1)^3 (numpy seed ``seed``)."""
+    rng = np.random.default_rng(seed)
+    lo, up = np.asarray(lo, np.float64), np.asarray(up, np.float64)
+    pad = 0.05 * (up - lo)
+    org = rng.uniform(lo - pad, up + pad, (n, 3)).astype(np.float32)
+    return org, rng.standard_normal((n, 3), dtype=np.float32)
+
+
+def phase_two_level(pt, tr, sphere_mesh, errs, out):
+    """Phase 23: the two-level cell."""
+    from embree_tpu_torch import tlas
+    say(f"phase 23: two-level cell: {GRID * GRID} instances of "
+        f"sphere_mesh{GRID_MESH} on a {GRID} x {GRID} grid and one of "
+        f"sphere_mesh{MAIN_MESH} above it, {TWO_LEVEL_RAYS} rays")
+    t_phase = time.perf_counter()
+    small = tri_scene(pt, *sphere_mesh(*GRID_MESH))
+    big = tri_scene(pt, *sphere_mesh(*MAIN_MESH))
+    blas_s = {}
+    cs_small, blas_s["small"] = commit_timed(small, "the grid's BLAS")
+    cs_big, blas_s["big"] = commit_timed(big, "the raised sphere's BLAS")
+    xfs = grid_transforms()
+    half = (GRID - 1) * GRID_SPACING / 2
+    big_xf = np.array([[BIG_SCALE, 0, 0, 0], [0, BIG_SCALE, 0, BIG_HEIGHT],
+                       [0, 0, BIG_SCALE, 0]], np.float32)
+    top = pt.Scene()
+    arr = top.attach(pt.InstanceArrayGeometry(cs_small, xfs))
+    one = top.attach(pt.InstanceGeometry(cs_big, big_xf))
+    ms, tl = host_ms(lambda: top.commit(device=DEV))
+    check(isinstance(tl, tlas.TwoLevelScene) and tl.n_children == 2
+          and tl.num_instances == GRID * GRID + 1,
+          "the grid did not commit two-level")
+    n_tris = GRID * GRID * cs_small.num_prims + cs_big.num_prims
+    say(f"  commit: BLASes {blas_s['small']:.3f} s + {blas_s['big']:.3f} s "
+        f"(apart), TLAS over {tl.num_instances} instances {ms / 1e3:.3f} s; "
+        f"{n_tris} instanced triangles")
+    # ---- REFIT: every transform moved, no BLAS rebuilt ----
+    ptrs = [(c.bvh.node_lower.data_ptr(), c.packed.nodes.data_ptr(),
+             c.packed.leaves.data_ptr()) for c in tl.children]
+    top.get(arr).transforms = xfs + np.float32(0)
+    top.get(arr).transforms[:, 1, 3] += np.float32(0.1)
+    top.get(one).transform = big_xf + np.float32(0)
+    top.get(one).transform[0, 3] += np.float32(0.5)
+    top.quality = pt.BuildQuality.REFIT
+    upd_ms, tl2 = host_ms(lambda: top.commit(device=DEV))
+    check(all(a is b for a, b in zip(tl2.children, tl.children))
+          and [(c.bvh.node_lower.data_ptr(), c.packed.nodes.data_ptr(),
+                c.packed.leaves.data_ptr()) for c in tl2.children] == ptrs,
+          "update_transforms rebuilt a BLAS")
+    say(f"  update_transforms after moving all {tl.num_instances} "
+        f"transforms: {upd_ms / 1e3:.3f} s, every BLAS tensor kept")
+    tl = tl2
+    lo = xfs[:, :, 3].min(0) - 1.2
+    up = xfs[:, :, 3].max(0) + 1.2
+    org, d = box_rays(TWO_LEVEL_RAYS, lo, up)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    # ---- the path: launch counts zeroed just before, read just after ----
+    tr.reset_launch_counts()
+    stats = []
+    hit = tlas.intersect_two_level(tl, rays, stats=stats)
+    occ = pt.occluded(tl, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  launches on the two-level path: {launches}")
+    check(launches.get("closest", 0) > 0, "the BLAS pass did not launch B1")
+    v = hit.valid
+    check(torch.equal(occ, v), "two-level: occluded disagrees")
+    check(bool(torch.isfinite(hit.t[v]).all()), "two-level: non-finite t")
+    check(bool(((hit.inst_id[v, 0] == arr) | (hit.inst_id[v, 0] == one))
+               .all()), "two-level: wrong instance ids")
+    say(f"  intersect: {int(v.sum())} of {TWO_LEVEL_RAYS} rays hit, "
+        f"{int((hit.inst_id[v, 0] == one).sum())} on the raised sphere")
+    for k, w in enumerate(stats):
+        say(f"  wave {k}: {w['rays']} rays, {w['collect_steps']} collect "
+            f"steps, {w['overflow']} overflowed, lanes per child "
+            f"{w.get('child_lanes')}, collect "
+            f"{w.get('collect_ms', math.nan):.3f} ms, BLAS pass "
+            f"{w.get('blas_ms', math.nan):.3f} ms")
+    del hit, occ, v
+    # ---- wave 1's BLAS launches against the plain version, and timed ----
+    flat = rays
+    cand, _, _ = tlas._collect_loop(tl, flat, tlas.MAX_CANDIDATES)
+    card = card_line()
+    child_ms = {}
+    for c, child in enumerate(tl.children):
+        lanes, rr = tlas.child_rays(tl, flat, cand, c)
+        inputs = sorted_inputs(tr, rr)
+        n = int(lanes.shape[0])
+        errs["closest"] = max(errs.get("closest", 0.0), compare(
+            tr, child.packed, inputs, min(n, TWO_LEVEL_COMPARE), False,
+            False, f"BLAS {c} (wave 0's {n} lanes): closest"))
+        child_ms[c] = events_ms(lambda: run_kernel(
+            tr, child.packed, inputs, occlusion=False), reps=3)
+        say(f"  BLAS {c}: kernel {child_ms[c]:.3f} ms on {n} object-space "
+            f"rays (wave 0) [{card}]")
+        del inputs, rr, lanes
+    del cand
+    torch.cuda.empty_cache()
+    entry = {"intersect": events_ms(lambda: pt.intersect(tl, rays), reps=3),
+             "occluded": events_ms(lambda: pt.occluded(tl, rays), reps=3)}
+    say(f"  entry points: intersect {entry['intersect']:.3f} ms, occluded "
+        f"{entry['occluded']:.3f} ms ({TWO_LEVEL_RAYS} rays) [{card}]")
+    del rays
+    torch.cuda.empty_cache()
+    # ---- two levels against the flattening of an 8 x 8 sub-grid ----
+    sub = xfs.reshape(GRID, GRID, 3, 4)[:SUB_GRID, :SUB_GRID].reshape(-1, 3, 4)
+    s2 = pt.Scene()
+    s2.attach(pt.InstanceArrayGeometry(small, sub))
+    tl_sub = s2.commit(device=DEV, two_level=True)
+    flat_ms, flat_sub = host_ms(lambda: s2.commit(device=DEV,
+                                                  two_level=False))
+    say(f"  the {SUB_GRID} x {SUB_GRID} sub-grid flattened: "
+        f"{flat_sub.num_prims} prims in {flat_ms / 1e3:.3f} s, table "
+        f"{table_mb(flat_sub.packed) / 1e6:.3f} MB")
+    org, d = box_rays(SUB_RAYS, sub[:, :, 3].min(0) - 1.2,
+                      sub[:, :, 3].max(0) + 1.2, seed=1)
+    rays = pt.make_rays(org, d, device=DEV)
+    a = pt.intersect(tl_sub, rays)
+    b = pt.intersect(flat_sub, rays)
+    ties, both = same_up_to_ties(a, b, rays, f"sub-grid ({SUB_GRID} x {SUB_GRID}, "
+                           f"{SUB_RAYS} rays): two levels against the "
+                           "flattening")
+    out["two_level"] = dict(
+        blas_commit_s=blas_s, tlas_s=ms / 1e3, update_s=upd_ms / 1e3,
+        instances=int(tl.num_instances), instanced_tris=int(n_tris),
+        waves=stats, child_kernel_ms=child_ms, entry_ms=entry,
+        near_ties=ties, sub_hits=both, card=card,
+        launches=launches)
+    out["two_level"]["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 23: {out['two_level']['phase_s']:.1f} s")
+    return launches
+
+
+def kernel_entries(record, errs, inst_launches=None):
     """One entry of the kernels line per timed variant, with the launches
-    of the path that timed it."""
+    of the path that timed it; each traversal variant also carries its
+    launches on the instance paths of phases 22-23
+    (``instance_launches``)."""
+    inst_launches = inst_launches or {}
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
@@ -2685,7 +3143,8 @@ def kernel_entries(record, errs):
             "replaces": REPLACES[family], "launches": rec["launches"],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "instance_launches": inst_launches.get(name, 0)})
     return kernels
 
 
@@ -2715,6 +3174,7 @@ def main():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())
     check_traverse_ptxas(ptxas)
+    check_traverse_sass(_build.ensure("traverse_cuda"))
     ptxas_ablate = _build.BUILD_LOGS.get("ablate_cuda", "")
     for line in ptxas_ablate.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
@@ -2751,12 +3211,17 @@ def main():
     builders = {}
     phase_builders(pt, tr, sphere_mesh, builders)
     phase_scene_api(pt, tr, sphere_mesh, builders)
+    instances = {}
+    inst_launches = phase_instances(pt, tr, sphere_mesh, errs, instances)
+    for k, n in phase_two_level(pt, tr, sphere_mesh, errs,
+                                instances).items():
+        inst_launches[k] = inst_launches.get(k, 0) + n
 
-    kernels = kernel_entries(record, errs)
+    kernels = kernel_entries(record, errs, inst_launches)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
-                   "builders": builders,
+                   "builders": builders, "instances": instances,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

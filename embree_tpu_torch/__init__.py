@@ -11,7 +11,9 @@ The port covers scenes of triangles, quads, points (sphere, disc, oriented
 disc), line segments (round, flat), cubic curves of every basis (flat,
 round, oriented and distance native curves; tessellated curves as line
 segments) and user geometry, static or moving, in normal and robust mode,
-with min-width, intersection filters and compact scenes: Scene -> commit
+with min-width, intersection filters and compact scenes, instanced
+(InstanceGeometry, InstanceArrayGeometry; transform and quaternion motion)
+by flattening or through a TLAS over shared BLASes (tlas.py): Scene -> commit
 (a BVH8 build on the JAX package's route: the binned-SAH builder on the
 device below 50,000 prims, the native builder above; HIGH pre-splits,
 REFIT refits; then record packing) -> intersect / occluded -> HitBatch, and
@@ -22,17 +24,24 @@ The package imports torch and numpy, never jax, and nothing of embree_tpu.
 """
 from .core.ray import (INVALID_ID, MAX_INSTANCE_LEVELS, HitBatch, RayBatch,
                        make_miss_hits, make_rays, select_hits)
-from .geometry import (CurveGeometry, GeometryBase, LineSegmentsGeometry,
-                       PointGeometry, QuadGeometry, TriangleGeometry,
-                       UserGeometry)
+from .core.math import (QuaternionDecomposition, affine_identity,
+                        qd_identity, qd_interpolate, quat_from_axis_angle,
+                        quat_identity)
+from .geometry import (CurveGeometry, GeometryBase, InstanceArrayGeometry,
+                       InstanceGeometry, LineSegmentsGeometry, PointGeometry,
+                       QuadGeometry, TriangleGeometry, UserGeometry)
 from .scene import (BuildQuality, CommitCancelled, CommittedScene, Scene,
                     from_arrays, intersect, intersect_brute, occluded)
+from .tlas import TwoLevelScene, two_level_from_arrays
 
 __all__ = [
     "BuildQuality", "CommitCancelled", "CommittedScene", "CurveGeometry",
-    "GeometryBase", "HitBatch",
-    "INVALID_ID", "LineSegmentsGeometry", "MAX_INSTANCE_LEVELS",
-    "PointGeometry", "QuadGeometry", "RayBatch", "Scene", "TriangleGeometry",
-    "UserGeometry", "from_arrays", "intersect", "intersect_brute",
-    "make_miss_hits", "make_rays", "occluded", "select_hits",
+    "GeometryBase", "HitBatch", "INVALID_ID", "InstanceArrayGeometry",
+    "InstanceGeometry", "LineSegmentsGeometry", "MAX_INSTANCE_LEVELS",
+    "PointGeometry", "QuadGeometry", "QuaternionDecomposition", "RayBatch",
+    "Scene", "TriangleGeometry", "TwoLevelScene", "UserGeometry",
+    "affine_identity", "from_arrays", "intersect", "intersect_brute",
+    "make_miss_hits", "make_rays", "occluded", "qd_identity",
+    "qd_interpolate", "quat_from_axis_angle", "quat_identity",
+    "select_hits", "two_level_from_arrays",
 ]

@@ -26,7 +26,9 @@ Every library goes into one build directory inside the package (``_build/``,
 listed in ``.gitignore``) and is rebuilt when it is missing or older than one
 of its sources. A build writes to a private temporary name and renames it
 into place, so processes that build at the same time never load a partial
-file.
+file. The compiler's output goes beside the library (``<library>.log``),
+so a process that finds the library up to date still reads its ptxas
+lines (``BUILD_LOGS``).
 """
 from __future__ import annotations
 
@@ -130,6 +132,18 @@ BUILD_LOGS: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
+def _log_path(t: Target) -> str:
+    return t.path + ".log"
+
+
+def _cached_log(name: str, t: Target) -> None:
+    """The compiler output of an up-to-date library, kept beside it when it
+    was built, so that a later process reads the same ptxas lines."""
+    if os.path.exists(_log_path(t)):
+        with open(_log_path(t)) as f:
+            BUILD_LOGS[name] = f.read()
+
+
 def _stale(t: Target) -> bool:
     if not os.path.exists(t.path):
         return True
@@ -176,6 +190,9 @@ def _finish(name: str, t: Target, started) -> None:
             os.remove(tmp)
         raise RuntimeError(f"building {name} failed (exit "
                            f"{max(codes)}):\n{log}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", _log_path(t))
     os.replace(tmp, t.path)
 
 
@@ -183,7 +200,9 @@ def ensure(name: str) -> str:
     """Path of the named library, built first if needed."""
     with _lock:
         started = _start(TARGETS[name])
-        if started is not None:
+        if started is None:
+            _cached_log(name, TARGETS[name])
+        else:
             _finish(name, TARGETS[name], started)
     return TARGETS[name].path
 
@@ -200,6 +219,7 @@ def build_all(names: Iterable[str],
         errors = []
         for n, s in started.items():
             if s is None:
+                _cached_log(n, targets[n])
                 continue
             try:
                 _finish(n, targets[n], s)

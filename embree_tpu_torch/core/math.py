@@ -1,11 +1,18 @@
-"""Vector math, the subset the triangle path uses.
+"""Vector math, the subset the port uses.
 
-Port of embree_tpu/core/math.py (:32-63, :88-91, :290-303). Every "vector" is a
-trailing-dim-3 tensor. Dot and cross products are written out component by
-component, so they sum in one fixed order on every device.
+Port of embree_tpu/core/math.py (:32-63, :88-91, :109-110, :196-288,
+:290-303). Every "vector" is a trailing-dim-3 tensor. Dot and cross
+products are written out component by component, so they sum in one fixed
+order on every device. Affines and quaternions (the instance transforms,
+resolved at commit on the host) are float32 numpy arrays: (3, 4) affines
+[linear | translation] and (4,) quaternions (w, x, y, z), each product
+written out and rounded term by term, without FMA.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 
@@ -120,3 +127,122 @@ def morton_code(p_norm):
     return ((_expand_bits_10(q[..., 0]) << 2)
             | (_expand_bits_10(q[..., 1]) << 1)
             | _expand_bits_10(q[..., 2]))
+
+
+# ---------------------------------------------------------------------------
+# affines and quaternions, host numpy (embree_tpu/core/math.py:109-110,
+# :196-288; reference common/math/quaternion.h, rtcore_quaternion.h)
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+
+
+def affine_identity():
+    """The (3, 4) identity affine."""
+    return np.concatenate([np.eye(3, dtype=_F), np.zeros((3, 1), _F)], -1)
+
+
+def _dot4(a, b):
+    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
+            + a[..., 2] * b[..., 2]) + a[..., 3] * b[..., 3]
+
+
+def quat_identity():
+    return np.array([1.0, 0.0, 0.0, 0.0], _F)
+
+
+def quat_from_axis_angle(axis, angle):
+    """The rotation by ``angle`` radians about ``axis`` (normalized here)."""
+    axis = np.asarray(axis, _F)
+    d = (axis[..., 0] * axis[..., 0] + axis[..., 1] * axis[..., 1]) \
+        + axis[..., 2] * axis[..., 2]
+    axis = axis * (_F(1) / np.sqrt(np.maximum(d, _F(1e-20))))[..., None]
+    half = _F(0.5) * np.asarray(angle, _F)
+    return np.concatenate([np.cos(half)[..., None],
+                           axis * np.sin(half)[..., None]], -1).astype(_F)
+
+
+def quat_mul(a, b):
+    a, b = np.asarray(a, _F), np.asarray(b, _F)
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return np.stack([
+        ((aw * bw - ax * bx) - ay * by) - az * bz,
+        ((aw * bx + ax * bw) + ay * bz) - az * by,
+        ((aw * by - ax * bz) + ay * bw) + az * bx,
+        ((aw * bz + ax * by) - ay * bx) + az * bw], -1)
+
+
+def quat_normalize(q):
+    q = np.asarray(q, _F)
+    n = np.maximum(_dot4(q, q), _F(1e-20))
+    return q * (_F(1) / np.sqrt(n))[..., None]
+
+
+def quat_slerp(q0, q1, t):
+    """Spherical lerp, nlerp where the two are nearly parallel."""
+    q0, q1 = np.asarray(q0, _F), np.asarray(q1, _F)
+    t = np.asarray(t, _F)
+    cosom = _dot4(q0, q1)
+    q1 = np.where(cosom[..., None] < 0, -q1, q1)
+    cosom = np.abs(cosom)
+    om = np.arccos(np.clip(cosom, _F(-1), _F(1)))
+    sinom = np.sin(om)
+    near = sinom < _F(1e-4)
+    safe = np.where(near, _F(1), sinom)
+    w0 = np.where(near, _F(1) - t, np.sin((_F(1) - t) * om) / safe)
+    w1 = np.where(near, t, np.sin(t * om) / safe)
+    return quat_normalize(w0[..., None] * q0 + w1[..., None] * q1)
+
+
+def quat_to_matrix(q):
+    q = np.asarray(q, _F)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    one, two = _F(1), _F(2)
+    return np.stack([
+        np.stack([one - two * (y * y + z * z), two * (x * y - w * z),
+                  two * (x * z + w * y)], -1),
+        np.stack([two * (x * y + w * z), one - two * (x * x + z * z),
+                  two * (y * z - w * x)], -1),
+        np.stack([two * (x * z - w * y), two * (y * z + w * x),
+                  one - two * (x * x + y * y)], -1)], -2)
+
+
+def _matvec3(m, v):
+    """m (..., 3, 3) times v (..., 3), each row summed left to right."""
+    return ((m[..., 0] * v[..., None, 0] + m[..., 1] * v[..., None, 1])
+            + m[..., 2] * v[..., None, 2])
+
+
+@dataclasses.dataclass
+class QuaternionDecomposition:
+    """A transform T * R(q) * S, interpolated component by component for
+    quaternion motion blur (RTCQuaternionDecomposition)."""
+    scale: np.ndarray        # (3, 4) upper-triangular scale/shear + shift
+    quat: np.ndarray         # (4,) (w, x, y, z)
+    translation: np.ndarray  # (3,)
+
+    def to_affine(self):
+        r = quat_to_matrix(quat_normalize(self.quat))
+        s = np.asarray(self.scale, _F)
+        # r @ s[:, :3], column by column
+        lin = np.stack([_matvec3(r, s[..., :, j]) for j in range(3)], -1)
+        t = _matvec3(r, s[..., :, 3]) + np.asarray(self.translation, _F)
+        return np.concatenate([lin, t[..., None]], -1).astype(_F)
+
+
+def qd_identity():
+    return QuaternionDecomposition(affine_identity(), quat_identity(),
+                                   np.zeros(3, _F))
+
+
+def qd_interpolate(qd0, qd1, t):
+    """Lerp scale and translation, slerp the rotation."""
+    t = _F(t)
+    a, b = np.asarray(qd0.scale, _F), np.asarray(qd1.scale, _F)
+    ta = np.asarray(qd0.translation, _F)
+    tb = np.asarray(qd1.translation, _F)
+    return QuaternionDecomposition(
+        scale=a * (_F(1) - t) + b * t,
+        quat=quat_slerp(qd0.quat, qd1.quat, t),
+        translation=ta * (_F(1) - t) + tb * t)

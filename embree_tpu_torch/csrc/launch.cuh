@@ -125,6 +125,28 @@ struct CudaScratchWarp : CudaWarp {
 // per SM) no faster. Static B1-B5 use 78-83 registers and 39 KB of shared
 // memory a block, so 5 blocks stay resident (20 warps per SM) at 3 or 4.
 constexpr int kMinBlocks = 4;
+// B6's 8 mixed-class variants (moving, kind tags, no curves) fill all 128
+// registers at kMinBlocks, and there ptxas left out a wait (fault C.2): in
+// the two masked closest-hit ones (robust or not) the pop's shared-memory
+// load of the next record (LDS) sets a dependency barrier that the loop's
+// next reads of that register never wait on. A load slower than the 19
+// instructions in between left the value set just before it, 0, the root,
+// so the ray walked the tree again (the same hit, twice the steps); a
+// bounds check that read the old value and an index that read the new one
+// could fetch a node outside the table (the illegal addresses).
+// perf/sass_hazards.py finds these 10 reads in each of the two at 4
+// blocks, and no hazard in any of the 72 instantiations at 3 (room for 168
+// registers), where ptxas places the waits. TRAV_MOTION_KINDS_MIN_BLOCKS
+// sets another bound, for that check.
+#ifndef TRAV_MOTION_KINDS_MIN_BLOCKS
+#define TRAV_MOTION_KINDS_MIN_BLOCKS 3
+#endif
+constexpr int kMotionKindsMinBlocks = TRAV_MOTION_KINDS_MIN_BLOCKS;
+
+template <bool KINDS, bool MOTION, bool CURVES>
+constexpr int min_blocks() {
+  return KINDS && MOTION && !CURVES ? kMotionKindsMinBlocks : kMinBlocks;
+}
 
 // Dynamic shared memory of a persistent block: the stacks, in curve scenes
 // the knot weights, and in curve scenes and static B1-B5 each warp's
@@ -142,7 +164,8 @@ size_t persistent_smem(const Params& p) {
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+__global__ void __launch_bounds__(kBlock,
+                                  min_blocks<KINDS, MOTION, CURVES>())
     persistent_kernel(Params p, int32_t* out_overflow, int32_t* next_ray,
                       unsigned long long* counts, int warps_per_sm) {
   // the stacks (kStack x kBlock, column-major), then in curve scenes the

@@ -1,10 +1,11 @@
 """Geometry types, the subset the port covers: triangles, quads, points, line
-segments, cubic curves and user geometry, static or moving.
+segments, cubic curves, user geometry and instances, static or moving.
 
 Port of embree_tpu/geometry.py:24-35 (kind tags), :40-106 (time steps) and
-:109-246 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
+:109-330 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
 ROUND/FLAT_LINEAR_CURVE, the *_BEZIER/BSPLINE/HERMITE/CATMULL_ROM_CURVE
-types and USER; role parity with kernels/common/scene_*.h).
+types, USER, INSTANCE and INSTANCE_ARRAY; role parity with
+kernels/common/scene_*.h).
 Buffers stay on the host (numpy or tensors); ``Scene.commit`` reads them.
 A buffer with a leading time axis, (S, n, C) with 2 <= S <= 129, declares
 S-step linear motion blur over the geometry's ``time_range``
@@ -226,3 +227,83 @@ class UserGeometry:
     @property
     def num_prims(self):
         return np.asarray(self.bounds_lower).shape[0]
+
+
+@dataclasses.dataclass
+class InstanceGeometry:
+    """RTC_GEOMETRY_TYPE_INSTANCE: a scene instanced under a transform.
+
+    Below ``scene.TWO_LEVEL_AUTO`` instances (or with
+    ``commit(two_level=False)``) commit flattens the instanced prims into
+    the top scene's one table in world space; hits report the instanced
+    scene's geometry id and this instance's id. From that many on (or with
+    ``two_level=True``) commit builds a TLAS over instance bounds above one
+    shared BLAS per child scene (``tlas.py``).
+
+    transform: a (3, 4) affine; an (S, 3, 4) stack of S motion steps (each
+    segment a linear matrix lerp); or a sequence of
+    ``core.math.QuaternionDecomposition`` for quaternion motion blur,
+    resampled onto a finer knot grid at commit (instance_transform_steps).
+    """
+    scene: object                # a Scene (or, two-level, a CommittedScene)
+    transform: object            # see the class docstring
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    # rtcSetGeometryTimeRange on the instance: its transform knots span
+    # [start, end], extrapolated linearly outside
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        return 0  # resolved at commit
+
+
+QUAT_RESAMPLE = 8   # sub-knots per quaternion motion segment
+
+
+def instance_transform_steps(g):
+    """An instance's transform as a (3, 4) static affine or an (S, 3, 4)
+    stack of knot affines (embree_tpu/geometry.py:282-314).
+
+    Quaternion decompositions are slerp-evaluated at QUAT_RESAMPLE
+    sub-knots per segment (halved until the knots fit MAX_TIME_STEPS) and
+    lerped linearly in between, a piecewise-linear approximation of the
+    rotation that rides the time-sliced machinery of multi-step motion."""
+    from .core.math import qd_interpolate
+    tr = g.transform
+    if isinstance(tr, (list, tuple)) and len(tr) and hasattr(tr[0], "quat"):
+        L = len(tr)
+        if L == 1:
+            return np.asarray(tr[0].to_affine(), np.float32)
+        q = QUAT_RESAMPLE
+        while (L - 1) * q + 1 > MAX_TIME_STEPS and q > 1:
+            q //= 2
+        mats = [np.asarray(qd_interpolate(tr[seg], tr[seg + 1],
+                                          j / q).to_affine(), np.float32)
+                for seg in range(L - 1) for j in range(q)]
+        mats.append(np.asarray(tr[-1].to_affine(), np.float32))
+        return np.stack(mats, axis=0)
+    a = np.asarray(tr, np.float32)
+    if a.ndim not in (2, 3) or a.shape[-2:] != (3, 4):
+        raise ValueError(f"transform must be (3, 4) or (S, 3, 4), got "
+                         f"{a.shape}")
+    if a.ndim == 3 and not 2 <= a.shape[0] <= MAX_TIME_STEPS:
+        raise ValueError(f"transform motion needs 2..{MAX_TIME_STEPS} "
+                         f"steps, got {a.shape[0]}")
+    return a
+
+
+@dataclasses.dataclass
+class InstanceArrayGeometry:
+    """RTC_GEOMETRY_TYPE_INSTANCE_ARRAY: one scene under N static
+    transforms; each counts as an instance, all report this geometry's
+    id."""
+    scene: object
+    transforms: object           # (N, 3, 4)
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        return 0

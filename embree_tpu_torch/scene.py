@@ -1,19 +1,20 @@
 """Scene: geometry container + commit (BVH build) + intersect/occluded queries.
 
-Port of embree_tpu/scene.py (:188-308 Scene, :323-819 merging, :878-1170
-finalize, :1172-1286 packing and the build route, :1310-1720 queries),
-without instances. Role parity with the reference runtime core
+Port of embree_tpu/scene.py (:188-308 Scene, :323-879 merging, :878-1170
+finalize, :1172-1303 packing, the build route and affines, :1310-1720
+queries). Role parity with the reference runtime core
 (kernels/common/scene.{h,cpp}, query dispatch kernels/common/rtcore.cpp:599
 rtcIntersect1):
 
 - ``Scene`` is the mutable host-side container of geometries, with an
   optional progress monitor that may cancel a commit (``CommitCancelled``).
 - ``Scene.commit(device=...)`` merges triangles, quads, points, line
-  segments, curves and user geometry, builds a BVH8 on the JAX package's
-  route (``_native_build_enabled``): below 50,000 prims the binned-SAH
-  builder and the BVH8 collapse run as torch ops on the commit's device
-  (16 SAH levels at MEDIUM, none at LOW; accel/sah.py, accel/collapse.py),
-  from 50,000 prims on the native builder runs on the host;
+  segments, curves, user geometry and instances, builds a BVH8 on the JAX
+  package's route (``_native_build_enabled``): below 50,000 prims the
+  binned-SAH builder and the BVH8 collapse run as torch ops on the commit's
+  device (16 SAH levels at MEDIUM, none at LOW; accel/sah.py,
+  accel/collapse.py), from 50,000 prims on the native builder runs on the
+  host;
   ``EMBREE_TPU_NATIVE_BUILD=0/1`` forces one. HIGH quality pre-splits
   large triangles first (accel/presplit.py), and REFIT re-fits the previous
   commit's tree on the device when the prim count is unchanged
@@ -45,9 +46,16 @@ rtcIntersect1):
   package. Filters take and return torch tensors on the scene's device, in
   the JAX package's two calling conventions.
 
+- Instances (``InstanceGeometry``, ``InstanceArrayGeometry``, at most two
+  levels; transform and quaternion motion): below TWO_LEVEL_AUTO instances
+  commit flattens them into the one table in world space, each prim with
+  its instance id stack and composed mask, the window split at every knot
+  of the instance's subtree; from there on, or with ``two_level=True``, it
+  returns a ``tlas.TwoLevelScene`` (a TLAS over shared BLASes), which
+  ``intersect`` and ``occluded`` take too.
+
 What the port does not cover yet, commit refuses with NotImplementedError:
-grids, subdivision, instances and two-level scenes (so quaternion and
-transform motion).
+grids and subdivision.
 """
 from __future__ import annotations
 
@@ -76,9 +84,11 @@ from .geometry import (KIND_CURVE_DISTANCE, KIND_CURVE_FLAT,
                        KIND_CURVE_ORIENTED, KIND_CURVE_ROUND, KIND_DISC,
                        KIND_FLAT_LINE, KIND_ORIENTED_DISC, KIND_QUAD,
                        KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE, KIND_USER,
-                       CurveGeometry, LineSegmentsGeometry, PointGeometry,
+                       CurveGeometry, InstanceArrayGeometry,
+                       InstanceGeometry, LineSegmentsGeometry, PointGeometry,
                        QuadGeometry, TriangleGeometry, UserGeometry,
-                       _split_timesteps, motion_knots)
+                       _sample_steps, _split_timesteps,
+                       instance_transform_steps, motion_knots)
 from .native import build_bvh8_native
 from .ops import curve as curve_ops
 from .ops import line as line_ops
@@ -91,6 +101,9 @@ LEAF_SIZE = 8
 # the build route's threshold: from this many prims on, commit builds with
 # the native builder, below it with the SAH builder (scene.py:1274-1286)
 NATIVE_BUILD_MIN_PRIMS = 50000
+# the automatic two-level threshold (scene.py:320): flattening copies a
+# child's prims once per instance, the TLAS path shares one BLAS
+TWO_LEVEL_AUTO = 16
 # SAH levels of the builder by quality (scene.py:1041)
 SAH_TOP_LEVELS = 16
 # the kinds the packed kernel serves (scene.py:1172-1187). Round curves
@@ -246,18 +259,62 @@ def _refuse(what: str):
         f"embree_tpu_torch does not cover {what} yet (see ROADMAP.md)")
 
 
+def _xf_points(xf, pts):
+    """Points under an instance's (3, 4) affine, None for none
+    (scene.py:370-374): the JAX merger's numpy expression, so the flattened
+    tables are bit-equal to its."""
+    if xf is None:
+        return pts
+    return pts @ np.asarray(xf)[:3, :3].T + np.asarray(xf)[:3, 3]
+
+
+def _xf_scale(xf):
+    """The uniform scale of an affine, for the radii of round prims
+    (scene.py:376-383): exact for similarity transforms only, as in the
+    JAX package's flattening; the two-level path traces radii exactly."""
+    if xf is None:
+        return 1.0
+    return float(abs(np.linalg.det(np.asarray(xf)[:3, :3]))) ** (1.0 / 3.0)
+
+
+def _xf_normals(xf, n):
+    """Normals under an instance: the rows times the inverse of the linear
+    part (scene.py:508-511)."""
+    if xf is None:
+        return n
+    return n @ np.linalg.inv(np.asarray(xf)[:3, :3]).astype(np.float32)
+
+
+def _compose_affine(a, b):
+    """(a . b)(x) = a(b(x)) of two (3, 4) affines (scene.py:1298-1303)."""
+    out = np.zeros((3, 4), np.float32)
+    out[:3, :3] = a[:3, :3] @ b[:3, :3]
+    out[:3, 3] = a[:3, :3] @ b[:3, 3] + a[:3, 3]
+    return out
+
+
+_INSTANCES = (InstanceGeometry, InstanceArrayGeometry)
+_MERGED = (TriangleGeometry, QuadGeometry, PointGeometry,
+           LineSegmentsGeometry, CurveGeometry, UserGeometry) + _INSTANCES
+
+
 class _Merger:
-    """The merged prim table (scene.py:323-579 and :806-815).
+    """The merged prim table (scene.py:323-879).
 
     Every emitted prim carries the current time window. A geometry's
     ``time_range`` clips that window and drops the geometry when the two do
     not overlap; an S-step buffer splits it at the buffer's interior knots,
     one prim copy per linear segment (``_segmented``). A geometry's filter
     takes a slot, shared by every geometry with the same callable
-    (scene.py:456-469), that its prims carry."""
+    (scene.py:456-469), that its prims carry. Instances are flattened: the
+    child scene's prims are added in world space under the instance's
+    transform at the window's two ends, the window first split at every
+    knot of the instance's subtree, with the instance id stack and the
+    composed mask (at most two levels)."""
 
     def __init__(self):
-        # (n, 6): kind, gid, local id, data, mask, filter slot
+        # (n, 8): kind, gid, local id, data, mask, filter slot, instance
+        # ids of levels 0 and 1 (INVALID_ID where absent)
         self.rows = []
         self.tab = {k: [] for k in _TABLES}
         self.count = {"tri": 0, "quad": 0, "pnt": 0, "line": 0, "curve": 0,
@@ -274,14 +331,16 @@ class _Merger:
         self._window = (0.0, 1.0)
         self._trange = (0.0, 1.0)   # time_range of the geometry being added
 
-    def _emit(self, kind, gid, n, group, mask):
-        r = np.empty((n, 6), np.int64)
+    def _emit(self, kind, gid, n, group, mask, inst_stack):
+        r = np.empty((n, 8), np.int64)
         r[:, 0] = kind
         r[:, 1] = gid
         r[:, 2] = np.arange(n)
         r[:, 3] = self.count[group] + np.arange(n)
         r[:, 4] = int(mask) & 0xFFFFFFFF
         r[:, 5] = self._fidx
+        r[:, 6] = inst_stack[0] if len(inst_stack) > 0 else INVALID_ID
+        r[:, 7] = inst_stack[1] if len(inst_stack) > 1 else INVALID_ID
         self.rows.append(r)
         self.windows.append(np.tile(np.asarray(self._window, np.float32),
                                     (n, 1)))
@@ -314,49 +373,147 @@ class _Merger:
     def total(self):
         return sum(len(r) for r in self.rows)
 
-    def add(self, g, gid):
-        if not isinstance(g, (TriangleGeometry, QuadGeometry, PointGeometry,
-                              LineSegmentsGeometry, CurveGeometry,
-                              UserGeometry)):
+    def add(self, g, gid, inst_stack=(), inst_mask=0xFFFFFFFF, xf=None,
+            xfb=None):
+        """Add g, instanced under ``xf`` and ``xfb`` (the transforms at the
+        current window's two ends) with the instance ids ``inst_stack`` and
+        the instances' composed mask (scene.py:400-470)."""
+        if not isinstance(g, _MERGED):
             _refuse(type(g).__name__)
         # the geometry exists only within its time range (scene.py:403-418)
         tr = tuple(float(x) for x in g.time_range)
         cw = (max(self._window[0], tr[0]), min(self._window[1], tr[1]))
         if cw[0] > cw[1]:
             return
-        # filters are deduped by callable identity (scene.py:456-469)
-        self._fidx = -1
-        if g.filter is not None:
-            for fi, (_, fn) in enumerate(self.filters):
-                if fn is g.filter:
-                    self._fidx = fi
-                    break
-            else:
-                self.filters.append((gid, g.filter))
-                self._fidx = len(self.filters) - 1
         outer = self._window
         self._window = cw
-        self._trange = tr
         try:
+            if isinstance(g, InstanceGeometry):
+                # split at every knot of the subtree, so that each
+                # sub-window is linear in every sampled quantity
+                knots = self._subtree_knots(g)
+                if knots:
+                    self._segmented(knots, lambda: self._add_instance(
+                        g, gid, inst_stack))
+                else:
+                    self._add_instance(g, gid, inst_stack)
+                return
+            if isinstance(g, InstanceArrayGeometry):
+                for t in np.asarray(g.transforms, np.float32):
+                    self._add_instance_xf(g.scene, gid, inst_stack, g.mask,
+                                          t, t)
+                return
+            # filters are deduped by callable identity (scene.py:456-469)
+            self._fidx = -1
+            if g.filter is not None:
+                for fi, (_, fn) in enumerate(self.filters):
+                    if fn is g.filter:
+                        self._fidx = fi
+                        break
+                else:
+                    self.filters.append((gid, g.filter))
+                    self._fidx = len(self.filters) - 1
+            self._trange = tr
             knots = motion_knots([getattr(g, a, None) for a in
                                   ("vertices", "points", "normals",
                                    "tangents")],
                                  self._window, self._trange)
+            mask = int(g.mask) & int(inst_mask)
+            xfb = xf if xfb is None else xfb
+
+            def emit():
+                self._add_window(g, gid, inst_stack, mask, xf, xfb)
             if knots:
-                self._segmented(knots, lambda: self._add_window(g, gid))
+                self._segmented(knots, emit)
             else:
-                self._add_window(g, gid)
+                emit()
         finally:
             self._window = outer
 
-    def _add_window(self, g, gid):
+    def _add_instance(self, g, gid, inst_stack):
+        """An instance whose window holds no knot of its subtree: its
+        transform sampled at the window's ends (scene.py:432-436)."""
+        xfs = instance_transform_steps(g)
+        tr = tuple(float(x) for x in g.time_range)
+        self._add_instance_xf(g.scene, gid, inst_stack, g.mask,
+                              _sample_steps(xfs, self._window[0], tr),
+                              _sample_steps(xfs, self._window[1], tr))
+
+    def _subtree_knots(self, g):
+        """Interior knot times over an instance's subtree: its own
+        transform steps, every descendant buffer and every nested
+        transform (scene.py:820-849)."""
+        pairs = []   # (array, its geometry's time_range)
+
+        def walk_geom(cg):
+            tr = tuple(getattr(cg, "time_range", (0.0, 1.0)))
+            if isinstance(cg, InstanceGeometry):
+                xfs = instance_transform_steps(cg)
+                pairs.append((xfs if xfs.ndim == 3 else None, tr))
+                walk_scene(cg.scene)
+            elif isinstance(cg, InstanceArrayGeometry):
+                walk_scene(cg.scene)
+            else:
+                for a in ("vertices", "points", "normals", "tangents"):
+                    pairs.append((getattr(cg, a, None), tr))
+
+        def walk_scene(s):
+            for _, cg in sorted(s._geoms.items()):
+                if getattr(cg, "enabled", True):
+                    walk_geom(cg)
+
+        walk_geom(g)
+        ks = set()
+        for a, tr in pairs:
+            ks.update(motion_knots([a], self._window, tr))
+        return sorted(ks)
+
+    def _add_instance_xf(self, child_scene, gid, inst_stack, mask, xf0, xf1):
+        """The child scene's geometries under xf0 / xf1 at the window's
+        ends, nested instances composed (scene.py:851-875)."""
+        if len(inst_stack) >= MAX_INSTANCE_LEVELS:
+            raise ValueError(f"at most {MAX_INSTANCE_LEVELS} instancing "
+                             "levels (MAX_INSTANCE_LEVELS)")
+        if isinstance(child_scene, CommittedScene):
+            raise TypeError("a flattened instance needs its Scene, not a "
+                            "CommittedScene (commit with two_level=True)")
+        for cgid, cg in sorted(child_scene._geoms.items()):
+            if not getattr(cg, "enabled", True):
+                continue
+            if isinstance(cg, InstanceGeometry):
+                # nested transforms sampled at the current window's ends
+                # (the outer level split the window at their knots)
+                sub = instance_transform_steps(cg)
+                ctr = tuple(getattr(cg, "time_range", (0.0, 1.0)))
+                s0 = _sample_steps(sub, self._window[0], ctr)
+                s1 = _sample_steps(sub, self._window[1], ctr)
+                self._add_instance_xf(cg.scene, cgid, inst_stack + (gid,),
+                                      mask & cg.mask,
+                                      _compose_affine(xf0, s0),
+                                      _compose_affine(xf1, s1))
+            elif isinstance(cg, InstanceArrayGeometry):
+                for t in np.asarray(cg.transforms, np.float32):
+                    self._add_instance_xf(cg.scene, cgid, inst_stack + (gid,),
+                                          mask & cg.mask,
+                                          _compose_affine(xf0, t),
+                                          _compose_affine(xf1, t))
+            else:
+                self.add(cg, cgid, inst_stack + (gid,), mask, xf0, xf1)
+
+    def _add_window(self, g, gid, inst_stack, mask, xf, xfb):
         """Emit g's prims for the current window, whose buffers are linear
-        in time (scene.py:474-579)."""
+        in time, under xf / xfb (scene.py:471-815)."""
+        if xf is not None and not np.array_equal(xf, xfb):
+            self.has_motion = True
+
+        def emit(kind, n, group):
+            self._emit(kind, gid, n, group, mask, inst_stack)
         if isinstance(g, TriangleGeometry):
             va, vb = self._steps(g.vertices, "vertices")
             idx = np.asarray(g.indices, np.int64)
-            ta, tb = va[idx], vb[idx]                         # (n, 3, 3)
-            self._emit(KIND_TRIANGLE, gid, ta.shape[0], "tri", g.mask)
+            ta = _xf_points(xf, va[idx])                      # (n, 3, 3)
+            tb = _xf_points(xfb, vb[idx])
+            emit(KIND_TRIANGLE, ta.shape[0], "tri")
             self._put(tri_v0=ta[:, 0], tri_v1=ta[:, 1], tri_v2=ta[:, 2],
                       tri_v0b=tb[:, 0], tri_v1b=tb[:, 1], tri_v2b=tb[:, 2])
         elif isinstance(g, QuadGeometry):
@@ -365,31 +522,39 @@ class _Merger:
             n = idx.shape[0]
             uvm = np.zeros((n, 6), np.float32)                # :1289-1295
             uvm[:, 2] = uvm[:, 5] = 1.0
-            self._emit(KIND_QUAD, gid, n, "quad", g.mask)
-            self._put(quad_v=va[idx], quad_vb=vb[idx], quad_uvm=uvm)
+            emit(KIND_QUAD, n, "quad")
+            self._put(quad_v=_xf_points(xf, va[idx]),
+                      quad_vb=_xf_points(xfb, vb[idx]), quad_uvm=uvm)
         elif isinstance(g, PointGeometry):
             pa, pb = self._steps(g.points, "points")
             n = pa.shape[0]
+            s = _xf_scale(xf)
             if g.normals is not None:
                 na, nb = self._steps(g.normals, "normals")
             else:
                 na = nb = np.tile(np.array([[0, 0, 1]], np.float32), (n, 1))
-            self._emit(_POINT_KINDS[g.kind], gid, n, "pnt", g.mask)
-            self._put(pnt_c=pa[:, :3], pnt_r=pa[:, 3], pnt_n=na,
-                      pnt_cb=pb[:, :3], pnt_rb=pb[:, 3], pnt_nb=nb)
+            emit(_POINT_KINDS[g.kind], n, "pnt")
+            self._put(pnt_c=_xf_points(xf, pa[:, :3]), pnt_r=pa[:, 3] * s,
+                      pnt_n=_xf_normals(xf, na),
+                      pnt_cb=_xf_points(xfb, pb[:, :3]), pnt_rb=pb[:, 3] * s,
+                      pnt_nb=_xf_normals(xf, nb))
         elif isinstance(g, CurveGeometry):
-            self._add_curves(g, gid)
+            self._add_curves(g, emit, xf, xfb)
         elif isinstance(g, UserGeometry):
             # user bounds and the intersect function (scene.py:806-815)
+            if xf is not None:
+                raise AssertionError(
+                    "instanced user geometry is not supported yet")
             lo = np.asarray(g.bounds_lower, np.float32).reshape(-1, 3)
             up = np.asarray(g.bounds_upper, np.float32).reshape(-1, 3)
             self.user_fns.append((gid, g.intersect_fn))
-            self._emit(KIND_USER, gid, lo.shape[0], "user", g.mask)
+            emit(KIND_USER, lo.shape[0], "user")
             self._put(user_lo=lo, user_up=up)
         else:
             va, vb = self._steps(g.vertices, "vertices")
             idx = np.asarray(g.indices, np.int64)
             n = idx.shape[0]
+            s = _xf_scale(xf)
             kind = KIND_ROUND_LINE if g.kind == "round" else KIND_FLAT_LINE
             # a begin sphere exists only where no segment ends at our start
             # (roundline_intersector.h isBeginPoint); neighbor far endpoints
@@ -404,32 +569,34 @@ class _Merger:
                 # tests the first time step only (scene.py:545-557)
                 seg_len = np.linalg.norm(va[idx + 1, :3] - va[idx, :3],
                                          axis=-1)
-                rj = np.maximum(va[idx, 3], va[idx + 1, 3])
+                rj = np.maximum(va[idx, 3], va[idx + 1, 3]) \
+                    * np.maximum(s, 1e-30)
                 self.fat_round_joints |= bool(
                     ((has_left | has_right) & (rj > 0.5 * seg_len)).any())
-            self._emit(kind, gid, n, "line", g.mask)
-            for sfx, v in (("", va), ("b", vb)):
-                self._put(**{"line_p0" + sfx: v[idx, :3],
-                             "line_r0" + sfx: v[idx, 3],
-                             "line_p1" + sfx: v[idx + 1, :3],
-                             "line_r1" + sfx: v[idx + 1, 3],
-                             "line_pL" + sfx: v[il, :3],
-                             "line_rL" + sfx: np.where(has_left, v[il, 3],
-                                                       -1.0),
-                             "line_pR" + sfx: v[ir, :3],
-                             "line_rR" + sfx: np.where(has_right, v[ir, 3],
-                                                       -1.0)})
+            emit(kind, n, "line")
+            for sfx, v, x in (("", va, xf), ("b", vb, xfb)):
+                self._put(**{"line_p0" + sfx: _xf_points(x, v[idx, :3]),
+                             "line_r0" + sfx: v[idx, 3] * s,
+                             "line_p1" + sfx: _xf_points(x, v[idx + 1, :3]),
+                             "line_r1" + sfx: v[idx + 1, 3] * s,
+                             "line_pL" + sfx: _xf_points(x, v[il, :3]),
+                             "line_rL" + sfx: np.where(has_left,
+                                                       v[il, 3] * s, -1.0),
+                             "line_pR" + sfx: _xf_points(x, v[ir, :3]),
+                             "line_rR" + sfx: np.where(has_right,
+                                                       v[ir, 3] * s, -1.0)})
             self._put(line_fl=has_left, line_u0=np.zeros(n),
                       line_u1=np.ones(n))
 
-    def _add_curves(self, g, gid):
+    def _add_curves(self, g, emit, xf, xfb):
         """Native curves: one prim per curve, its world-space Bezier CPs at
         both steps (hermite as p, tangent, p, tangent), its normal spline
         (oriented curves; zero when the geometry has no normals) and its
         rate. Tessellated curves (or the linear basis):
         ``tessellation_rate`` line segments per curve, prim id = curve
         index, curve-global u, neighbor tables within the curve
-        (scene.py:581-701)."""
+        (scene.py:581-701). Instanced: points under xf / xfb, radii by the
+        uniform scale, normals by the inverse linear part."""
         cps, cpsb = self._steps(g.vertices, "vertices")
         idx = np.asarray(g.indices, np.int64)
         if g.basis == curve_ops.BASIS_HERMITE:
@@ -440,6 +607,7 @@ class _Merger:
         else:
             gather = idx[:, None] + np.arange(4)[None, :]
             cp, cpb = cps[gather], cpsb[gather]
+        s = _xf_scale(xf)
         if (g.algorithm in ("native", "distance")
                 and g.basis != curve_ops.BASIS_LINEAR):
             kind = (KIND_CURVE_DISTANCE if g.algorithm == "distance" else
@@ -465,21 +633,27 @@ class _Merger:
                 else:
                     gather = idx[:, None] + np.arange(4)[None, :]
                     ncp, ncpb = nr[gather], nrb[gather]
-                nbez = curve_ops.to_bezier(g.basis,
-                                           torch.from_numpy(ncp)).numpy()
-                nbezb = curve_ops.to_bezier(g.basis,
-                                            torch.from_numpy(ncpb)).numpy()
+                nbez = _xf_normals(xf, curve_ops.to_bezier(
+                    g.basis, torch.from_numpy(ncp)).numpy())
+                nbezb = _xf_normals(xf, curve_ops.to_bezier(
+                    g.basis, torch.from_numpy(ncpb)).numpy())
             else:
                 nbez = nbezb = np.zeros((n, 4, 3), np.float32)
-            self._emit(kind, gid, n, "curve", g.mask)
+            bez = np.array(curve_ops.to_bezier(
+                g.basis, torch.from_numpy(cp)).numpy())
+            bezb = np.array(curve_ops.to_bezier(
+                g.basis, torch.from_numpy(cpb)).numpy())
+            if xf is not None:
+                # every Bezier row is a point (hermite tangents became
+                # positions in to_bezier), scene.py:590-593
+                for arr, x in ((bez, xf), (bezb, xfb)):
+                    arr[..., :3] = _xf_points(x, arr[..., :3])
+                    arr[..., 3] *= s
+            emit(kind, n, "curve")
             rate = int(g.tessellation_rate)
             self.curve_rate = max(self.curve_rate, rate)
-            self._put(curve_cp=curve_ops.to_bezier(
-                          g.basis, torch.from_numpy(cp)).numpy(),
-                      curve_cpb=curve_ops.to_bezier(
-                          g.basis, torch.from_numpy(cpb)).numpy(),
-                      curve_n=nbez, curve_nb=nbezb,
-                      curve_prate=np.full(n, rate))
+            self._put(curve_cp=bez, curve_cpb=bezb, curve_n=nbez,
+                      curve_nb=nbezb, curve_prate=np.full(n, rate))
             return
         rate = int(g.tessellation_rate)
         p0, r0, p1, r1, u0, u1 = (x.numpy() for x in
@@ -499,21 +673,26 @@ class _Merger:
             # rate > 1 as a joint (ROADMAP C), so the port routes exactly
             # the scenes the JAX package sends to its generic engine
             seg_len = np.linalg.norm(p1 - p0, axis=-1)
-            rj = np.maximum(r0, r1)
+            rj = np.maximum(r0, r1) * np.maximum(s, 1e-30)
             self.fat_round_joints |= bool(
                 ((has_left | has_right) & (rj > 0.5 * seg_len)).any())
-        self._emit(kind, gid, n, "line", g.mask)
+        emit(kind, n, "line")
         self.rows[-1][:, 2] = np.repeat(np.arange(idx.shape[0]), rate)
-        for sfx, (a0, b0, a1, b1) in (("", (p0, r0, p1, r1)),
-                                      ("b", (p0b, r0b, p1b, r1b))):
-            self._put(**{"line_p0" + sfx: a0, "line_r0" + sfx: b0,
-                         "line_p1" + sfx: a1, "line_r1" + sfx: b1,
-                         "line_pL" + sfx: np.roll(a0, 1, axis=0),
-                         "line_rL" + sfx: np.where(has_left, np.roll(b0, 1),
-                                                   -1.0),
-                         "line_pR" + sfx: np.roll(a1, -1, axis=0),
+        for sfx, x, (a0, b0, a1, b1) in (("", xf, (p0, r0, p1, r1)),
+                                         ("b", xfb, (p0b, r0b, p1b, r1b))):
+            self._put(**{"line_p0" + sfx: _xf_points(x, a0),
+                         "line_r0" + sfx: b0 * s,
+                         "line_p1" + sfx: _xf_points(x, a1),
+                         "line_r1" + sfx: b1 * s,
+                         "line_pL" + sfx: _xf_points(x, np.roll(a0, 1,
+                                                                axis=0)),
+                         "line_rL" + sfx: np.where(has_left,
+                                                   np.roll(b0, 1) * s, -1.0),
+                         "line_pR" + sfx: _xf_points(x, np.roll(a1, -1,
+                                                                axis=0)),
                          "line_rR" + sfx: np.where(has_right,
-                                                   np.roll(b1, -1), -1.0)})
+                                                   np.roll(b1, -1) * s,
+                                                   -1.0)})
         self._put(line_fl=has_left, line_u0=u0, line_u1=u1)
 
     def curve_rates(self):
@@ -578,16 +757,45 @@ class Scene:
     def get(self, geom_id: int):
         return self._geoms[geom_id]
 
-    def commit(self, device=None, two_level: bool = None) -> CommittedScene:
+    def commit(self, device=None, two_level: bool = None):
         """Merge geometries, build + pack the BVH (rtcCommitScene analog) on
         ``device`` (CUDA unless the caller passes device='cpu'). The SAH
         builder and the refit run there; the native builder, the packer and
         the hair tier's OBB fit run on the host. The progress monitor sees
         0.0, 0.25 (merged), 0.5 (bounds), 0.8 (built) and 1.0, as in the JAX
-        package (scene.py:279, :287, :967, :1056, :1162)."""
+        package (scene.py:279, :287, :967, :1056, :1162).
+
+        two_level: True commits through the TLAS/BLAS path (``tlas.py``:
+        one shared BLAS per child scene, a TLAS over instance bounds) and
+        returns a TwoLevelScene, which ``intersect`` and ``occluded`` take
+        too; False flattens instances into one table; None (the default)
+        takes the TLAS path from TWO_LEVEL_AUTO instances on (an instance
+        array counts its transforms), as the JAX package does
+        (scene.py:258-278). A REFIT commit of a two-level scene whose
+        instances and children are unchanged refreshes the transforms and
+        the TLAS only (``tlas.update_transforms``); any other change
+        rebuilds."""
         dev = resolve_device(device)
+        if two_level is None:
+            n_inst = sum(
+                (np.asarray(g.transforms).shape[0]
+                 if isinstance(g, InstanceArrayGeometry) else 1)
+                for g in self._geoms.values()
+                if isinstance(g, _INSTANCES) and getattr(g, "enabled", True))
+            two_level = n_inst >= TWO_LEVEL_AUTO
         if two_level:
-            _refuse("two-level (instanced) scenes")
+            from . import tlas
+            prev = self.committed
+            if (isinstance(prev, tlas.TwoLevelScene)
+                    and self.quality == BuildQuality.REFIT
+                    and prev.device == dev):
+                try:
+                    self.committed = tlas.update_transforms(prev, self)
+                    return self.committed
+                except tlas.TopologyChanged:
+                    pass          # a full rebuild below
+            self.committed = tlas.build_two_level(self, device=dev)
+            return self.committed
         self._progress(0.0)
         m = _Merger()
         for gid, g in sorted(self._geoms.items()):
@@ -899,7 +1107,7 @@ def _finalize(m: _Merger, device, quality, *, threads, robust, min_width,
     obb = _hair_obbs(rows, tab, np.float32(mrs), nc, order,
                      presplit=ref_ids is not None)
     prims = dict(kind=kind, geom=rows[:, 1], local=rows[:, 2],
-                 inst=np.full((T, MAX_INSTANCE_LEVELS), INVALID_ID, np.int64),
+                 inst=rows[:, 6:8],
                  data=rows[:, 3], mask=rows[:, 4], t0=windows[:, 0],
                  t1=windows[:, 1], filter=rows[:, 5])
     cs = _to_device(bvh, prims, tab, packed, kinds_present, robust,
@@ -1112,6 +1320,15 @@ def _select(scene: CommittedScene, flat: RayBatch, occlusion: bool,
     return best
 
 
+def _two_level_defaults(backend, differentiable) -> None:
+    """A two-level scene's queries run each BLAS through ``intersect`` with
+    its default arguments, as the JAX package's do; other arguments are
+    refused rather than ignored."""
+    if backend is not None or not differentiable:
+        raise ValueError("a two-level scene takes intersect/occluded with "
+                         "the default backend and differentiable=True")
+
+
 def intersect(scene: CommittedScene, rays: RayBatch,
               backend: Optional[str] = None,
               differentiable: bool = True) -> HitBatch:
@@ -1129,6 +1346,10 @@ def intersect(scene: CommittedScene, rays: RayBatch,
     re-intersect the winning primitive as above. A compact scene, which
     has no triangle tables, always takes the fast path (scene.py:1603).
     """
+    if not isinstance(scene, CommittedScene):   # a TwoLevelScene
+        _two_level_defaults(backend, differentiable)
+        from .tlas import intersect_two_level
+        return intersect_two_level(scene, rays)
     shape, flat = _flat(scene, rays)
     kernel = _use_kernel(scene, backend)
     fast = not differentiable or scene.compact
@@ -1163,6 +1384,10 @@ def intersect(scene: CommittedScene, rays: RayBatch,
 def occluded(scene: CommittedScene, rays: RayBatch,
              backend: Optional[str] = None) -> torch.Tensor:
     """Any-hit query. Returns a bool tensor of the rays' shape."""
+    if not isinstance(scene, CommittedScene):   # a TwoLevelScene
+        _two_level_defaults(backend, True)
+        from .tlas import occluded_two_level
+        return occluded_two_level(scene, rays)
     shape, flat = _flat(scene, rays)
     with torch.no_grad():
         best = _select(scene, flat, True, backend)

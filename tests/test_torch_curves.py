@@ -712,8 +712,7 @@ def _served(case):
 
 CURVE_CASES = ["round", "oriented", "distance", "mixed_rates", "fat_joint"]
 # what each case is committed with: the port refused all of it until it
-# covered filters, compact scenes, HIGH and REFIT; two-level scenes it
-# still refuses
+# covered filters, compact scenes, HIGH and REFIT, and two-level scenes
 REFUSED_WITH = {"round": "filter", "oriented": "compact", "distance": "high",
                 "mixed_rates": "refit", "fat_joint": "two_level"}
 
@@ -723,8 +722,10 @@ def test_refused_curves(case):
     """The curve scenes the generic engine serves, committed with an
     intersection filter, as a compact scene, at HIGH or REFIT quality:
     each commits without a packed table (compact keeps its tables: it
-    drops only a packed triangle scene's) and agrees with brute force. A
-    two-level scene raises NotImplementedError."""
+    drops only a packed triangle scene's) and agrees with brute force.
+    Committed two-level, the curves go into the implicit identity
+    instance's BLAS, which has no packed table either, and the hits agree
+    with brute force on the same scene flattened."""
     how = REFUSED_WITH[case]
     s = pt.Scene(compact=how == "compact",
                  quality={"high": pt.BuildQuality.HIGH,
@@ -734,18 +735,20 @@ def test_refused_curves(case):
         if how == "filter":
             g.filter = lambda *a: True
         s.attach(g)
-    if how == "two_level":
-        with pytest.raises(NotImplementedError):
-            s.commit(device="cpu", two_level=True)
-        return
-    cs = s.commit(device="cpu")
+    cs = s.commit(device="cpu", two_level=how == "two_level" or None)
     if how == "refit":                # the second commit refits the first
         cs = s.commit(device="cpu")
-    assert cs.packed is None and not cs.compact
+    flat = cs
+    if how == "two_level":
+        assert isinstance(cs, pt.TwoLevelScene) and cs.n_children == 1
+        flat = s.commit(device="cpu", two_level=False)
+        cs_blas = cs.children[0]
+        assert cs_blas.packed is None and not cs_blas.compact
+    assert flat.packed is None and not flat.compact
     org, d, tn, tf, mask, time = rays_for("served", lambda et: _served(case))
     r = pt.make_rays(org[32:], d[32:], device="cpu")
     h = pt.intersect(cs, r)
-    hb = pt.intersect_brute(cs, r)
+    hb = pt.intersect_brute(flat, r)
     m = hb.valid.numpy()
     assert m.sum() > 5
     np.testing.assert_array_equal(h.valid.numpy(), m)

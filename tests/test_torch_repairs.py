@@ -1,4 +1,4 @@
-"""Two repairs of the port, each held against the JAX package.
+"""Repairs of the port, the first three held against the JAX package.
 
 1. Moving normal derivatives do not make a scene move. The JAX merger
    drops the motion flag of a hermite curve's ``normal_derivatives``
@@ -16,9 +16,33 @@
    scene")``; the port's merger appends a block of no rows for each such
    geometry, which passed its old check and failed in the native builder.
 
-The JAX side runs in this process: both checks hold the port to a
+4. Fault C.2: B6's moving masked kind-tag closest-hit launches sometimes
+   walked the tree twice for a few rays of a warp. At the 128-register
+   bound ptxas left out the wait of the pop's shared-memory load in those
+   two variants: the loop read the next record's register before the load
+   landed, and took the value set just before it, the root (launch.cuh,
+   ``kMotionKindsMinBlocks``). ``perf/sass_hazards.py`` finds such reads
+   in a library's SASS; its cases here run on listings written out, and
+   on the toolkit (``-m cuda``) it checks the built traversal library. The
+   card test repeats the launch that showed it, phase 9's moving masked
+   kind check scene at 65,536 rays, 100 times on each build route and in
+   normal and robust mode, each launch bit-equal to the plain version (t,
+   prim, step counts). Run those with ``python -m pytest --noconftest
+   tests/test_torch_repairs.py -m cuda``.
+
+5. A library that is up to date still gives its compiler output. The
+   build keeps it beside the library (``<library>.log``), so a second
+   process that finds the library built reads the same ptxas lines in
+   ``_build.BUILD_LOGS``; it used to find none, and the smoke run's check
+   of the traversal kernels' registers failed in a second run of one
+   checkout.
+
+The JAX side runs in this process: the checks of 1-3 hold the port to a
 tolerance (t within 1e-4 relative), not to the bit.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -208,3 +232,160 @@ def test_empty_geometry_beside_mesh(kind):
     np.testing.assert_array_equal(pp[vj], pj[vj])
     np.testing.assert_array_equal(gp[vj], gj[vj])
     np.testing.assert_allclose(tp[vj], tj[vj], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["1", "auto"])
+def test_masked_kinds_motion_launches_repeat(route, monkeypatch):
+    """Fault C.2: 100 launches of each of B6's masked kind-tag closest-hit
+    variants (normal and robust) on phase 9's moving scene, every one
+    bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from embree_tpu_torch.accel import traverse as tr
+    monkeypatch.setenv("EMBREE_TPU_NATIVE_BUILD", route)
+    org, d = cs.incoherent_rays(cs.KINDS_RAYS, 0)
+    rmask = np.random.default_rng(1).choice(np.array([1, 2, 3], np.uint32),
+                                            cs.KINDS_RAYS)
+    for robust in (False, True):
+        c = cs.mixed_check_scene(pt, True, robust, 2).commit(device="cuda")
+        x = cs.sorted_inputs(tr, pt.make_rays(
+            org, d, time=cs.ray_times(cs.KINDS_RAYS), mask=rmask,
+            device="cuda"))
+        p = cs.run_plain(tr, c.packed, x, robust=robust)
+        for _ in range(100):
+            k = cs.run_kernel(tr, c.packed, x, robust=robust)
+            torch.cuda.synchronize()
+            assert torch.equal(k.best, p.best)
+            assert torch.equal(k.t.view(torch.int32), p.t.view(torch.int32))
+            assert torch.equal(k.visits, p.visits)
+            assert int(k.overflow) == 0
+
+
+def test_build_log_kept_for_an_up_to_date_library(tmp_path):
+    """A second build of an unchanged library compiles nothing and reads
+    the first build's compiler output."""
+    import shutil
+    from embree_tpu_torch import _build
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    src = tmp_path / "warn.c"
+    src.write_text('#warning "a line of compiler output"\nint f(void) '
+                   '{ return 1; }\n')
+    target = _build.Target(str(tmp_path / "libwarn.so"), (str(src),), (),
+                           ("g++", "-shared", "-fPIC"))
+    targets = {"warn_probe": target}
+    _build.BUILD_LOGS.pop("warn_probe", None)
+    _build.build_all(["warn_probe"], targets)
+    first = _build.BUILD_LOGS.pop("warn_probe")
+    assert "a line of compiler output" in first
+    built = os.path.getmtime(target.path)
+    _build.build_all(["warn_probe"], targets)
+    assert os.path.getmtime(target.path) == built
+    assert _build.BUILD_LOGS.pop("warn_probe") == first
+
+
+def _sass(*rows, name="kernel"):
+    """A cuobjdump -sass listing of one function: rows of (text, write
+    barrier, read barrier, wait mask), 7 for no barrier."""
+    lines = [f"\t\tFunction : {name}"]
+    for k, (text, wbar, rbar, wait) in enumerate(rows):
+        hi = ((1 | wbar << 5 | rbar << 8 | wait << 11) << 41) | 0x800
+        lines.append(f"        /*{16 * k:04x}*/  {text} ;  "
+                     f"/* 0x{k:016x} */")
+        lines.append(f"                       /* 0x{hi:016x} */")
+    return "\n".join(lines) + "\n"
+
+
+# the pop of fault C.2: a guarded shared-memory load of the next record,
+# then a branch back to the loop that reads it
+C2_POP = [("HFMA2.MMA R5, -RZ, RZ, 0, 0", 7, 7, 0),
+          ("@!P0 LDS R5, [R12]", 1, 0, 0),
+          ("IADD3 R12, R6, R0, RZ", 7, 7, 1 << 0)]
+
+
+@pytest.mark.parametrize("case,expect", [
+    # the loop reads R5 with no wait on barrier 1: fault C.2's SASS
+    ("no_wait", [("RAW", 1, "R5")]),
+    # a wait on barrier 1 before the read
+    ("wait", []),
+    # a DEPBAR on barrier 1 before the read
+    ("depbar", []),
+    # overwritten under the complementary guard: one of the two ran
+    ("complement", []),
+    # the same guard: both may run
+    ("same_guard", [("WAW", 1, "R5")]),
+    # the read sits in a case of a jump table after the load
+    ("jump_table", [("RAW", 1, "R5")]),
+    # a second shared-memory load into R5: one queue, in order
+    ("same_queue", []),
+    # a global load into R5 may land first
+    ("other_queue", [("WAW", 1, "R5")]),
+])
+def test_sass_hazards(case, expect):
+    """Fault C.2's check: a read of a register whose shared-memory load
+    no wait covers is found on every path to it, and only there."""
+    from embree_tpu_torch.perf import sass_hazards as sh
+    rows = list(C2_POP)
+    if case == "no_wait":
+        rows += [("BRA 0x50", 7, 7, 0), ("NOP", 7, 7, 0),
+                 ("ISETP.GT.AND P1, PT, R5, -0x1, PT", 7, 7, 0),
+                 ("EXIT", 7, 7, 0)]
+    elif case == "wait":
+        rows += [("ISETP.GT.AND P1, PT, R5, -0x1, PT", 7, 7, 1 << 1),
+                 ("EXIT", 7, 7, 0)]
+    elif case == "depbar":
+        rows += [("DEPBAR.LE SB1, 0x0", 7, 7, 0),
+                 ("VIMNMX R12, R5, UR6, PT", 7, 7, 0), ("EXIT", 7, 7, 0)]
+    elif case in ("complement", "same_guard"):
+        g = "@P0" if case == "complement" else "@!P0"
+        rows += [(f"{g} MOV R5, 0x1", 7, 7, 0), ("EXIT", 7, 7, 0)]
+    elif case in ("same_queue", "other_queue"):
+        load = ("@!P0 LDS R5, [R12+0x4]" if case == "same_queue"
+                else "LDG.E R5, desc[UR8][R2.64]")
+        rows += [(load, 2, 7, 0), ("EXIT", 7, 7, 0)]
+    else:
+        rows += [("LDC R2, c[0x2][R0]", 0, 7, 0),
+                 ("BRX R2 -0x50", 7, 7, 1 << 0),
+                 ("BRA 0x70", 7, 7, 0),
+                 ("ISETP.GE.AND P2, PT, R5, RZ, PT", 7, 7, 0),
+                 ("EXIT", 7, 7, 0)]
+    funcs = sh.parse(_sass(*rows))
+    found = sh.hazards(funcs["kernel"])
+    assert [(h.kind, h.barrier, h.reg) for h in found] == expect
+    for h in found:
+        assert h.source.text == "@!P0 LDS R5, [R12]"
+
+
+def test_sass_hazards_reads_every_function():
+    """Each function of a listing is checked on its own, and the report
+    counts the hazards of all of them."""
+    from embree_tpu_torch.perf import sass_hazards as sh
+    text = (_sass(*C2_POP, ("ISETP.LT.AND P0, PT, R5, RZ, P0", 7, 7, 0),
+                  ("EXIT", 7, 7, 0), name="faulty")
+            + _sass(*C2_POP, ("ISETP.LT.AND P0, PT, R5, RZ, P0", 7, 7, 2),
+                    ("EXIT", 7, 7, 0), name="repaired"))
+    funcs = sh.parse(text)
+    assert sorted(funcs) == ["faulty", "repaired"]
+    assert [len(c) for c in funcs.values()] == [5, 5]
+    assert len(sh.hazards(funcs["faulty"])) == 1
+    assert sh.hazards(funcs["repaired"]) == []
+    assert sh.report(funcs) == 1
+
+
+@pytest.mark.cuda
+def test_traversal_library_sass_has_no_hazard():
+    """Fault C.2: no function of the built traversal library reads or
+    overwrites a register before the wait on its load (needs nvcc and
+    cuobjdump)."""
+    import shutil
+    if shutil.which("cuobjdump") is None and not os.path.exists(
+            "/usr/local/cuda/bin/cuobjdump"):
+        pytest.skip("needs the CUDA toolkit; run on the card")
+    from embree_tpu_torch.perf import sass_hazards as sh
+    funcs = sh.parse(sh.library_sass("traverse_cuda", []))
+    assert sum("persistent_kernel" in f for f in funcs) == 72
+    assert sh.report(funcs) == 0

@@ -238,19 +238,38 @@ def _round_curve():
 
 
 # cases the port refused until it covered them: each now commits, and its
-# hits agree with brute force (compact: with the same scene not compact)
-NOW_SERVED = ("curve", "min_width", "filter", "compact", "high", "refit")
+# hits agree with brute force (compact: with the same scene not compact;
+# two-level: with brute force on the same scene flattened); the instanced
+# ones also agree with the JAX package on the same inputs
+NOW_SERVED = ("curve", "min_width", "filter", "compact", "high", "refit",
+              "fat_joint", "moving_instance", "two_level")
+INSTANCED = ("fat_joint", "moving_instance", "two_level")
+
+
+def _geom_verts(g):
+    if isinstance(g, pt.InstanceGeometry):
+        xf = np.asarray(g.transform, np.float32).reshape(-1, 3, 4)[0]
+        v = np.concatenate([_geom_verts(c) for c in g.scene._geoms.values()])
+        return v @ xf[:, :3].T + xf[:, 3]
+    return np.asarray(g.vertices)[..., :3].reshape(-1, 3)
+
+
+def _brute_rays(s):
+    rng = np.random.default_rng(5)
+    org = rng.uniform(-2, 3, (256, 3)).astype(np.float32)
+    v = np.concatenate([_geom_verts(g) for g in s._geoms.values()])
+    aim = v[rng.integers(0, len(v), 256)] + rng.normal(0, 0.3, (256, 3))
+    return org, (aim - org).astype(np.float32), \
+        rng.uniform(0, 1, 256).astype(np.float32)
 
 
 def _agree_with_brute(cs, s):
-    rng = np.random.default_rng(5)
-    org = rng.uniform(-2, 3, (256, 3)).astype(np.float32)
-    v = np.concatenate([np.asarray(g.vertices)[..., :3].reshape(-1, 3)
-                        for g in s._geoms.values()])
-    aim = v[rng.integers(0, len(v), 256)] + rng.normal(0, 0.3, (256, 3))
-    r = pt.make_rays(org, (aim - org).astype(np.float32), device="cpu")
+    org, d, time = _brute_rays(s)
+    r = pt.make_rays(org, d, time=time, device="cpu")
     h = pt.intersect(cs, r)
-    if cs.compact:
+    if isinstance(cs, pt.TwoLevelScene):
+        hb = pt.intersect_brute(s.commit(device="cpu", two_level=False), r)
+    elif cs.compact:
         s.compact = False
         hb = pt.intersect(s.commit(device="cpu"), r, differentiable=False)
     else:
@@ -259,6 +278,31 @@ def _agree_with_brute(cs, s):
     assert m.sum() > 10
     np.testing.assert_array_equal(h.valid.numpy(), m)
     np.testing.assert_allclose(h.t.numpy()[m], hb.t.numpy()[m], rtol=1e-5)
+    return h
+
+
+def _instanced_case(et, case):
+    """The instanced cases in either package (``et``): a fat-jointed
+    chain under an identity instance, a triangle under a 2-step transform
+    (tests/test_geometries.py:252) and a triangle committed two-level."""
+    v, i = _tri()
+    s = et.Scene()
+    if case == "fat_joint":
+        child = et.Scene()
+        child.attach(et.LineSegmentsGeometry(
+            np.asarray(_fat_chain().vertices), np.array([0, 1], np.int32),
+            kind="round"))
+        s.attach(et.InstanceGeometry(child, np.eye(3, 4, dtype=np.float32)))
+    elif case == "moving_instance":
+        child = et.Scene()
+        child.attach(et.TriangleGeometry(v, i))
+        xf = np.zeros((2, 3, 4), np.float32)
+        xf[:, :, :3] = np.eye(3)
+        xf[1, 0, 3] = 2.0
+        s.attach(et.InstanceGeometry(child, xf))
+    else:
+        s.attach(et.TriangleGeometry(v, i))
+    return s
 
 
 @pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width",
@@ -266,12 +310,12 @@ def _agree_with_brute(cs, s):
                                   "high", "refit", "two_level",
                                   "from_arrays_motion_curve"])
 def test_refused_scenes(case):
-    """What the port does not cover raises NotImplementedError: instances
-    (here of a fat-jointed chain, and moving) and two-level scenes. The
-    cases it refused until it covered them now commit and agree with brute
-    force: filters (here on a native round curve), HIGH quality (with
-    min-width and without), compact scenes and REFIT quality. A scene
-    carried across whose flags count filters that are not given raises
+    """The cases the port refused until it covered them now commit and
+    agree with brute force: filters (here on a native round curve), HIGH
+    quality (with min-width and without), compact scenes, REFIT quality,
+    instances (of a fat-jointed chain, and moving) and two-level scenes;
+    the instanced ones also agree with the JAX package. A scene carried
+    across whose flags count filters that are not given raises
     ValueError."""
     v, i = _tri()
     kw = {}
@@ -288,30 +332,31 @@ def test_refused_scenes(case):
         g = _round_curve()
         g.filter = lambda *a: True
         s.attach(g)
-    elif case == "fat_joint":
-        child = et.Scene()
-        child.attach(et.LineSegmentsGeometry(
-            np.asarray(_fat_chain().vertices), np.array([0, 1], np.int32),
-            kind="round"))
-        s.attach(et.InstanceGeometry(child, np.eye(3, 4, dtype=np.float32)))
-    elif case == "moving_instance":
-        # tests/test_geometries.py:252: a (2, 3, 4) transform lerped by time
-        child = et.Scene()
-        child.attach(et.TriangleGeometry(v, i))
-        xf = np.zeros((2, 3, 4), np.float32)
-        xf[:, :, :3] = np.eye(3)
-        xf[1, 0, 3] = 2.0
-        s.attach(et.InstanceGeometry(child, xf))
+    elif case in INSTANCED:
+        s = _instanced_case(pt, case)
     elif case == "filter":
         s.attach(pt.TriangleGeometry(v, i, filter=lambda *a: True))
     else:
         s.attach(pt.TriangleGeometry(v, i))
     if case in NOW_SERVED:
-        cs = s.commit(device="cpu")
+        cs = s.commit(device="cpu", two_level=case == "two_level" or None)
         if case == "refit":           # a second commit refits the first
             s.get(0).vertices = v + np.float32(0.5)
             cs = s.commit(device="cpu")
-        _agree_with_brute(cs, s)
+        h = _agree_with_brute(cs, s)
+        if case in INSTANCED:
+            org, d, time = _brute_rays(s)
+            sj = _instanced_case(et, case)
+            cj = sj.commit(two_level=True) if case == "two_level" \
+                else sj.commit()
+            hj = et.intersect(cj, et.make_rays(
+                jnp.asarray(org), jnp.asarray(d), time=jnp.asarray(time)))
+            m = np.asarray(hj.valid)
+            np.testing.assert_array_equal(h.valid.numpy(), m)
+            np.testing.assert_allclose(h.t.numpy()[m], np.asarray(hj.t)[m],
+                                       rtol=1e-4)
+            np.testing.assert_array_equal(h.inst_id.numpy()[m],
+                                          np.asarray(hj.inst_id)[m])
     elif case == "from_arrays_motion_curve":
         # a moving round-curve scene whose flags count a filter that is
         # not passed in
@@ -319,9 +364,6 @@ def test_refused_scenes(case):
             pt.from_arrays({}, {"has_motion": True, "has_windows": True,
                                 "kinds_present": (0, 9), "filters": True},
                            "cpu")
-    else:
-        with pytest.raises(NotImplementedError):
-            s.commit(device="cpu", two_level=case == "two_level")
 
 
 @pytest.mark.parametrize("case", ["curve", "fat_joint", "min_width"])
