@@ -178,10 +178,36 @@ Hopper traversal kernel against its plain PyTorch version:
    of max(t, 1) wherever both hit the same prim; ids may differ only at
    near-ties, masks only at a ray's origin or a silhouette:
    same_up_to_ties);
-24. the kernels line (each traversal variant with its launches on the
-   instance paths), then the result line.
+24. grids and subdivision surfaces, whose quads ride B1 as two triangle
+   slots (B6 moving, B3-B5 beside other kinds): Embree's createGridSphere
+   at 592 (six 593 x 593-vertex grids, 2,102,784 quads) and a torus cage
+   of 48 x 32 quads with a crease loop and two holes refined at levels 4
+   (392,704 quads; the refinement's host seconds apart from the commit),
+   each at 16,777,216 rays through both intersect modes and occluded:
+   prim ids are grid indices (base faces), grid u/v within [0, 1], B1
+   held against the plain version on a strided sample and the full-size
+   launches on those rays, the entry point split into wrapper, kernel and
+   re-intersection; then at 65,536 rays a 2-step moving grid sphere (B6),
+   the subdivided cube at levels 3 over 3 steps with a time range (B6
+   with windows) and a grid beside points and round lines (B3-B5), every
+   variant held bit for bit;
+25. the rest of the API surface on the card: point queries on the main
+   sphere (1,048,576 points from U(-1.2, 1.2)^3 at radius 0.05; at an
+   infinite radius 65,536 of them at least 0.5 from the center: on an
+   H100 80GB HBM3, points from anywhere took 33,432 lockstep steps and
+   500.7 s, the walk of a point near the center visiting most of the
+   tree) and collision
+   of two 524,288-tri spheres offset by 0.5, with their lockstep steps and
+   ms, each held against the port's CPU run on a strided sample; the
+   two-level point query of 16 instances against their flattening;
+   interpolation of the grid positions at the grid cell's hits;
+   scene_stats; a checkpoint round trip of the main sphere (hits
+   bit-equal after the load); Device() on CUDA;
+26. the kernels line (each traversal variant with its launches on the
+   instance paths and on the grid and subdivision paths), then the result
+   line.
 
-Launch counts are zeroed just before each driven path (4-23) and read just
+Launch counts are zeroed just before each driven path (4-24) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -202,6 +228,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -357,6 +384,26 @@ TWO_LEVEL_RAYS = 1 << 22
 TWO_LEVEL_COMPARE = 1 << 16  # plain-version sample of each BLAS launch
 SUB_GRID = 8                 # the sub-grid held against its flattening
 SUB_RAYS = 1 << 20
+# phase 24, grids and subdivision surfaces
+GRID_N = 592                 # createGridSphere: 6 x 592^2 = 2,102,784 quads
+GRID_RAYS = 1 << 24
+TORUS = (48, 32)             # the subdivision cage's quad faces
+TORUS_HOLES = (100, 900)     # base faces removed before refinement
+SUBDIV_LEVELS = 4            # 1,534 faces x 4^4 = 392,704 quads
+SUBDIV_RAYS = 1 << 24
+CHECK_GRID_N = 64            # the check-size grid spheres: 24,576 quads
+# phase 25, the API surface
+PQ_POINTS = 1 << 20          # point queries at PQ_RADIUS on the main sphere
+PQ_RADIUS = 0.05
+PQ_INF_POINTS = 1 << 16      # and at an infinite radius, those points
+PQ_INF_MIN_R = 0.5           # at least this far from the center (a cut)
+PQ_COMPARE = 1 << 12         # points held against the CPU
+COLLIDE_MESH = (512, 512)    # two 524,288-tri spheres, offset along x
+COLLIDE_SHIFT = 0.5
+COLLIDE_COMPARE = 1 << 12    # prims of A held against the CPU
+TL_INSTANCES = 16            # TWO_LEVEL_AUTO: the two-level point query
+TL_POINTS = 1 << 16
+CK_RAYS = 1 << 20            # rays held after the checkpoint round trip
 BRUTE_SAMPLE = 64
 
 
@@ -3097,12 +3144,461 @@ def phase_two_level(pt, tr, sphere_mesh, errs, out):
     return launches
 
 
-def kernel_entries(record, errs, inst_launches=None):
+def grid_sphere(n, center=(0.0, 0.0, 0.0), radius=1.0):
+    """createGridSphere (Embree tutorials, geometry_creation.cpp), as
+    embree_tpu/tools/parity_models.py:110-132 lays it out: six grids of
+    (n + 1) x (n + 1) vertices, one per cube face, pushed onto the sphere.
+    Returns (vertices, (6, 4) grid rows)."""
+    c = np.asarray(center, np.float32)
+    gs = (n + 1) * (n + 1)
+    frames = (((-0.5, -0.5, -0.5), (1, 0, 0), (0, 1, 0)),
+              ((+0.5, -0.5, -0.5), (0, 0, 1), (0, 1, 0)),
+              ((+0.5, -0.5, +0.5), (-1, 0, 0), (0, 1, 0)),
+              ((-0.5, -0.5, +0.5), (0, 0, -1), (0, 1, 0)),
+              ((-0.5, -0.5, -0.5), (0, 0, 1), (1, 0, 0)),
+              ((-0.5, +0.5, -0.5), (1, 0, 0), (0, 0, 1)))
+    pos = np.zeros((6 * gs, 3), np.float32)
+    grids = []
+    t = np.arange(n + 1, dtype=np.float32) / n
+    for i, (p0, dx, dy) in enumerate(frames):
+        p = (np.asarray(p0, np.float32)
+             + t[None, :, None] * np.asarray(dx, np.float32)
+             + t[:, None, None] * np.asarray(dy, np.float32))
+        p = p / np.linalg.norm(p, axis=-1, keepdims=True)
+        pos[i * gs:(i + 1) * gs] = (c + radius * p).reshape(-1, 3)
+        grids.append([i * gs, n + 1, n + 1, n + 1])
+    return pos, np.asarray(grids, np.int32)
+
+
+def torus_cage(nu, nv, big=1.0, small=0.35):
+    """A torus of nu x nv quad faces (nu around the axis, nv around the
+    tube), one crease loop of weight 2 along the outer equator. Returns
+    (vertices, face counts, indices, creases)."""
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = 2 * np.pi * i / nu, 2 * np.pi * j / nv
+    v = np.stack([(big + small * np.cos(b)) * np.cos(a),
+                  (big + small * np.cos(b)) * np.sin(a),
+                  small * np.sin(b)], -1).reshape(-1, 3).astype(np.float32)
+
+    def vid(p, q):
+        return (p % nu) * nv + (q % nv)
+    f = np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1),
+                  vid(i, j + 1)], -1).reshape(-1)
+    creases = {tuple(sorted((int(vid(k, 0)), int(vid(k + 1, 0))))): 2.0
+               for k in range(nu)}
+    return v, np.full(nu * nv, 4, np.int64), f.astype(np.int64), creases
+
+
+def subdiv_cube(levels, steps, time_range):
+    """The unit cube cage (tests/test_subdiv_grid.py:14-21) moving along x
+    over ``steps`` steps."""
+    v = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                  for z in (-1, 1)], np.float32)
+    f = np.array([[0, 1, 3, 2], [4, 6, 7, 5], [0, 4, 5, 1],
+                  [2, 3, 7, 6], [0, 2, 6, 4], [1, 5, 7, 3]], np.int64)
+    return (moving(v, (MOTION_SHIFT, 0, 0), steps), np.full(6, 4, np.int64),
+            f.reshape(-1), levels, time_range)
+
+
+@contextlib.contextmanager
+def timed_refinement(pt, spent):
+    """The merger's Catmull-Clark refinement timed on the host clock (the
+    seconds go into ``spent``), apart from the rest of the commit."""
+    ops = pt.scene.subdiv_ops
+    orig = ops.catmull_clark
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+    ops.catmull_clark = timed
+    try:
+        yield
+    finally:
+        ops.catmull_clark = orig
+
+
+def quad_cell(pt, tr, label, cs, rays, errs, out, card):
+    """A full-size cell whose quads ride B1 as two triangle slots: the
+    three entry points (launch counts zeroed just before, read after),
+    kernel vs plain version on a strided sample, the full-size launches
+    held on those rays, and each time: the entry point, the selection
+    (sort, kernel, unsort), the kernel, the wrapper (selection - kernel)
+    and the re-intersection (entry point - selection). Returns (the fast
+    path's hits, the launches)."""
+    from embree_tpu_torch import scene as scene_mod
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    hd = pt.intersect(cs, rays)
+    occ = pt.occluded(cs, rays)
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    say(f"  {label}: launches {launches}")
+    for _, o, a in KIND_VARIANTS:
+        name = tr.packed_variant(cs.packed, o, a, False)
+        check(launches.get(name, 0) > 0, f"{label}: {name} not launched")
+    v = hit.valid
+    check(torch.equal(hd.valid, v) and torch.equal(
+        hd.t.detach().view(torch.int32), hit.t.view(torch.int32)),
+        f"{label}: the two intersect modes disagree")
+    check(torch.equal(occ, v), f"{label}: occluded disagrees")
+    check(bool(torch.isfinite(hit.t[v]).all())
+          and bool(torch.isfinite(hit.ng[v]).all()), f"{label}: non-finite")
+    say(f"  {label}: {int(v.sum())} of {v.shape[0]} rays hit")
+    del hd, occ
+    inputs = sorted_inputs(tr, rays)
+    plain = {}
+    for name, o, a in KIND_VARIANTS:
+        key = tr.packed_variant(cs.packed, o, a, False)
+        errs[key] = max(errs.get(key, 0.0), compare(
+            tr, cs.packed, inputs, MAIN_COMPARE, o, a, f"{label}: {key}",
+            plain=plain))
+    total_ms = {"closest": events_ms(
+        lambda: pt.intersect(cs, rays, differentiable=False)),
+        "occluded": events_ms(lambda: pt.occluded(cs, rays))}
+    select_ms = events_ms(lambda: scene_mod._select(cs, rays, False))
+    rec = {}
+    time_variants(tr, cs.packed, inputs, KIND_VARIANTS, rec,
+                  table_mb(cs.packed), card, launches, total_ms=total_ms,
+                  plain=plain)
+    kernel_ms = rec[tr.packed_variant(cs.packed, False, False, False)]["ms"]
+    split = dict(entry_point_ms=total_ms["closest"], select_ms=select_ms,
+                 kernel_ms=kernel_ms, wrapper_ms=select_ms - kernel_ms,
+                 reintersect_ms=total_ms["closest"] - select_ms)
+    say(f"  {label}: intersect(differentiable=False) "
+        f"{split['entry_point_ms']:.3f} ms = wrapper "
+        f"{split['wrapper_ms']:.3f} + kernel "
+        f"{kernel_ms:.3f} + re-intersection {split['reintersect_ms']:.3f} "
+        f"ms; occluded {total_ms['occluded']:.3f} ms [{card}]")
+    out[label] = dict(kernels=rec, split=split, card=card)
+    del inputs
+    return hit, launches
+
+
+def check_variant_cells(pt, tr, errs, out, card):
+    """Phase 24's moving and mixed cells at 65,536 rays: a 2-step moving
+    grid sphere (B6), the subdivided cube at levels 3 over 3 steps with a
+    time range (B6 with windows), and a grid sphere beside points and
+    round lines (B3-B5); every variant held against the plain version on
+    all rays."""
+    org, d = incoherent_rays(KINDS_RAYS, 0)
+    times = ray_times(KINDS_RAYS)
+    gv, grows = grid_sphere(CHECK_GRID_N)
+    cells = {}
+    s = pt.Scene()
+    s.attach(pt.GridGeometry(moving(gv, (MOTION_SHIFT, 0, 0), 2), grows))
+    cells["moving grid"] = (s, True, False)
+    v, fc, idx, lv, trange = subdiv_cube(3, 3, (0.1, 0.9))
+    s = pt.Scene()
+    s.attach(pt.SubdivisionGeometry(v, fc, idx, levels=lv,
+                                    time_range=trange))
+    cells["moving subdivision"] = (s, True, True)
+    s = pt.Scene()
+    s.attach(pt.GridGeometry(gv, grows))
+    pos, _ = point_sphere((1.6, 0, 0), 0.5, 0.02, 32)
+    s.attach(pt.PointGeometry(pos, kind="sphere"))
+    s.attach(pt.LineSegmentsGeometry(*hair(np.random.default_rng(3),
+                                           (0, -1.6, 0), 1024, r0=0.01,
+                                           r1=0.005), kind="round"))
+    cells["grid, points, lines"] = (s, False, False)
+    launches = {}
+    for label, (s, motion, win) in cells.items():
+        cs = s.commit(device=DEV)
+        check(cs.has_motion == motion and cs.packed.has_win == win
+              and cs.packed.has_kinds == (not motion),
+              f"{label}: wrong flags")
+        rays = pt.make_rays(org, d, time=times, device=DEV)
+        tr.reset_launch_counts()
+        hit = pt.intersect(cs, rays)
+        hk = pt.intersect(cs, rays, differentiable=False)
+        occ = pt.occluded(cs, rays)
+        torch.cuda.synchronize()
+        got = dict(tr.LAUNCHES)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        check(torch.equal(occ, hit.valid) and torch.equal(hk.valid,
+                                                          hit.valid),
+              f"{label}: the entry points disagree")
+        check(int(hit.valid.sum()) > KINDS_RAYS // 64, f"{label}: few hits")
+        inputs = sorted_inputs(tr, rays)
+        rec = {}
+        for _, o, a in KIND_VARIANTS:
+            name = tr.packed_variant(cs.packed, o, a, False)
+            check(got.get(name, 0) > 0, f"{label}: {name} not launched")
+            errs[name] = max(errs.get(name, 0.0), compare(
+                tr, cs.packed, inputs, KINDS_RAYS, o, a, f"{label}: {name}"))
+        time_variants(tr, cs.packed, inputs, KIND_VARIANTS, rec,
+                      table_mb(cs.packed), card, got)
+        out[label] = dict(prims=cs.num_prims, kernels=rec, launches=got)
+        say(f"  {label}: {cs.num_prims} prims, {int(hit.valid.sum())} hits;"
+            f" launches {got}")
+    return launches
+
+
+def phase_grids_subdiv(pt, tr, errs, out):
+    """Phase 24: grids and subdivision surfaces at full size, and the
+    check-size moving and mixed cells. Returns (the launches, the grid
+    cell's geometry and a sample of its hits for phase 25)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    n_quads = 6 * GRID_N * GRID_N
+    say(f"phase 24: grids and subdivision: createGridSphere({GRID_N}), "
+        f"{n_quads} quads, {GRID_RAYS} rays [{card}]")
+    gv, grows = grid_sphere(GRID_N)
+    geom = pt.GridGeometry(gv, grows)
+    s = pt.Scene()
+    s.attach(geom)
+    cs, commit_s = commit_timed(s, "grid sphere")
+    check(cs.num_prims == n_quads and cs.packed.kind_classes == (0,)
+          and not cs.packed.tri_attrs, "grid sphere: not two slots a quad")
+    org, d = incoherent_rays(GRID_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    del org, d
+    hit, launches = quad_cell(pt, tr, "grid sphere", cs, rays, errs, out,
+                              card)
+    v = hit.valid
+    pid = hit.prim_id[v]
+    check(bool(((pid >= 0) & (pid < 6)).all()),
+          "grid sphere: a prim id is not a grid index")
+    u, w = hit.u[v], hit.v[v]
+    say(f"  grid sphere: prim ids in 0..5; u in [{u.min().item():.9f}, "
+        f"{u.max().item():.9f}], v in [{w.min().item():.9f}, "
+        f"{w.max().item():.9f}]")
+    check(bool((u >= -1e-6).all() & (u <= 1 + 1e-6).all()
+               & (w >= -1e-6).all() & (w <= 1 + 1e-6).all()),
+          "grid sphere: u/v outside [0, 1]")
+    analytic_sphere_check(rays, hit, CHECK_RAYS, (GRID_N, 4 * GRID_N))
+    n = min(int(v.sum()), CHECK_RAYS)
+    sample = dict(prim=pid[:n], u=u[:n], v=w[:n],
+                  point=(rays.org + hit.t[:, None] * rays.dir)[v][:n])
+    out["grid sphere"].update(commit_s=commit_s, quads=n_quads,
+                              table_mb=table_mb(cs.packed) / 1e6)
+    del cs, rays, hit
+    torch.cuda.empty_cache()
+
+    nu, nv = TORUS
+    tv, fc, idx, creases = torus_cage(nu, nv)
+    n_sub = (nu * nv - len(TORUS_HOLES)) * 4 ** SUBDIV_LEVELS
+    say(f"  subdivision: a torus cage of {nu} x {nv} quads, one crease "
+        f"loop, {len(TORUS_HOLES)} holes, levels {SUBDIV_LEVELS}: {n_sub} "
+        "quads")
+    s = pt.Scene()
+    s.attach(pt.SubdivisionGeometry(tv, fc, idx, levels=SUBDIV_LEVELS,
+                                    creases=creases,
+                                    holes=np.asarray(TORUS_HOLES)))
+    spent = []
+    with timed_refinement(pt, spent):
+        cs, commit_s = commit_timed(s, "subdivision torus")
+    check(cs.num_prims == n_sub, "subdivision: wrong quad count")
+    check(not bool(np.isin(cs.prim_local.cpu().numpy(), TORUS_HOLES).any()),
+          "subdivision: a hole was rendered")
+    say(f"  subdivision: refinement {sum(spent):.3f} s of the "
+        f"{commit_s:.3f} s commit (host clock) [{card}]")
+    org, d = incoherent_rays(SUBDIV_RAYS, 1)
+    rays = pt.make_rays(org * np.float32(0.9), d, device=DEV)
+    del org, d
+    hit, got = quad_cell(pt, tr, "subdivision torus", cs, rays, errs, out,
+                         card)
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    check(bool(((hit.prim_id[hit.valid] >= 0)
+                & (hit.prim_id[hit.valid] < nu * nv)).all()),
+          "subdivision: a prim id is not a base face")
+    out["subdivision torus"].update(commit_s=commit_s,
+                                    refinement_s=sum(spent), quads=n_sub,
+                                    levels=SUBDIV_LEVELS,
+                                    table_mb=table_mb(cs.packed) / 1e6)
+    del cs, rays, hit
+    torch.cuda.empty_cache()
+    for k, n in check_variant_cells(pt, tr, errs, out, card).items():
+        launches[k] = launches.get(k, 0) + n
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 24 took {out['phase_s']:.1f} s; launches {launches}; "
+        f"{card}")
+    return launches, (geom, sample)
+
+
+def to_cpu(cs):
+    """A committed scene's copy on the CPU (the same tree and tables)."""
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{
+                f.name: move(getattr(x, f.name))
+                for f in dataclasses.fields(x) if f.init})
+        return x
+    return move(cs)
+
+
+def held_on_cpu(card_r, cpu_r, stride, label):
+    """Point-query results on the card against the CPU's on every
+    ``stride``-th point: equal prims, distances within 1e-6 relative;
+    prints the bit-equal count."""
+    prim = card_r.prim[::stride][:cpu_r.prim.shape[0]].cpu()
+    dist = card_r.dist[::stride][:cpu_r.prim.shape[0]].cpu()
+    check(torch.equal(prim, cpu_r.prim), f"{label}: prims differ from the "
+          "CPU's")
+    rel = ((dist - cpu_r.dist).abs() / cpu_r.dist.abs().clamp(min=1e-30))
+    rel = rel.nan_to_num(0.0, posinf=0.0).max().item()
+    same = int((dist.view(torch.int32) == cpu_r.dist.view(torch.int32))
+               .sum())
+    check(rel <= 1e-6, f"{label}: distances differ from the CPU's by {rel}")
+    say(f"  {label}: card == CPU on {prim.shape[0]} points: prims equal, "
+        f"{same} distances bit-equal, largest relative difference {rel:.3e}")
+
+
+def phase_api(pt, tr, sphere_mesh, grid_state, out):
+    """Phase 25: the rest of the API surface on the card."""
+    from embree_tpu_torch import query
+    from embree_tpu_torch.accel.collide import collide
+    from embree_tpu_torch.rtcore import Device
+    from embree_tpu_torch.utils.checkpoint import load_scene, save_scene
+    t_phase = time.perf_counter()
+    card = card_line()
+    say(f"phase 25: the API surface: point queries, collision, two-level "
+        f"point queries, interpolation, statistics, checkpoints [{card}]")
+    verts, idx = sphere_mesh(*MAIN_MESH)
+    cs, _ = commit_timed(tri_scene(pt, verts, idx), "main sphere")
+    cpu = to_cpu(cs)
+    rng = np.random.default_rng(12)
+    pts = torch.as_tensor(rng.uniform(-1.2, 1.2, (PQ_POINTS, 3))
+                          .astype(np.float32), device=DEV)
+    # at an infinite radius, the points at least PQ_INF_MIN_R from the
+    # center: a point near it is about equally far from every triangle, so
+    # its branch and bound visits most of the tree, one node a lockstep step
+    far = pts[pts.norm(dim=1) >= PQ_INF_MIN_R][:PQ_INF_POINTS]
+    for label, p, radius in (("radius 0.05", pts, PQ_RADIUS),
+                             ("radius inf", far, math.inf)):
+        ms, r = host_ms(lambda p=p, radius=radius: query.point_query_scene(
+            cs, p, radius))
+        found = int((r.prim >= 0).sum())
+        say(f"  point query, {label}: {p.shape[0]} points in {ms:.1f} ms, "
+            f"{r.steps} lockstep steps, {found} found [{card}]")
+        check(found > 0 and bool(torch.isfinite(r.dist[r.prim >= 0]).all()),
+              f"point query {label}: nothing found")
+        stride = max(p.shape[0] // PQ_COMPARE, 1)
+        rc = query.point_query_scene(cpu, p[::stride][:PQ_COMPARE].cpu(),
+                                     radius)
+        held_on_cpu(r, rc, stride, f"point query {label}")
+        out[f"point_query {label}"] = dict(points=p.shape[0], ms=ms,
+                                           steps=r.steps, found=found,
+                                           card=card)
+    del pts
+
+    cv, ci = sphere_mesh(*COLLIDE_MESH)
+    ca, _ = commit_timed(tri_scene(pt, cv, ci), "collide A")
+    cb, _ = commit_timed(tri_scene(
+        pt, cv + np.float32([COLLIDE_SHIFT, 0, 0]), ci), "collide B")
+    ms, res = host_ms(lambda: query.collide_scenes(ca, cb))
+    count = int(res.count)
+    say(f"  collide: {count} pairs of {ca.num_prims} x {cb.num_prims} "
+        f"triangles in {ms:.1f} ms, {res.steps} lockstep steps [{card}]")
+    check(count > 0, "collide: no pair")
+    pairs = res.pairs[:count].cpu()
+    check(bool((pairs[1:, 0] >= pairs[:-1, 0]).all()),
+          "collide: pairs out of order")
+    # the CPU on every stride-th prim of A against the same B
+    ca_c, cb_c = to_cpu(ca), to_cpu(cb)
+    stride = max(ca.num_prims // COLLIDE_COMPARE, 1)
+    sub = torch.arange(0, ca.num_prims, stride)[:COLLIDE_COMPARE]
+    a0, a1, a2 = (x[sub] for x in query._tri_rows(ca_c))
+    from embree_tpu_torch.core.math import fmax, fmin
+    b0, b1, b2 = query._tri_rows(cb_c)
+    rc = collide(cb_c.bvh, b0, b1, b2, fmin(fmin(a0, a1), a2),
+                 fmax(fmax(a0, a1), a2), a0, a1, a2)
+    got = rc.pairs[:int(rc.count)].long()
+    got[:, 0] = sub[got[:, 0]]
+    keep = pairs[:, 0] % stride == 0
+    keep &= pairs[:, 0] < sub[-1] + 1
+    check(torch.equal(pairs[keep].long(), got),
+          "collide: pairs differ from the CPU's")
+    say(f"  collide: card == CPU on {sub.shape[0]} prims of A: "
+        f"{got.shape[0]} pairs equal, in order")
+    out["collide"] = dict(pairs=count, ms=ms, steps=res.steps, card=card)
+    del ca, cb, ca_c, cb_c, res
+
+    child = tri_scene(pt, *sphere_mesh(*CHECK_MESH))
+    xfs = instance_ring(TL_INSTANCES, seed=7)
+    s = pt.Scene()
+    for x in xfs:
+        s.attach(pt.InstanceGeometry(child, x))
+    tl = s.commit(device=DEV)
+    check(isinstance(tl, pt.TwoLevelScene), "16 instances: not two-level")
+    flat = s.commit(device=DEV, two_level=False)
+    q = torch.as_tensor(np.random.default_rng(13).uniform(
+        -INST_RING - 1.5, INST_RING + 1.5, (TL_POINTS, 3))
+        .astype(np.float32), device=DEV)
+    ms_tl, r_tl = host_ms(lambda: query.point_query_scene(tl, q, math.inf))
+    ms_fl, r_fl = host_ms(lambda: query.point_query_scene(flat, q, math.inf))
+    # object space and world space round apart by ulps of the coordinates:
+    # the difference is taken relative to max(distance, 1)
+    rel = ((r_tl.dist - r_fl.dist).abs() / r_fl.dist.clamp(min=1.0)).max()
+    say(f"  two-level point query: {TL_POINTS} points, {TL_INSTANCES} "
+        f"instances in {ms_tl:.1f} ms ({r_tl.steps} steps over the "
+        f"instances), flattened {ms_fl:.1f} ms ({r_fl.steps} steps); "
+        f"largest |difference| / max(distance, 1) {rel.item():.3e} "
+        f"[{card}]")
+    check(bool((r_tl.prim >= 0).all()) and bool((r_fl.prim >= 0).all())
+          and rel.item() < 1e-5, "two-level point query disagrees with the "
+          "flattened one")
+    out["two_level_point_query"] = dict(ms=ms_tl, flat_ms=ms_fl,
+                                        max_rel=rel.item(), card=card)
+    del tl, flat, q, r_tl, r_fl
+
+    geom, sample = grid_state
+    ms, p = host_ms(lambda: pt.interpolate(
+        geom, sample["prim"], sample["u"], sample["v"],
+        torch.as_tensor(geom.vertices, device=DEV)))
+    err = (p - sample["point"]).norm(dim=1).max().item()
+    say(f"  interpolate: grid positions at {p.shape[0]} grid-cell hits in "
+        f"{ms:.2f} ms, largest distance to the hit point {err:.3e}")
+    check(err < 1e-3, "interpolate: grid positions off the hit points")
+
+    st = query.scene_stats(cs)
+    say("  scene_stats: " + json.dumps(
+        {k: v for k, v in st.items() if k != "memory_by_field"}))
+    check(st["prims_in_leaves"] == cs.num_prims, "scene_stats: prims")
+
+    org, d = incoherent_rays(CK_RAYS, 0)
+    rays = pt.make_rays(org, d, device=DEV)
+    with tempfile.TemporaryDirectory(dir=ROOT) as td:
+        path = os.path.join(td, "main.npz")
+        save_ms, _ = host_ms(lambda: save_scene(path, cs))
+        mb = os.path.getsize(path) / 1e6
+        load_ms, back = host_ms(lambda: load_scene(path, device=DEV))
+    h0 = pt.intersect(cs, rays, differentiable=False)
+    h1 = pt.intersect(back, rays, differentiable=False)
+    check(torch.equal(h0.valid, h1.valid)
+          and torch.equal(h0.prim_id, h1.prim_id)
+          and torch.equal(h0.t.view(torch.int32), h1.t.view(torch.int32)),
+          "checkpoint: hits differ after the round trip")
+    say(f"  checkpoint: {mb:.1f} MB archive, save {save_ms:.0f} ms, load "
+        f"{load_ms:.0f} ms; {CK_RAYS} rays' hits bit-equal after the load")
+    dev = Device()
+    check(dev.get_property("platform") == "cuda"
+          and dev.get_property("device_count") == torch.cuda.device_count(),
+          "Device: not on CUDA")
+    dc = dev.new_scene()
+    dc.attach(pt.TriangleGeometry(*sphere_mesh(8, 12)))
+    check(dev.commit_scene(dc).device.type == "cuda", "Device: commit")
+    say(f"  Device(): platform {dev.get_property('platform')}, "
+        f"{dev.get_property('device_count')} device(s)")
+    out.update(checkpoint=dict(mb=mb, save_ms=save_ms, load_ms=load_ms),
+               stats={k: v for k, v in st.items() if k != "memory_by_field"})
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 25 took {out['phase_s']:.1f} s; {card}")
+
+
+def kernel_entries(record, errs, inst_launches=None, grid_launches=None):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it; each traversal variant also carries its
     launches on the instance paths of phases 22-23
-    (``instance_launches``)."""
+    (``instance_launches``) and on the grid and subdivision paths of phase
+    24 (``grid_subdiv_launches``)."""
     inst_launches = inst_launches or {}
+    grid_launches = grid_launches or {}
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
@@ -3144,7 +3640,8 @@ def kernel_entries(record, errs, inst_launches=None):
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "instance_launches": inst_launches.get(name, 0)})
+            "instance_launches": inst_launches.get(name, 0),
+            "grid_subdiv_launches": grid_launches.get(name, 0)})
     return kernels
 
 
@@ -3216,12 +3713,17 @@ def main():
     for k, n in phase_two_level(pt, tr, sphere_mesh, errs,
                                 instances).items():
         inst_launches[k] = inst_launches.get(k, 0) + n
+    api = {}
+    grid_launches, grid_state = phase_grids_subdiv(pt, tr, errs, api)
+    phase_api(pt, tr, sphere_mesh, grid_state, api)
+    del grid_state
 
-    kernels = kernel_entries(record, errs, inst_launches)
+    kernels = kernel_entries(record, errs, inst_launches, grid_launches)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
                    "builders": builders, "instances": instances,
+                   "grids_api": api,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

@@ -270,3 +270,28 @@ def from_table(table, pid_map, gn, has_mask, tri_attrs, device,
                        kind_classes=tuple(int(k) for k in kind_classes),
                        has_motion=bool(has_motion), has_win=bool(has_win),
                        nf=int(nf), curve_rate=int(curve_rate))
+
+
+def to_table(packed: PackedScene):
+    """The JAX package's unified tile table of the port's records, the
+    inverse of ``from_table``: (table (GN+GL, rows, 128) int32, pid_map
+    (GL*128*8,) int32, GN, GL), padded as embree_tpu/accel/pack.py:246-311
+    pads it (empty node records hold INVALID_REC child refs, empty leaf
+    records zeros, empty slots -1)."""
+    nodes = packed.nodes.cpu().numpy()
+    leaves = packed.leaves.cpu().numpy()
+    rows = packed.leaf_words
+    gn = max(1, -(-nodes.shape[0] // 128))
+    gl = max(1, -(-leaves.shape[0] // 128))
+    node_recs = np.zeros((gn * 128, rows), np.int32)
+    node_recs[:, 0:8] = INVALID_REC
+    node_recs[:nodes.shape[0], :NODE_WORDS] = nodes
+    leaf_recs = np.zeros((gl * 128, rows), np.int32)
+    leaf_recs[:leaves.shape[0]] = leaves
+    recs = np.concatenate([node_recs, leaf_recs], axis=0)
+    table = np.ascontiguousarray(
+        recs.reshape(gn + gl, 128, rows).transpose(0, 2, 1))
+    pid_map = np.full(gl * 128 * LEAF_WIDTH, -1, np.int32)
+    pid = packed.pid_map.cpu().numpy()
+    pid_map[:pid.shape[0]] = pid
+    return table, pid_map, gn, gl

@@ -1,10 +1,11 @@
-"""Geometry types, the subset the port covers: triangles, quads, points, line
-segments, cubic curves, user geometry and instances, static or moving.
+"""Geometry types: triangles, quads, points, line
+segments, cubic curves, grids, subdivision surfaces, user geometry and
+instances, static or moving.
 
 Port of embree_tpu/geometry.py:24-35 (kind tags), :40-106 (time steps) and
-:109-330 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
+:109-387 (RTC_GEOMETRY_TYPE_TRIANGLE, QUAD, SPHERE/DISC/ORIENTED_DISC_POINT,
 ROUND/FLAT_LINEAR_CURVE, the *_BEZIER/BSPLINE/HERMITE/CATMULL_ROM_CURVE
-types, USER, INSTANCE and INSTANCE_ARRAY; role parity with
+types, USER, INSTANCE, INSTANCE_ARRAY, GRID and SUBDIVISION; role parity with
 kernels/common/scene_*.h).
 Buffers stay on the host (numpy or tensors); ``Scene.commit`` reads them.
 A buffer with a leading time axis, (S, n, C) with 2 <= S <= 129, declares
@@ -307,3 +308,58 @@ class InstanceArrayGeometry:
     @property
     def num_prims(self):
         return 0
+
+
+@dataclasses.dataclass
+class GridGeometry:
+    """RTC_GEOMETRY_TYPE_GRID (rtcore_geometry.h:390 RTCGrid): regular
+    grids of vertices, split into quads at commit. prim id = grid index;
+    u/v span the whole grid (embree_tpu/geometry.py:331-349)."""
+    vertices: object             # (n_verts, 3) or (S, n_verts, 3)
+    grids: object                # (n_grids, 4) int: startVert, stride,
+    #                              width, height
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    filter: Optional[FilterFn] = None
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        g = np.asarray(self.grids)
+        return int(((g[:, 2] - 1) * (g[:, 3] - 1)).sum())
+
+
+@dataclasses.dataclass
+class SubdivisionGeometry:
+    """RTC_GEOMETRY_TYPE_SUBDIVISION: a Catmull-Clark surface, uniformly
+    subdivided ``levels`` times at commit (ops/subdiv.py) and pushed onto
+    its limit surface; prim id = base face (embree_tpu/geometry.py:352-387).
+    Creases: {(v0, v1): weight}; vertex creases: {vertex: weight}, inf
+    pins a corner; ``holes`` (base-face ids) are removed before refinement;
+    ``position_mode`` is None, "pin_corners", "pin_boundary", "pin_all" or
+    "no_boundary" (RTC_SUBDIVISION_MODE)."""
+    vertices: object             # (n_verts, 3) or (S, n_verts, 3) motion
+    face_counts: object          # (F,) verts per face
+    indices: object              # flat indices
+    levels: int = 2
+    creases: Optional[dict] = None
+    vertex_creases: Optional[dict] = None
+    boundary_interpolation: bool = True
+    holes: Optional[object] = None         # (H,) int base-face indices
+    texcoords: Optional[object] = None     # (Nt, 2)
+    texcoord_indices: Optional[object] = None  # flat, parallel to indices
+    texcoord_mode: Optional[str] = None
+    position_mode: Optional[str] = None
+    mask: int = 0xFFFFFFFF
+    enabled: bool = True
+    filter: Optional[FilterFn] = None
+    time_range: tuple = (0.0, 1.0)
+
+    @property
+    def num_prims(self):
+        # 4**(levels-1) per quad face, as the JAX package counts; commit
+        # makes 4**levels (ROADMAP.md, logged differences)
+        F = np.asarray(self.face_counts)
+        per = np.where(F == 4, 4 ** (self.levels - 1) if self.levels else 1,
+                       F * 4 ** max(self.levels - 1, 0))
+        return int(per.sum())

@@ -82,17 +82,20 @@ def _combine(w, cp):
     return acc
 
 
-def eval_curve(basis: str, cp, t):
+def eval_curve(basis: str, cp, t, pairwise: bool = True):
     """Evaluate a curve at parameter t. cp: (..., 4, C) control data
     (hermite: p0, m0, p1, m1); t: (...,). Returns (..., C). The four
     products sum pairwise, (0 + 1) + (2 + 3), as XLA's dot does in the JAX
     package's einsum over the tessellation knots, so tessellated segments
-    are bit-equal."""
+    are bit-equal; ``pairwise=False`` sums them in order, as XLA does the
+    batched einsum of one parameter per curve (interpolate.py)."""
     if basis == BASIS_LINEAR:
         return (cp[..., 0, :] * (1 - t)[..., None]
                 + cp[..., 1, :] * t[..., None])
     w = _WEIGHTS[basis](t)
     a = [w[k][..., None] * cp[..., k, :] for k in range(4)]
+    if not pairwise:
+        return a[0] + a[1] + a[2] + a[3]
     return (a[0] + a[1]) + (a[2] + a[3])
 
 

@@ -1,6 +1,6 @@
 """Triangle intersection in differentiable torch ops.
 
-Port of embree_tpu/ops/triangle.py:20-55: Möller-Trumbore with precomputed
+Port of embree_tpu/ops/triangle.py:20-103: Möller-Trumbore with precomputed
 edges (kernels/geometry/triangle_intersector_moeller.h:9-16), branch-free
 over any batch shape. Autograd through the closed-form solve gives dt/dverts
 and the other hit derivatives.
@@ -74,3 +74,11 @@ def intersect_pluecker(org, dir, v0, v1, v2, tnear, tfar):
     v = torch.clamp(W * inv_uvw, 0.0, 1.0)
     hit = valid_side & den_ok & (t >= tnear) & (t <= tfar)
     return hit, t, u, v, ng
+
+
+def interpolate_attribute(attr_v0, attr_v1, attr_v2, u, v):
+    """Barycentric vertex-attribute interpolation (rtcInterpolate analog,
+    embree_tpu/ops/triangle.py:100): (1 - u - v) a0 + u a1 + v a2, summed
+    in that order. Differentiable."""
+    w = (1.0 - u - v)[..., None]
+    return w * attr_v0 + u[..., None] * attr_v1 + v[..., None] * attr_v2

@@ -9,7 +9,8 @@ rtcIntersect1):
 - ``Scene`` is the mutable host-side container of geometries, with an
   optional progress monitor that may cancel a commit (``CommitCancelled``).
 - ``Scene.commit(device=...)`` merges triangles, quads, points, line
-  segments, curves, user geometry and instances, builds a BVH8 on the JAX
+  segments, curves, grids, subdivision surfaces, user geometry and
+  instances, builds a BVH8 on the JAX
   package's route (``_native_build_enabled``): below 50,000 prims the
   binned-SAH builder and the BVH8 collapse run as torch ops on the commit's
   device (16 SAH levels at MEDIUM, none at LOW; accel/sah.py,
@@ -54,8 +55,13 @@ rtcIntersect1):
   returns a ``tlas.TwoLevelScene`` (a TLAS over shared BLASes), which
   ``intersect`` and ``occluded`` take too.
 
-What the port does not cover yet, commit refuses with NotImplementedError:
-grids and subdivision.
+- Grids and subdivision surfaces become quads with an affine uv frame
+  (``quad_uvm``): a grid's quads carry the grid index as prim id and uv
+  over the whole grid; a subdivision surface is refined on the host
+  (ops/subdiv.py) and its quads carry the base face as prim id and its
+  uv. Packed, a quad is two triangle slots, so such scenes run the
+  triangle kernel (B1, or B6 when moving) and the mixed-class one beside
+  points or lines.
 """
 from __future__ import annotations
 
@@ -84,15 +90,17 @@ from .geometry import (KIND_CURVE_DISTANCE, KIND_CURVE_FLAT,
                        KIND_CURVE_ORIENTED, KIND_CURVE_ROUND, KIND_DISC,
                        KIND_FLAT_LINE, KIND_ORIENTED_DISC, KIND_QUAD,
                        KIND_ROUND_LINE, KIND_SPHERE, KIND_TRIANGLE, KIND_USER,
-                       CurveGeometry, InstanceArrayGeometry,
+                       CurveGeometry, GridGeometry, InstanceArrayGeometry,
                        InstanceGeometry, LineSegmentsGeometry, PointGeometry,
-                       QuadGeometry, TriangleGeometry, UserGeometry,
+                       QuadGeometry, SubdivisionGeometry, TriangleGeometry,
+                       UserGeometry,
                        _sample_steps, _split_timesteps,
                        instance_transform_steps, motion_knots)
 from .native import build_bvh8_native
 from .ops import curve as curve_ops
 from .ops import line as line_ops
 from .ops import point as point_ops
+from .ops import subdiv as subdiv_ops
 from .ops.quad import intersect_quad
 from .ops.triangle import intersect_moeller, intersect_pluecker
 
@@ -254,11 +262,6 @@ class CommitCancelled(RuntimeError):
     semantics: the scene stays valid and can be committed again)."""
 
 
-def _refuse(what: str):
-    raise NotImplementedError(
-        f"embree_tpu_torch does not cover {what} yet (see ROADMAP.md)")
-
-
 def _xf_points(xf, pts):
     """Points under an instance's (3, 4) affine, None for none
     (scene.py:370-374): the JAX merger's numpy expression, so the flattened
@@ -295,7 +298,8 @@ def _compose_affine(a, b):
 
 _INSTANCES = (InstanceGeometry, InstanceArrayGeometry)
 _MERGED = (TriangleGeometry, QuadGeometry, PointGeometry,
-           LineSegmentsGeometry, CurveGeometry, UserGeometry) + _INSTANCES
+           LineSegmentsGeometry, CurveGeometry, GridGeometry,
+           SubdivisionGeometry, UserGeometry) + _INSTANCES
 
 
 class _Merger:
@@ -379,7 +383,7 @@ class _Merger:
         current window's two ends) with the instance ids ``inst_stack`` and
         the instances' composed mask (scene.py:400-470)."""
         if not isinstance(g, _MERGED):
-            _refuse(type(g).__name__)
+            raise TypeError(f"unsupported geometry type {type(g)}")
         # the geometry exists only within its time range (scene.py:403-418)
         tr = tuple(float(x) for x in g.time_range)
         cw = (max(self._window[0], tr[0]), min(self._window[1], tr[1]))
@@ -540,6 +544,10 @@ class _Merger:
                       pnt_nb=_xf_normals(xf, nb))
         elif isinstance(g, CurveGeometry):
             self._add_curves(g, emit, xf, xfb)
+        elif isinstance(g, GridGeometry):
+            self._add_grids(g, emit, xf, xfb)
+        elif isinstance(g, SubdivisionGeometry):
+            self._add_subdivision(g, emit, xf, xfb)
         elif isinstance(g, UserGeometry):
             # user bounds and the intersect function (scene.py:806-815)
             if xf is not None:
@@ -694,6 +702,95 @@ class _Merger:
                                                    np.roll(b1, -1) * s,
                                                    -1.0)})
         self._put(line_fl=has_left, line_u0=u0, line_u1=u1)
+
+    def _add_grids(self, g, emit, xf, xfb):
+        """Each grid's (w-1) x (h-1) quads, prim id = grid index, with the
+        grid-global uv frame u = (cell x + u') / (w-1), v likewise
+        (scene.py:703-737; subgrid_intersector_moeller.h:19 interpolateUV).
+        The JAX merger's numpy expressions, so the tables are bit-equal."""
+        va, vb = self._steps(g.vertices, "vertices")
+        q_idx, local, uvms = [], [], []
+        for gi, (sv, stride, w, h) in enumerate(np.asarray(g.grids,
+                                                           np.int64)):
+            ys, xs = np.meshgrid(np.arange(h - 1), np.arange(w - 1),
+                                 indexing="ij")
+            a = sv + ys * stride + xs
+            q = np.stack([a, a + 1, a + 1 + stride, a + stride],
+                         axis=-1).reshape(-1, 4)
+            q_idx.append(q)
+            local.append(np.full(q.shape[0], gi, np.int64))
+            ix = 1.0 / max(w - 1, 1)
+            iy = 1.0 / max(h - 1, 1)
+            m = np.zeros((q.shape[0], 6), np.float32)
+            m[:, 0] = xs.reshape(-1) * ix
+            m[:, 1] = ys.reshape(-1) * iy
+            m[:, 2] = ix
+            m[:, 5] = iy
+            uvms.append(m)
+        idx = np.concatenate(q_idx)
+        emit(KIND_QUAD, idx.shape[0], "quad")
+        self.rows[-1][:, 2] = np.concatenate(local)
+        self._put(quad_v=_xf_points(xf, va[idx]),
+                  quad_vb=_xf_points(xfb, vb[idx]),
+                  quad_uvm=np.concatenate(uvms))
+
+    def _add_subdivision(self, g, emit, xf, xfb):
+        """The refined limit-surface quads of a Catmull-Clark cage, prim id
+        = base face (scene.py:739-804): holes leave the cage before
+        refinement (their edges become boundaries), each motion step is
+        refined on its own (the rules are linear in the cage), and
+        ``position_mode="no_boundary"`` drops every base face with a
+        boundary edge after it."""
+        fcs_in = np.asarray(g.face_counts, np.int64)
+        idx_in = np.asarray(g.indices, np.int64)
+        face_map = np.arange(fcs_in.shape[0], dtype=np.int64)
+        if g.holes is not None and len(np.atleast_1d(g.holes)):
+            hset = np.isin(face_map, np.atleast_1d(
+                np.asarray(g.holes, np.int64)))
+            starts = np.concatenate([[0], np.cumsum(fcs_in)[:-1]])
+            idx_in = (np.concatenate(
+                [idx_in[s0:s0 + c]
+                 for s0, c, h in zip(starts, fcs_in, hset) if not h])
+                if (~hset).any() else np.zeros(0, np.int64))
+            face_map = face_map[~hset]
+            fcs_in = fcs_in[~hset]
+        verts, quads, qbase, quvm = subdiv_ops.catmull_clark(
+            np.asarray(g.vertices, np.float32), fcs_in, idx_in,
+            levels=g.levels, creases=g.creases,
+            vertex_creases=g.vertex_creases,
+            boundary_interpolation=g.boundary_interpolation,
+            boundary_mode=g.position_mode)
+        qbase = face_map[qbase]             # back to the cage's face ids
+        if verts.ndim == 3:
+            va, vb, moving = _split_timesteps(verts, "subdiv", self._window,
+                                              self._trange)
+            self.has_motion |= moving
+        else:
+            va = vb = verts
+        quvm = np.asarray(quvm, np.float32)
+        if g.position_mode == "no_boundary":
+            # RTC_SUBDIVISION_MODE_NO_BOUNDARY: a patch on a boundary edge
+            # has no limit surface (rtcore_geometry.h:57)
+            fcs = np.asarray(g.face_counts, np.int64)
+            idx = np.asarray(g.indices, np.int64)
+            ecnt, fedges, off = {}, [], 0
+            for fc in fcs:
+                f = idx[off:off + fc]
+                off += fc
+                es = [tuple(sorted((int(f[k]), int(f[(k + 1) % fc]))))
+                      for k in range(fc)]
+                fedges.append(es)
+                for e in es:
+                    ecnt[e] = ecnt.get(e, 0) + 1
+            bfaces = [fi for fi, es in enumerate(fedges)
+                      if any(ecnt[e] == 1 for e in es)]
+            if bfaces:
+                keep = ~np.isin(qbase, bfaces)
+                quads, qbase, quvm = quads[keep], qbase[keep], quvm[keep]
+        emit(KIND_QUAD, quads.shape[0], "quad")
+        self.rows[-1][:, 2] = qbase
+        self._put(quad_v=_xf_points(xf, va[quads]),
+                  quad_vb=_xf_points(xfb, vb[quads]), quad_uvm=quvm)
 
     def curve_rates(self):
         """The distinct rates of the native curves, every kind

@@ -3,7 +3,7 @@ collapse, refit, spatial pre-splits and the SAH cost, against the JAX
 package, and the default build route that sends every scene under 50,000
 prims through them.
 
-The JAX side runs in four subprocesses started together, with XLA limited
+The JAX side runs in five subprocesses started together, with XLA limited
 to AVX (XLA's CPU backend otherwise contracts a*b+c into FMA, which moves
 half-areas and SAH costs and so can move a split on a near-tie; the port
 never contracts):
@@ -210,7 +210,10 @@ def _jax_builders(res, cases, with_presplit):
         _bvh_arrays(res, f"refit/{case}",
                     jax.jit(jrefit)(w, jnp.asarray(lo2), jnp.asarray(up2)))
         if case in LBVH_CASES:
-            b = jax.jit(jlbvh)(jnp.asarray(lo), jnp.asarray(up))
+            # op by op: the same bits as under jax.jit on every case, without
+            # the whole-function compile (its 96 unrolled search steps took
+            # XLA about 3 minutes at n = 2)
+            b = jlbvh(jnp.asarray(lo), jnp.asarray(up))
             _bvh_arrays(res, f"lbvh/{case}", b)
             res[f"lbvh_cost/{case}"] = np.asarray(jax.jit(jcost)(b))
     for case in PRESPLIT_CASES if with_presplit else ():
@@ -250,7 +253,9 @@ def _jax_scenes(res, names):
 
 
 JAX_PARTS = {"builders_a": SAH_CASES[:7], "builders_b": SAH_CASES[7:],
-             "tri_scenes": TRI_SCENES, "kind_scenes": tuple(KIND_SCENES)}
+             "tri_scenes": TRI_SCENES,
+             "kind_scenes_a": tuple(KIND_SCENES)[:3],
+             "kind_scenes_b": tuple(KIND_SCENES)[3:]}
 
 
 def _jax_reference(part, out_path):

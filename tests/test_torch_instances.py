@@ -369,7 +369,9 @@ def _jax_cases(res, names):
         res[f"{name}/pallas_occ"] = np.asarray(oprim) >= 0
 
 
-JAX_PARTS = {"a": CASES[:7], "b": CASES[7:]}
+# two subprocesses of about equal time: the Pallas cases apart
+JAX_PARTS = {"a": CASES[:7] + ("kinds_static",),
+             "b": CASES[7:11] + ("kinds_moving",)}
 
 
 def _jax_reference(part, out_path):
