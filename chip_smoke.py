@@ -203,11 +203,30 @@ Hopper traversal kernel against its plain PyTorch version:
    interpolation of the grid positions at the grid cell's hits;
    scene_stats; a checkpoint round trip of the main sphere (hits
    bit-equal after the load); Device() on CUDA;
-26. the kernels line (each traversal variant with its launches on the
-   instance paths and on the grid and subdivision paths), then the result
-   line.
+26. the path tracer (``models/pathtracer.py``): the Cornell box of
+   examples/render_pathtracer_demo.py (walls and panel triangles, two
+   sphere points: B3-B5) at 1024 x 1024, 4 spp, depth 4, and the main
+   sphere (matte) on a rough-metal floor under a quad light and an ambient
+   term (all triangles: B1) at 1024 x 1024, 1 spp, depth 4: the launches
+   (once a bounce for the closest hit and for occlusion), the render's ms,
+   peak memory, Mrays/s (the primary and shadow rays traced, over every
+   bounce) beside Mlanes/s, per bounce the entry point split into wrapper,
+   kernel and re-intersection, occlusion, and shading with sampling; the
+   first bounce's launches held against the plain version on 65,536 of
+   its rays (and the full-size launches on those rays); a 128 x 128
+   render of each scene held against the port's CPU render with the CPU
+   run's draws replayed;
+27. gradients: the Cornell box at 256 x 256, 1 spp, depth 2, with respect
+   to the albedo table and the back wall's depth, against central
+   differences over the pixels whose path choices stay put within the
+   step; the viewer-style vertex gradient of a 16,384-tri sphere through
+   the kernel against the port's CPU gradient; backward ms and peak
+   memory;
+28. the kernels line (each traversal variant with its launches on the
+   instance paths, on the grid and subdivision paths and in phase 26's
+   renders), then the result line.
 
-Launch counts are zeroed just before each driven path (4-24) and read just
+Launch counts are zeroed just before each driven path (4-26) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -3591,14 +3610,497 @@ def phase_api(pt, tr, sphere_mesh, grid_state, out):
     say(f"  phase 25 took {out['phase_s']:.1f} s; {card}")
 
 
-def kernel_entries(record, errs, inst_launches=None, grid_launches=None):
+# ---------------------------------------------------------------------------
+# phases 26-27: the path tracer and its gradients
+# ---------------------------------------------------------------------------
+
+PT_SIZE = 1024               # full-size renders, PT_SIZE x PT_SIZE pixels
+PT_CORNELL = dict(spp=4, max_depth=4)
+PT_SPHERE = dict(spp=1, max_depth=4)
+PT_CHECK = 128               # the render held against the port's CPU render
+PT_CHECK_SPP = {"cornell": 2, "sphere": 1}
+PT_COMPARE = 1 << 16         # first-bounce rays of the plain-version sample
+PT_MAX_FLIPS = 8             # check pixels a flipped branch may move (of
+                             # 16,384; H100 runs flip 1 a render)
+GRAD_SIZE = 256              # phase 27's image, spp 1, depth 2
+GRAD_EPS = 1e-3
+GRAD_MESH = (64, 128)        # the viewer-style vertex gradient's mesh
+GRAD_RAYS = 256              # its camera, GRAD_RAYS x GRAD_RAYS
+
+
+def cornell_box(pt, tm, tl):
+    """examples/render_pathtracer_demo.py:40-74: five walls, a mirror and
+    a matte ball (sphere points), an emissive ceiling panel, a quad light;
+    walls and panel are triangles (B3-B5 with the balls)."""
+    s = pt.Scene()
+    mats = {}
+
+    def wall(p, mat):
+        gid = s.attach(pt.TriangleGeometry(
+            np.array(p, np.float32), np.array([[0, 1, 2], [0, 2, 3]],
+                                              np.int32)))
+        mats[gid] = mat
+
+    white = (tm.MATTE, (0.73, 0.73, 0.73), 0.0)
+    wall([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], white)
+    wall([[-1, 2, 1], [1, 2, 1], [1, 2, -1], [-1, 2, -1]], white)
+    wall([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], white)
+    wall([[-1, 0, 1], [-1, 2, 1], [-1, 2, -1], [-1, 0, -1]],
+         (tm.MATTE, (0.65, 0.05, 0.05), 0.0))
+    wall([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]],
+         (tm.MATTE, (0.12, 0.45, 0.15), 0.0))
+    gid = s.attach(pt.PointGeometry(
+        np.array([[-0.35, 0.4, -0.3, 0.4]], np.float32), kind="sphere"))
+    mats[gid] = (tm.MIRROR, (0.9, 0.9, 0.9), 0.0)
+    gid = s.attach(pt.PointGeometry(
+        np.array([[0.45, 0.3, 0.35, 0.3]], np.float32), kind="sphere"))
+    mats[gid] = (tm.MATTE, (0.3, 0.3, 0.8), 0.0)
+    wall([[-0.4, 1.99, -0.4], [0.4, 1.99, -0.4], [0.4, 1.99, 0.4],
+          [-0.4, 1.99, 0.4]], (tm.EMISSIVE, (6.0, 6.0, 6.0), 0.0))
+    lights = tl.LightSetBuilder().quad([-0.4, 1.98, -0.4], [0.8, 0, 0],
+                                       [0, 0, 0.8], (6, 6, 6))
+    cam = dict(from_point=np.array([0, 1.0, 3.6], np.float32),
+               to_point=np.array([0, 0.9, 0], np.float32),
+               up=np.array([0, 1, 0], np.float32), fov_deg=40)
+    return s, mats, lights, cam
+
+
+def sphere_on_floor(pt, tm, tl, sphere_mesh):
+    """The main sphere (2,097,152 tris, matte) on a rough-metal floor under
+    a quad light and an ambient term: all triangles (B1)."""
+    verts, idx = sphere_mesh(*MAIN_MESH)
+    s = pt.Scene()
+    s.attach(pt.TriangleGeometry(verts, idx))
+    s.attach(pt.TriangleGeometry(
+        np.array([[-20, -1, -20], [20, -1, -20], [20, -1, 20],
+                  [-20, -1, 20]], np.float32),
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32)))
+    mats = {0: (tm.MATTE, (0.7, 0.7, 0.7), 0.0),
+            1: (tm.METAL, (0.8, 0.8, 0.8), 0.3)}
+    lights = tl.LightSetBuilder().quad([-1, 4, -1], [2, 0, 0], [0, 0, 2],
+                                       (8, 8, 8)).ambient((0.1, 0.1, 0.15))
+    cam = dict(from_point=np.array([0, 1.0, 4.0], np.float32),
+               to_point=np.array([0, 0, 0], np.float32),
+               up=np.array([0, 1, 0], np.float32), fov_deg=45)
+    return s, mats, lights, cam
+
+
+class BounceClock:
+    """Wraps the path tracer's ``intersect`` and ``occluded`` (the names it
+    calls) in CUDA events, in call order, and keeps the inputs and outputs
+    of the first ``keep`` calls; restores them on exit. ``record``: keep
+    every call's ids and occlusion flags instead (path signatures).
+    ``traced``: the rays of all calls that trace (``tfar >= tnear``), on
+    the device until read."""
+
+    def __init__(self, tpt, keep=0, record=False):
+        self.tpt, self.keep, self.record = tpt, keep, record
+        self.calls, self.kept, self.sig = [], [], []
+        self.traced = 0
+
+    def __enter__(self):
+        self.orig = (self.tpt.intersect, self.tpt.occluded)
+
+        def wrap(kind, fn):
+            def call(scene, rays, **kw):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(scene, rays, **kw)
+                b.record()
+                self.calls.append((kind, a, b))
+                self.traced = self.traced + (rays.tfar >= rays.tnear).sum()
+                if len(self.kept) < self.keep:
+                    self.kept.append((kind, rays, out))
+                if self.record:
+                    self.sig += ([out.geom_id, out.prim_id]
+                                 if kind == "intersect" else [out.long()])
+                return out
+            return call
+        self.tpt.intersect = wrap("intersect", self.orig[0])
+        self.tpt.occluded = wrap("occluded", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.tpt.intersect, self.tpt.occluded = self.orig
+
+    def bounce_ms(self, end, depth):
+        """Per bounce index (mean over samples): intersect, occluded and
+        the rest (shading and sampling, up to the next intersect or
+        ``end``)."""
+        out = [dict(intersect=0.0, occluded=0.0, shading=0.0)
+               for _ in range(depth)]
+        starts = [c[1] for c in self.calls[0::2]] + [end]
+        for k, (i, o) in enumerate(zip(self.calls[0::2], self.calls[1::2])):
+            check(i[0] == "intersect" and o[0] == "occluded",
+                  "the bounce calls are out of order")
+            span = i[1].elapsed_time(starts[k + 1])
+            ti = i[1].elapsed_time(i[2])
+            to = o[1].elapsed_time(o[2])
+            rec = out[k % depth]
+            rec["intersect"] += ti
+            rec["occluded"] += to
+            rec["shading"] += span - ti - to
+        n = len(self.calls) // (2 * depth)
+        return [{k: v / n for k, v in r.items()} for r in out]
+
+
+def pt_parts(tm, build, label):
+    """A path-tracer cell on the card: (committed scene, materials,
+    lights, camera, commit seconds)."""
+    from embree_tpu_torch.models.camera import Camera
+    s, mats, lb, cam = build
+    cs, secs = commit_timed(s, label)
+    m = tm.make_materials(max(mats) + 1, mats, device=DEV)
+    return cs, m, lb.build(device=DEV), Camera(**cam), secs
+
+
+def pt_cell(tr, tpt, label, parts, cfg, errs, out, card):
+    """One full-size render: launch counts zeroed just before and read
+    after, the render's ms and peak memory, per-bounce times (the entry
+    point split into wrapper, kernel and re-intersection on the first
+    sample's rays), the first bounce's launches held against the plain
+    version on a strided sample, Mrays/s of the rays traced. Returns the
+    launches."""
+    from embree_tpu_torch import scene as scene_mod
+    cs, mats, lights, cam, commit_s = parts
+    depth, spp, n = cfg["max_depth"], cfg["spp"], PT_SIZE
+
+    def render():
+        return tpt.render_pathtracer(cs, mats, lights, cam, n, n, spp=spp,
+                                     max_depth=depth,
+                                     draws=tpt.Draws.seeded(0, DEV))
+
+    t0 = time.perf_counter()
+    render()                    # warm-up: first-use costs, the allocator
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    tr.reset_launch_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with BounceClock(tpt, keep=2 * depth) as clock:
+        a.record()
+        img = render()
+        b.record()
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    clocked_ms = a.elapsed_time(b)
+    say(f"  {label}: launches {launches} ({spp} spp x {depth} bounces)")
+    variants = {o: tr.packed_variant(cs.packed, o, False, False)
+                for o in (False, True)}
+    for o, name in variants.items():
+        check(launches.get(name, 0) == spp * depth,
+              f"{label}: {name} launched {launches.get(name, 0)} times, "
+              f"not once a bounce")
+    check(tuple(img.shape) == (n, n, 3) and bool(torch.isfinite(img).all()),
+          f"{label}: the image is not finite")
+    check(float(img.mean()) > 0.0 and not img.requires_grad,
+          f"{label}: a black image, or a graph recorded")
+    render_ms = events_ms(render, reps=3)
+    bounces = clock.bounce_ms(b, depth)
+    lanes = 2 * n * n * spp * depth
+    traced = int(clock.traced)      # the seeded renders trace the same rays
+    live = []
+    for k in range(depth):
+        _, rays, _ = clock.kept[2 * k]
+        _, srays, _ = clock.kept[2 * k + 1]
+        live.append([int((rays.tfar >= rays.tnear).sum()),
+                     int((srays.tfar >= srays.tnear).sum())])
+        flat = rays.reshape(n * n)
+        select_ms = events_ms(lambda: scene_mod._select(cs, flat, False))
+        inputs = sorted_inputs(tr, flat)
+        kernel_ms = events_ms(lambda: run_kernel(
+            tr, cs.packed, inputs, occlusion=False, want_attrs=False))
+        bounces[k].update(select=select_ms, kernel=kernel_ms,
+                          wrapper=select_ms - kernel_ms,
+                          reintersect=bounces[k]["intersect"] - select_ms)
+        if k == 0:
+            plain = {}
+            for o, rs in ((False, flat), (True, srays.reshape(n * n))):
+                x = inputs if not o else sorted_inputs(tr, rs)
+                key = variants[o]
+                errs[key] = max(errs.get(key, 0.0), compare(
+                    tr, cs.packed, x, PT_COMPARE, o, False,
+                    f"{label}: bounce 0 {key}", plain=plain))
+                r = run_kernel(tr, cs.packed, x, occlusion=o,
+                               want_attrs=False)
+                check_sample(r, plain[key], False, f"{label}: bounce 0 {key}")
+        say(f"  {label}: bounce {k}: intersect {bounces[k]['intersect']:.3f}"
+            f" ms (wrapper {bounces[k]['wrapper']:.3f} + kernel "
+            f"{kernel_ms:.3f} + re-intersection "
+            f"{bounces[k]['reintersect']:.3f}), occluded "
+            f"{bounces[k]['occluded']:.3f} ms, shading and sampling "
+            f"{bounces[k]['shading']:.3f} ms; live rays {live[k][0]} / "
+            f"shadow rays {live[k][1]} of {n * n}")
+    del clock
+    mrays = traced / (render_ms * 1e3)
+    mlanes = lanes / (render_ms * 1e3)
+    say(f"  {label}: {n} x {n}, {spp} spp, depth {depth}: render "
+        f"{render_ms:.3f} ms (with the bounce clock {clocked_ms:.3f}; the "
+        f"first render {first_s:.3f} s), {traced} rays traced of {lanes} "
+        f"ray lanes: {mrays:.2f} Mrays/s ({mlanes:.2f} Mlanes/s), peak "
+        f"memory {peak / 1e9:.3f} GB, image mean {float(img.mean()):.5f} "
+        f"[{card}]")
+    out[label] = dict(render_ms=render_ms, clocked_ms=clocked_ms,
+                      first_s=first_s, lanes=lanes, traced=traced,
+                      mrays_per_s=mrays, mlanes_per_s=mlanes,
+                      peak_bytes=peak, bounces=bounces,
+                      live=live, launches=launches, commit_s=commit_s,
+                      size=n, spp=spp, depth=depth, card=card)
+    return launches
+
+
+def pt_check_cpu(tpt, label, parts, cpu_parts, spp, depth):
+    """A PT_CHECK x PT_CHECK render on the card against the port's CPU
+    render of the same scene (its tables copied), with the CPU run's draws
+    replayed: each pixel within rtol 1e-4 / atol 1e-6, but for at most
+    PT_MAX_FLIPS pixels (a branch flipped by a last-bit difference
+    of the card's math, counted)."""
+    n = PT_CHECK
+    rec = []
+    cs, mats, lights, cam, _ = cpu_parts
+    t0 = time.perf_counter()
+    ref = tpt.render_pathtracer(cs, mats, lights, cam, n, n, spp=spp,
+                                max_depth=depth,
+                                draws=tpt.Draws.seeded(1, "cpu", record=rec))
+    cpu_s = time.perf_counter() - t0
+    cs, mats, lights, cam, _ = parts
+    got = tpt.render_pathtracer(cs, mats, lights, cam, n, n, spp=spp,
+                                max_depth=depth,
+                                draws=tpt.ReplayDraws(rec, DEV)).cpu()
+    close = torch.isclose(got, ref, rtol=1e-4, atol=1e-6).all(-1)
+    flips = int((~close).sum())
+    same = int((got.view(torch.int32) == ref.view(torch.int32)).all(-1)
+               .sum())
+    diff = float((got - ref).abs().max())
+    say(f"  {label}: {n} x {n} card render == CPU render ({spp} spp, depth "
+        f"{depth}, {len(rec)} draws replayed): {n * n - flips} pixels "
+        f"within rtol 1e-4 / atol 1e-6 ({same} bit-equal), {flips} not "
+        f"(bound {PT_MAX_FLIPS}); max |diff| {diff:.3e}; the "
+        f"CPU render {cpu_s:.1f} s")
+    check(flips <= PT_MAX_FLIPS, f"{label}: {flips} pixels differ "
+          "from the CPU render")
+    return dict(pixels=n * n, within=n * n - flips, bit_equal=same,
+                max_abs_diff=diff, flips=flips)
+
+
+def phase_pathtracer(pt, tr, sphere_mesh, errs, out):
+    """Phase 26: the path tracer on the card."""
+    from embree_tpu_torch.models import lights as tl
+    from embree_tpu_torch.models import materials as tm
+    from embree_tpu_torch.models import pathtracer as tpt
+    t_phase = time.perf_counter()
+    card = card_line()
+    say(f"phase 26: the path tracer: the Cornell box (B3-B5) at "
+        f"{PT_SIZE}^2, {PT_CORNELL['spp']} spp, depth "
+        f"{PT_CORNELL['max_depth']}; the main sphere on a floor (B1) at "
+        f"{PT_SIZE}^2, {PT_SPHERE['spp']} spp, depth "
+        f"{PT_SPHERE['max_depth']} [{card}]")
+    launches = {}
+    for label, build, cfg in (
+            ("cornell", cornell_box(pt, tm, tl), PT_CORNELL),
+            ("sphere", sphere_on_floor(pt, tm, tl, sphere_mesh), PT_SPHERE)):
+        parts = pt_parts(tm, build, label)
+        got = pt_cell(tr, tpt, label, parts, cfg, errs, out, card)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        cpu = (to_cpu(parts[0]), to_cpu(parts[1]), to_cpu(parts[2]),
+               parts[3], 0.0)
+        out[label]["cpu_check"] = pt_check_cpu(
+            tpt, label, parts, cpu, PT_CHECK_SPP[label],
+            cfg["max_depth"])
+        del parts, cpu
+        torch.cuda.empty_cache()
+    say(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def translated(cs, gid, direction, d):
+    """The committed scene with geometry ``gid``'s triangles moved by
+    ``d`` along ``direction`` (a differentiable replacement of the
+    tables the re-intersection reads)."""
+    from embree_tpu_torch.scene import KIND_TRIANGLE
+    rows = cs.prim_data[(cs.prim_kind == KIND_TRIANGLE)
+                        & (cs.prim_geom == gid)]
+    sel = torch.zeros(cs.tri_v0.shape[0], 1, device=cs.device)
+    sel[rows] = 1.0
+    shift = sel * torch.as_tensor(direction, dtype=torch.float32,
+                                  device=cs.device) * d
+    return dataclasses.replace(
+        cs, tri_v0=cs.tri_v0 + shift, tri_v1=cs.tri_v1 + shift,
+        tri_v2=cs.tri_v2 + shift, tri_v0b=cs.tri_v0b + shift,
+        tri_v1b=cs.tri_v1b + shift, tri_v2b=cs.tri_v2b + shift)
+
+
+def phase_gradients(pt, tr, sphere_mesh, out):
+    """Phase 27: image gradients on the card."""
+    from embree_tpu_torch.models import lights as tl
+    from embree_tpu_torch.models import materials as tm
+    from embree_tpu_torch.models import pathtracer as tpt
+    from embree_tpu_torch.models.viewer import ispc_camera_rays
+    t_phase = time.perf_counter()
+    card = card_line()
+    n = GRAD_SIZE
+    say(f"phase 27: gradients: the Cornell box at {n}^2, 1 spp, depth 2, "
+        f"with respect to the albedo and the back wall's depth; the "
+        f"viewer-style vertex gradient through the kernel [{card}]")
+    cs, mats, lights, cam, _ = pt_parts(tm, cornell_box(pt, tm, tl),
+                                        "cornell")
+    back_wall = 2
+    w = torch.as_tensor(np.random.default_rng(11).uniform(
+        0.5, 1.5, (n, n, 3)).astype(np.float32), device=DEV)
+
+    def run(albedo, dz, keep=None, record=False):
+        """The weighted image sum (float64) and the path signature (each
+        bounce's geometry and prim ids and shadow flags, per pixel)."""
+        m = dataclasses.replace(mats, albedo=albedo)
+        s2 = translated(cs, back_wall, (0.0, 0.0, 1.0), dz)
+        with BounceClock(tpt, record=record) as clock:
+            img = tpt.render_pathtracer(s2, m, lights, cam, n, n, spp=1,
+                                        max_depth=2,
+                                        draws=tpt.Draws.seeded(3, DEV))
+        wk = w if keep is None else w * keep[..., None]
+        sig = torch.stack(clock.sig, -1) if record else None
+        return (wk.double() * img.double()).sum(), sig
+
+    a0 = mats.albedo.clone()
+    z0 = torch.tensor(0.0, device=DEV)
+    with torch.no_grad():
+        _, sig0 = run(a0, z0, record=True)
+    rng = np.random.default_rng(1)
+    d_alb = torch.as_tensor(rng.normal(size=tuple(a0.shape))
+                            .astype(np.float32), device=DEV)
+    eps = GRAD_EPS
+    keep = torch.ones((n, n), device=DEV)
+    plus_minus = {}
+    for name, (da, dz) in (("albedo", (d_alb, 0.0)), ("dz", (None, 1.0))):
+        sigs = []
+        for sgn in (1.0, -1.0):
+            alb = a0 + sgn * eps * da if da is not None else a0
+            with torch.no_grad():
+                _, sg = run(alb, z0 + sgn * eps * dz, record=True)
+            sigs.append(sg)
+            plus_minus[(name, sgn)] = (alb, z0 + sgn * eps * dz)
+        same = (sigs[0] == sig0).all(-1) & (sigs[1] == sig0).all(-1)
+        keep = keep * same.to(torch.float32)
+    dropped = int((keep == 0).sum())
+    say(f"  {dropped} of {n * n} pixels change a path choice (a bounce's "
+        f"prim or a shadow test) within +-{eps}: left out of the loss, so "
+        "that the central differences see no structure term")
+    check(dropped <= 0.05 * n * n, "too many pixels change their paths")
+
+    alb = a0.clone().requires_grad_()
+    dz = z0.clone().requires_grad_()
+    torch.autograd.grad(run(alb, dz, keep)[0], (alb, dz))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    loss, _ = run(alb, dz, keep)
+    e[1].record()
+    ga, gz = torch.autograd.grad(loss, (alb, dz))
+    e[2].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check(bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gz)),
+          "non-finite gradients")
+    res = {}
+    with torch.no_grad():
+        for name, ad in (("albedo", float((ga * d_alb).sum())),
+                         ("dz", float(gz))):
+            lp = float(run(*plus_minus[(name, 1.0)], keep)[0])
+            lm = float(run(*plus_minus[(name, -1.0)], keep)[0])
+            fd = (lp - lm) / (2 * eps)
+            ok = abs(ad - fd) <= 1e-3 + 2e-2 * abs(fd)
+            say(f"  d(loss)/d({name}): autograd {ad:.6f}, central "
+                f"differences {fd:.6f} ({'within' if ok else 'NOT within'} "
+                "rtol 2e-2 / atol 1e-3)")
+            check(ok and abs(ad) > 1e-3, f"gradient {name} off its central "
+                  "differences")
+            res[name] = dict(autograd=ad, fd=fd)
+    say(f"  render with graph {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
+        f"peak memory {peak / 1e9:.3f} GB [{card}]")
+    out["cornell_grad"] = dict(size=n, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                               peak_bytes=peak, dropped_pixels=dropped,
+                               checks=res, card=card)
+
+    # the viewer-style vertex gradient: the kernel selects on the card,
+    # the plain version on the CPU; the re-intersection carries both
+    verts, idx = sphere_mesh(*GRAD_MESH)
+    cs = tri_scene(pt, verts, idx).commit(device=DEV)
+    cpu_cs = to_cpu(cs)
+    eye = (np.array([0.3, 0.2, 3.0]), np.zeros(3), np.array([0.0, 1, 0]))
+
+    # the rays are made on the CPU, so both devices trace the same bits
+    cam_rays = ispc_camera_rays(*eye, 50.0, GRAD_RAYS, GRAD_RAYS,
+                                device="cpu").reshape(GRAD_RAYS * GRAD_RAYS)
+
+    def vertex_grad(c, dev):
+        flat = pt.make_rays(cam_rays.org.to(dev), cam_rays.dir.to(dev))
+        vv = torch.as_tensor(verts, device=dev)
+        ii = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        ww = torch.as_tensor(np.random.default_rng(7).uniform(
+            0.5, 1.5, GRAD_RAYS * GRAD_RAYS).astype(np.float32), device=dev)
+        dv = torch.zeros_like(vv, requires_grad=True)
+        t0 = (vv + dv)[ii]
+        s2 = dataclasses.replace(
+            c, tri_v0=t0[:, 0], tri_v1=t0[:, 1], tri_v2=t0[:, 2],
+            tri_v0b=t0[:, 0], tri_v1b=t0[:, 1], tri_v2b=t0[:, 2])
+        h = pt.intersect(s2, flat)
+        ng = h.ng * torch.rsqrt(torch.clamp(
+            (h.ng * h.ng).sum(-1, keepdim=True), min=1e-30))
+        px = torch.where(h.valid, (-flat.dir * ng).sum(-1).abs()
+                         + 0.05 * h.t, 0.0)
+        loss = (ww * px).sum()
+        ms = None
+        if dev == DEV:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        g, = torch.autograd.grad(loss, dv)
+        if dev == DEV:
+            b.record()
+            torch.cuda.synchronize()
+            ms = a.elapsed_time(b)
+        return g.cpu(), h.prim_id.cpu(), ms
+
+    tr.reset_launch_counts()
+    g_card, p_card, vbwd = vertex_grad(cs, DEV)
+    check(tr.LAUNCHES.get(tr.packed_variant(cs.packed, False, False,
+                                            False), 0) > 0,
+          "the vertex gradient did not launch the kernel")
+    g_cpu, p_cpu, _ = vertex_grad(cpu_cs, "cpu")
+    check(torch.equal(p_card, p_cpu), "the kernel and the plain version "
+          "select other prims")
+    scale = float(g_cpu.abs().max())
+    err = float(((g_card - g_cpu).abs()
+                 - 1e-3 * g_cpu.abs()).max()) / scale
+    say(f"  vertex gradient ({cs.num_prims} tris, {GRAD_RAYS}^2 rays): card "
+        f"== CPU within rtol 1e-3 + 1e-4 of the largest ({scale:.4f}); "
+        f"worst excess {err:.3e}; backward {vbwd:.3f} ms")
+    check(err <= 1e-4 and scale > 1e-4, "the card's vertex gradient is off "
+          "the CPU's")
+    out["vertex_grad"] = dict(tris=cs.num_prims, rays=GRAD_RAYS ** 2,
+                              backward_ms=vbwd, worst_excess=err, card=card)
+    say(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def kernel_entries(record, errs, inst_launches=None, grid_launches=None,
+                   pt_launches=None):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it; each traversal variant also carries its
     launches on the instance paths of phases 22-23
-    (``instance_launches``) and on the grid and subdivision paths of phase
-    24 (``grid_subdiv_launches``)."""
+    (``instance_launches``), on the grid and subdivision paths of phase
+    24 (``grid_subdiv_launches``) and in phase 26's renders
+    (``pathtracer_launches``)."""
     inst_launches = inst_launches or {}
     grid_launches = grid_launches or {}
+    pt_launches = pt_launches or {}
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
@@ -3641,7 +4143,8 @@ def kernel_entries(record, errs, inst_launches=None, grid_launches=None):
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
             "instance_launches": inst_launches.get(name, 0),
-            "grid_subdiv_launches": grid_launches.get(name, 0)})
+            "grid_subdiv_launches": grid_launches.get(name, 0),
+            "pathtracer_launches": pt_launches.get(name, 0)})
     return kernels
 
 
@@ -3717,13 +4220,17 @@ def main():
     grid_launches, grid_state = phase_grids_subdiv(pt, tr, errs, api)
     phase_api(pt, tr, sphere_mesh, grid_state, api)
     del grid_state
+    pathtracer = {}
+    pt_launches = phase_pathtracer(pt, tr, sphere_mesh, errs, pathtracer)
+    phase_gradients(pt, tr, sphere_mesh, pathtracer)
 
-    kernels = kernel_entries(record, errs, inst_launches, grid_launches)
+    kernels = kernel_entries(record, errs, inst_launches, grid_launches,
+                             pt_launches)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
                    "builders": builders, "instances": instances,
-                   "grids_api": api,
+                   "grids_api": api, "pathtracer": pathtracer,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

@@ -1,12 +1,12 @@
 """Vector math, the subset the port uses.
 
-Port of embree_tpu/core/math.py (:32-63, :88-91, :109-110, :196-288,
-:290-303). Every "vector" is a trailing-dim-3 tensor. Dot and cross
-products are written out component by component, so they sum in one fixed
-order on every device. Affines and quaternions (the instance transforms,
-resolved at commit on the host) are float32 numpy arrays: (3, 4) affines
-[linear | translation] and (4,) quaternions (w, x, y, z), each product
-written out and rounded term by term, without FMA.
+Port of embree_tpu/core/math.py (:32-63, ``reflect`` among them, :88-91,
+:109-110, :196-288, :290-303). Every "vector" is a trailing-dim-3 tensor.
+Dot and cross products are written out component by component, so they
+sum in one fixed order on every device. Affines and quaternions (the
+instance transforms, resolved at commit on the host) are float32 numpy
+arrays: (3, 4) affines [linear | translation] and (4,) quaternions (w, x,
+y, z), each product written out and rounded term by term, without FMA.
 """
 from __future__ import annotations
 
@@ -37,6 +37,12 @@ def sqrt_rn(x):
 
 def normalize(a, eps=1e-20):
     return a * torch.rsqrt(torch.clamp(dot(a, a), min=eps))[..., None]
+
+
+def reflect(v, n):
+    """Reflect direction v about normal n (both pointing away from the
+    surface)."""
+    return 2.0 * dot(v, n)[..., None] * n - v
 
 
 def rcp_safe(x, eps=1e-18):

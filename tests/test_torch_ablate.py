@@ -31,12 +31,12 @@ The card-only test at the end imports no JAX: run it on the card with
 import os
 import re
 import shutil
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+import torch_jaxref
 
 from embree_tpu_torch.perf import ablate_v7 as v7
 from embree_tpu_torch.perf import kernel_ablate as v5
@@ -222,20 +222,12 @@ def jax_ref(inputs, tmp_path_factory):
                    for k, x in zip(RAY_KEYS, deep_rays)})
     in_path = str(out / "in.npz")
     np.savez(in_path, **arrays)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=AVX",
-               EMBREE_TPU_NATIVE_BUILD="1",
-               PYTHONPATH=os.pathsep.join([ROOT, HERE]))
+    shared = torch_jaxref.shared_dir(tmp_path_factory)
+    env = torch_jaxref.env("--xla_cpu_max_isa=AVX",
+                           EMBREE_TPU_NATIVE_BUILD="1")
     paths = [str(out / f"ref{k}.npz") for k in range(len(JAX_PARTS))]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               in_path, path, str(k)], env=env, cwd=ROOT)
-             for k, path in enumerate(paths)]
-    try:
-        codes = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * len(procs), f"JAX side exited with {codes}"
+    torch_jaxref.run([torch_jaxref.script(__file__, in_path, path, k)
+                      for k, path in enumerate(paths)], shared, env)
     ref = {}
     for path in paths:
         ref.update(np.load(path))

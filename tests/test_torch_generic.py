@@ -40,7 +40,6 @@ The card-only test at the end imports no JAX: run it on the card with
 import functools
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -55,6 +54,7 @@ from test_torch_curves import (BACKDROP, build, fat_curves, ribbon_inputs,
                                steps_of, strand)
 from test_torch_round import round_geoms
 from test_torch_traverse import bits, ray_set
+import torch_jaxref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -421,21 +421,13 @@ def one_thread():
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jaxref_generic")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=AVX "
-               "--xla_disable_hlo_passes=algsimp",
-               EMBREE_TPU_NATIVE_BUILD="1",
-               PYTHONPATH=os.pathsep.join([ROOT, HERE]))
+    shared = torch_jaxref.shared_dir(tmp_path_factory)
+    env = torch_jaxref.env("--xla_cpu_max_isa=AVX "
+                           "--xla_disable_hlo_passes=algsimp",
+                           EMBREE_TPU_NATIVE_BUILD="1")
     paths = [str(out / f"ref{k}.npz") for k in range(len(JAX_PARTS))]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               path, str(k)], env=env, cwd=ROOT)
-             for k, path in enumerate(paths)]
-    try:
-        codes = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * len(procs), f"JAX side exited with {codes}"
+    torch_jaxref.run([torch_jaxref.script(__file__, path, k)
+                      for k, path in enumerate(paths)], shared, env)
     ref = {}
     for path in paths:
         ref.update(np.load(path))

@@ -26,12 +26,12 @@ The card-only test at the end imports no JAX: run it on the card with
 """
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+import torch_jaxref
 
 from embree_tpu_torch.perf import device, micro
 from embree_tpu_torch.perf import micro_expand, micro_ops, micro_v8
@@ -135,23 +135,15 @@ def _jax_reference(unit, x_path, out_path):
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jaxref_micro")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=AVX",
-               PYTHONPATH=os.pathsep.join([ROOT, HERE]))
-    procs, paths = [], {}
+    shared = torch_jaxref.shared_dir(tmp_path_factory)
+    env = torch_jaxref.env("--xla_cpu_max_isa=AVX")
+    cmds, paths = [], {}
     for unit, mod in MODULES.items():
         x_path = str(out / f"x_{unit}.npy")
         np.save(x_path, micro.distinct_x(mod.HARNESS).numpy())
         paths[unit] = str(out / f"ref_{unit}.npz")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), unit, x_path,
-             paths[unit]], env=env, cwd=ROOT))
-    try:
-        codes = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * len(procs), f"JAX side exited with {codes}"
+        cmds.append(torch_jaxref.script(__file__, unit, x_path, paths[unit]))
+    torch_jaxref.run(cmds, shared, env, timeout=600)
     ref = {}
     for unit, path in paths.items():
         d = np.load(path)

@@ -33,6 +33,7 @@ import torch
 import embree_tpu_torch as pt
 from embree_tpu_torch.accel import traverse as tr
 from embree_tpu_torch.tools.viewer import sphere_mesh
+from test_torch_round import one_thread  # noqa: F401 (module-wide autouse)
 
 VARIANTS = ((False, True), (False, False), (True, False))   # (occ, attrs)
 SIZES = (1, 31, 32, 33, 4097)

@@ -26,7 +26,6 @@ The card-only test at the end imports no JAX: run it on the card with
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -39,6 +38,7 @@ from embree_tpu_torch.accel import traverse as tr
 from test_torch_curves import (BACKDROP, TABLES, _flags, build, fat_curves,
                                port_scene, rays_for, steps_of)
 from test_torch_traverse import bits, port_rays
+import torch_jaxref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -99,6 +99,7 @@ SCENES = {
 MOVING = ("motion", "windowed")
 # one subprocess per scene, all started together
 JAX_PARTS = tuple((name,) for name in sorted(SCENES))
+LONG_RUNNING = ("masked", "robust_rate12")
 
 
 def trace_inputs(name):
@@ -175,21 +176,18 @@ def one_thread():
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jaxref_round")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=AVX "
-               "--xla_disable_hlo_passes=algsimp",
-               EMBREE_TPU_NATIVE_BUILD="1",
-               PYTHONPATH=os.pathsep.join([ROOT, HERE]))
+    shared = torch_jaxref.shared_dir(tmp_path_factory)
+    # the interpreted kernel runs longest on these two scenes: compiled
+    # without LLVM's passes they took 6x and 1.4x the CPU, the other three
+    # 0.75x
+    envs = [torch_jaxref.env("--xla_cpu_max_isa=AVX "
+                             "--xla_disable_hlo_passes=algsimp",
+                             fast_compile=part[0] not in LONG_RUNNING,
+                             EMBREE_TPU_NATIVE_BUILD="1")
+            for part in JAX_PARTS]
     paths = [str(out / f"ref{k}.npz") for k in range(len(JAX_PARTS))]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               path, str(k)], env=env, cwd=ROOT)
-             for k, path in enumerate(paths)]
-    try:
-        codes = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * len(procs), f"JAX side exited with {codes}"
+    torch_jaxref.run([torch_jaxref.script(__file__, path, k)
+                      for k, path in enumerate(paths)], shared, envs)
     ref = {}
     for path in paths:
         ref.update(np.load(path))

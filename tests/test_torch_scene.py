@@ -18,6 +18,7 @@ import embree_tpu as et
 import embree_tpu_torch as pt
 from embree_tpu_torch.scene import BuildQuality
 from test_bvh import make_sphere_mesh
+from test_torch_round import one_thread  # noqa: F401 (module-wide autouse)
 from test_torch_traverse import jax_native_ready
 
 

@@ -22,6 +22,7 @@ from embree_tpu_torch.models import viewer as pviewer
 from embree_tpu_torch.models.camera import Camera
 from embree_tpu_torch.tools.viewer import build_scene as pbuild
 from embree_tpu_torch.utils.image import compare_images, load_pfm
+from test_torch_round import one_thread  # noqa: F401 (module-wide autouse)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 CASES = [(sc, sh) for sc in ("cube", "sphere")
