@@ -222,11 +222,35 @@ Hopper traversal kernel against its plain PyTorch version:
    step; the viewer-style vertex gradient of a 16,384-tri sphere through
    the kernel against the port's CPU gradient; backward ms and peak
    memory;
-28. the kernels line (each traversal variant with its launches on the
-   instance paths, on the grid and subdivision paths and in phase 26's
-   renders), then the result line.
+28. multi-device at world size 1 (``parallel/``): an NCCL process group
+   of one rank joined through a file store in a temporary directory;
+   render_image_sharded of the main sphere at 1024 x 1024 with eyelight
+   and occlusion, each bit-equal to intersect + the shader unsharded; one
+   make_train_step on sphere_mesh(64, 128) at 65,536 camera rays, its new
+   vertex tables and loss bit-equal to the unsharded step's (deterministic
+   algorithms on); measure_scaling and measure_scaling_weak at [1] on
+   16,777,216 rays, printed as rays/s; then the group is destroyed. NCCL
+   puts one rank on each card, so one card runs no larger group;
+29. robustness on the kernels (tests/test_robustness.py): its NaN and Inf
+   origins and directions and its extreme intervals on an 8 x 12 sphere,
+   and its garbage vertices (NaN and 1e30) beside a valid triangle,
+   through B1, B2, B6 (2 steps) and B7 (with flat strands): the entry
+   points' hits (no hit at a non-finite t, the extreme intervals [True,
+   False, False], the valid triangle at t = 1) and every variant's launch
+   bit-equal to the plain version, steps included, every ray finished,
+   with each launch's longest walk; its watertight sphere and plane grid
+   at 50,000 rays through B1 (miss rate at most 2e-5); its deep scene
+   with overflow 0 in every variant;
+30. the parity tools (tools/parity.py, tools/parity_models.py) on the
+   scenes of write_parity_scenes (XML scenes, .ecs files with every
+   generator flag, a moving scene, min-width, texcoords) at 512 x 512 on
+   the card, each image within 55 wrong pixels (8-bit metric) of the
+   port's CPU render of the same file;
+31. the kernels line (each traversal variant with its launches on the
+   instance paths, on the grid and subdivision paths, in phase 26's
+   renders and on phases 28-30's paths), then the result line.
 
-Launch counts are zeroed just before each driven path (4-26) and read just
+Launch counts are zeroed just before each driven path (4-30) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -253,6 +277,9 @@ import types
 
 import numpy as np
 import torch
+
+from embree_tpu_torch.perf.device import card_line
+from embree_tpu_torch.tools.parity_models import point_sphere, prim_sphere
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -435,11 +462,14 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def add_counts(into, counts):
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
 
 
 def incoherent_rays(n, seed):
@@ -1084,53 +1114,6 @@ def phase_robust(pt, tr, sphere_mesh, errs, record):
                   total_ms=total_ms, plain=plain)
 
 
-def prim_sphere_quads(center, radius, num_phi):
-    """createQuadSphere (Embree tutorials, geometry_creation.cpp), the vertex
-    layout and pole-row [a, b, d, d] quads of
-    embree_tpu/tools/parity_models.py:107-162, in numpy."""
-    c = np.asarray(center, np.float64)
-    n_phi, n_theta = num_phi, 2 * num_phi
-    phi = np.arange(n_phi + 1)[:, None] * np.pi / n_phi
-    theta = np.arange(n_theta)[None, :] * 2.0 * np.pi / n_theta
-    x = c[0] + radius * np.sin(phi) * np.sin(theta)
-    y = (c[1] + radius * np.cos(phi)) * np.ones_like(theta)
-    z = c[2] + radius * np.sin(phi) * np.cos(theta)
-    pos = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
-    p, th = np.meshgrid(np.arange(1, n_phi + 1), np.arange(1, n_theta + 1),
-                        indexing="ij")
-    p00 = (p - 1) * n_theta + th - 1
-    p01 = (p - 1) * n_theta + th % n_theta
-    p10 = p * n_theta + th - 1
-    p11 = p * n_theta + th % n_theta
-    q = np.stack([p10, p00, p01, p11], -1)
-    q[0] = np.stack([p10[0], np.full_like(p10[0], n_theta - 1), p11[0],
-                     p11[0]], -1)
-    q[-1] = np.stack([np.full_like(p00[-1], n_phi * n_theta), p00[-1],
-                      p01[-1], p01[-1]], -1)
-    return pos, q.reshape(-1, 4).astype(np.int32)
-
-
-def point_sphere(center, radius, point_r, num_phi, oriented=False):
-    """createPointSphere (geometry_creation.cpp), as
-    embree_tpu/tools/parity_models.py:81-103 lays it out: a
-    (num_phi+1) x 2*num_phi grid of points, radial normals when
-    ``oriented``."""
-    c = np.asarray(center, np.float64)
-    n_phi, n_theta = num_phi, 2 * num_phi
-    phi = np.arange(n_phi + 1)[:, None] * np.pi / n_phi
-    theta = np.arange(n_theta)[None, :] * 2.0 * np.pi / n_theta
-    x = c[0] + radius * np.sin(phi) * np.sin(theta)
-    y = (c[1] + radius * np.cos(phi)) * np.ones_like(theta)
-    z = c[2] + radius * np.sin(phi) * np.cos(theta)
-    pos = np.stack([x, y, z, np.full_like(x, point_r)], -1).reshape(-1, 4)
-    pos = pos.astype(np.float32)
-    if not oriented:
-        return pos, None
-    nrm = pos[:, :3] - c.astype(np.float32)
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
-    return pos, nrm.astype(np.float32)
-
-
 def hair(rng, center, n_strands, n_seg=8, step=0.04, r0=0.004, r1=0.002):
     """Strands rooted uniformly on a unit sphere about ``center``, growing
     along the outward normal in ``step``s, radius tapering r0 -> r1: the
@@ -1152,7 +1135,7 @@ def mixed_full_scene(pt):
     --point-sphere, --disc-sphere and --oriented-disc-sphere (131,584 points
     each), plus 524,288 round and 131,072 flat hair segments."""
     s = pt.Scene()
-    s.attach(pt.QuadGeometry(*prim_sphere_quads((0, 0, 0), 1.0, 512)))
+    s.attach(pt.QuadGeometry(*prim_sphere("quad", (0, 0, 0), 1.0, 512)))
     pos, _ = point_sphere((2.5, 0, 0), 1.0, 0.01, 256)
     s.attach(pt.PointGeometry(pos, kind="sphere"))
     pos, _ = point_sphere((-2.5, 0, 0), 1.0, 0.01, 256)
@@ -2860,8 +2843,7 @@ def instance_check_cells(pt, tr, sphere_mesh, errs):
         occ = pt.occluded(cs, rays)
         torch.cuda.synchronize()
         got = dict(tr.LAUNCHES)
-        for k, v in got.items():
-            launches[k] = launches.get(k, 0) + v
+        add_counts(launches, got)
         check(torch.equal(occ, hit.valid) and torch.equal(hd.valid,
                                                           hit.valid),
               f"{label}: the entry points disagree")
@@ -2939,8 +2921,7 @@ def phase_instances(pt, tr, sphere_mesh, errs, out):
     del cs, rays, inputs
     torch.cuda.empty_cache()
     out["check_launches"] = instance_check_cells(pt, tr, sphere_mesh, errs)
-    for k, n in out["check_launches"].items():
-        launches[k] = launches.get(k, 0) + n
+    add_counts(launches, out["check_launches"])
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 22: {out['phase_s']:.1f} s")
     return launches
@@ -3163,32 +3144,6 @@ def phase_two_level(pt, tr, sphere_mesh, errs, out):
     return launches
 
 
-def grid_sphere(n, center=(0.0, 0.0, 0.0), radius=1.0):
-    """createGridSphere (Embree tutorials, geometry_creation.cpp), as
-    embree_tpu/tools/parity_models.py:110-132 lays it out: six grids of
-    (n + 1) x (n + 1) vertices, one per cube face, pushed onto the sphere.
-    Returns (vertices, (6, 4) grid rows)."""
-    c = np.asarray(center, np.float32)
-    gs = (n + 1) * (n + 1)
-    frames = (((-0.5, -0.5, -0.5), (1, 0, 0), (0, 1, 0)),
-              ((+0.5, -0.5, -0.5), (0, 0, 1), (0, 1, 0)),
-              ((+0.5, -0.5, +0.5), (-1, 0, 0), (0, 1, 0)),
-              ((-0.5, -0.5, +0.5), (0, 0, -1), (0, 1, 0)),
-              ((-0.5, -0.5, -0.5), (0, 0, 1), (1, 0, 0)),
-              ((-0.5, +0.5, -0.5), (1, 0, 0), (0, 0, 1)))
-    pos = np.zeros((6 * gs, 3), np.float32)
-    grids = []
-    t = np.arange(n + 1, dtype=np.float32) / n
-    for i, (p0, dx, dy) in enumerate(frames):
-        p = (np.asarray(p0, np.float32)
-             + t[None, :, None] * np.asarray(dx, np.float32)
-             + t[:, None, None] * np.asarray(dy, np.float32))
-        p = p / np.linalg.norm(p, axis=-1, keepdims=True)
-        pos[i * gs:(i + 1) * gs] = (c + radius * p).reshape(-1, 3)
-        grids.append([i * gs, n + 1, n + 1, n + 1])
-    return pos, np.asarray(grids, np.int32)
-
-
 def torus_cage(nu, nv, big=1.0, small=0.35):
     """A torus of nu x nv quad faces (nu around the axis, nv around the
     tube), one crease loop of weight 2 along the outer equator. Returns
@@ -3303,7 +3258,7 @@ def check_variant_cells(pt, tr, errs, out, card):
     all rays."""
     org, d = incoherent_rays(KINDS_RAYS, 0)
     times = ray_times(KINDS_RAYS)
-    gv, grows = grid_sphere(CHECK_GRID_N)
+    gv, grows = prim_sphere("grid", (0, 0, 0), 1.0, CHECK_GRID_N)
     cells = {}
     s = pt.Scene()
     s.attach(pt.GridGeometry(moving(gv, (MOTION_SHIFT, 0, 0), 2), grows))
@@ -3334,8 +3289,7 @@ def check_variant_cells(pt, tr, errs, out, card):
         occ = pt.occluded(cs, rays)
         torch.cuda.synchronize()
         got = dict(tr.LAUNCHES)
-        for k, n in got.items():
-            launches[k] = launches.get(k, 0) + n
+        add_counts(launches, got)
         check(torch.equal(occ, hit.valid) and torch.equal(hk.valid,
                                                           hit.valid),
               f"{label}: the entry points disagree")
@@ -3364,7 +3318,7 @@ def phase_grids_subdiv(pt, tr, errs, out):
     n_quads = 6 * GRID_N * GRID_N
     say(f"phase 24: grids and subdivision: createGridSphere({GRID_N}), "
         f"{n_quads} quads, {GRID_RAYS} rays [{card}]")
-    gv, grows = grid_sphere(GRID_N)
+    gv, grows = prim_sphere("grid", (0, 0, 0), 1.0, GRID_N)
     geom = pt.GridGeometry(gv, grows)
     s = pt.Scene()
     s.attach(geom)
@@ -3419,8 +3373,7 @@ def phase_grids_subdiv(pt, tr, errs, out):
     del org, d
     hit, got = quad_cell(pt, tr, "subdivision torus", cs, rays, errs, out,
                          card)
-    for k, n in got.items():
-        launches[k] = launches.get(k, 0) + n
+    add_counts(launches, got)
     check(bool(((hit.prim_id[hit.valid] >= 0)
                 & (hit.prim_id[hit.valid] < nu * nv)).all()),
           "subdivision: a prim id is not a base face")
@@ -3430,8 +3383,7 @@ def phase_grids_subdiv(pt, tr, errs, out):
                                     table_mb=table_mb(cs.packed) / 1e6)
     del cs, rays, hit
     torch.cuda.empty_cache()
-    for k, n in check_variant_cells(pt, tr, errs, out, card).items():
-        launches[k] = launches.get(k, 0) + n
+    add_counts(launches, check_variant_cells(pt, tr, errs, out, card))
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 24 took {out['phase_s']:.1f} s; launches {launches}; "
         f"{card}")
@@ -3905,8 +3857,7 @@ def phase_pathtracer(pt, tr, sphere_mesh, errs, out):
             ("sphere", sphere_on_floor(pt, tm, tl, sphere_mesh), PT_SPHERE)):
         parts = pt_parts(tm, build, label)
         got = pt_cell(tr, tpt, label, parts, cfg, errs, out, card)
-        for k, v in got.items():
-            launches[k] = launches.get(k, 0) + v
+        add_counts(launches, got)
         cpu = (to_cpu(parts[0]), to_cpu(parts[1]), to_cpu(parts[2]),
                parts[3], 0.0)
         out[label]["cpu_check"] = pt_check_cpu(
@@ -4090,17 +4041,507 @@ def phase_gradients(pt, tr, sphere_mesh, out):
     say(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
 
 
-def kernel_entries(record, errs, inst_launches=None, grid_launches=None,
-                   pt_launches=None):
+# ---------------------------------------------------------------------------
+# phase 28: multi-device at world size 1
+# ---------------------------------------------------------------------------
+
+MD_SIZE = 1024               # phase 28's sharded renders, MD_SIZE x MD_SIZE
+MD_SHADERS = ("eyelight", "occlusion")
+MD_TRAIN_MESH = (64, 128)    # the training step's sphere
+MD_TRAIN_RAYS = 256          # its camera, 256 x 256 = 65,536 rays
+MD_LR = 1e-2
+
+
+def phase_parallel(pt, tr, sphere_mesh, out):
+    """Phase 28: ``parallel/`` on one card, an NCCL group of one rank
+    joined through a file store: the sharded render of the main sphere and
+    the training step bit-equal to their unsharded counterparts, and the
+    scaling measurements at [1]. NCCL puts one rank on each card, so this
+    machine runs no larger group."""
+    import torch.distributed as dist
+    from embree_tpu_torch.models.camera import Camera
+    from embree_tpu_torch.models.viewer import SHADERS
+    from embree_tpu_torch.parallel import mesh as pmesh
+    from embree_tpu_torch.parallel import render as prender
+    say("phase 28: multi-device at world size 1 (NCCL, a file store)")
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = {}
+    res = out.setdefault("parallel", {})
+    cam = Camera(from_point=np.array([0.3, 0.6, 3.0], np.float32),
+                 to_point=np.zeros(3, np.float32),
+                 up=np.array([0, 1, 0], np.float32), fov_deg=50.0)
+    with tempfile.TemporaryDirectory() as d:
+        prender.init_distributed("file://" + os.path.join(d, "store"), 1, 0)
+        try:
+            mesh = prender.make_mesh()
+            check(dist.get_backend() == "nccl" and mesh.size == 1
+                  and mesh.rank == 0 and mesh.group is not None
+                  and mesh.device.type == "cuda", f"the mesh: {mesh}")
+            cs, _ = commit_timed(tri_scene(pt, *sphere_mesh(*MAIN_MESH)),
+                                 "main sphere")
+            for sh in MD_SHADERS:
+                tr.reset_launch_counts()
+                img = prender.render_image_sharded(cs, cam, MD_SIZE, MD_SIZE,
+                                                   mesh, sh)
+                counts = dict(tr.LAUNCHES)
+                check(counts, f"the sharded {sh} render launched nothing")
+                add_counts(launches, counts)
+                rays = cam.rays(MD_SIZE, MD_SIZE, device=DEV)
+                ref = SHADERS[sh](cs, rays, pt.intersect(cs, rays))
+                check(same_bits(img, ref), f"the sharded {sh} render "
+                      "differs from the unsharded one")
+                check(float(img.max()) > 0, f"a black {sh} image")
+                ms = events_ms(lambda: prender.render_image_sharded(
+                    cs, cam, MD_SIZE, MD_SIZE, mesh, sh))
+                say(f"  render_image_sharded {sh} {MD_SIZE}^2: {ms:.3f} ms, "
+                    f"launches {counts}, == intersect + shader (bits) "
+                    f"[{card}]")
+                res[f"render_{sh}_ms"] = ms
+
+            verts, idx = sphere_mesh(*MD_TRAIN_MESH)
+            cs2 = tri_scene(pt, verts, idx).commit(device=DEV)
+            rays = cam.rays(MD_TRAIN_RAYS, MD_TRAIN_RAYS, device=DEV) \
+                .reshape(MD_TRAIN_RAYS * MD_TRAIN_RAYS)
+            shrunk = dataclasses.replace(cs2, tri_v0=cs2.tri_v0 * 0.95,
+                                         tri_v1=cs2.tri_v1 * 0.95,
+                                         tri_v2=cs2.tri_v2 * 0.95)
+            with torch.no_grad():
+                target = pmesh.render_depth(shrunk, rays)
+            # autograd's scatter of the vertex gradient adds in atomic
+            # order on CUDA unless deterministic algorithms are on
+            was = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                step = pmesh.make_train_step(mesh, lr=MD_LR)
+                tr.reset_launch_counts()
+                new, loss = step(cs2, prender.shard_rays(rays, mesh), target)
+                counts = dict(tr.LAUNCHES)
+                vs = [v.detach().requires_grad_()
+                      for v in (cs2.tri_v0, cs2.tri_v1, cs2.tri_v2)]
+                ref_loss = pmesh.depth_loss(*vs, cs2, rays, target)
+                grads = torch.autograd.grad(ref_loss, vs)
+                step_ms = events_ms(lambda: step(
+                    cs2, prender.shard_rays(rays, mesh), target))
+            finally:
+                torch.use_deterministic_algorithms(was)
+            check(counts, "the training step launched nothing")
+            add_counts(launches, counts)
+            check(same_bits(loss, ref_loss.detach()),
+                  f"train loss {float(loss)} != {float(ref_loss.detach())}")
+            for k, g in zip(("tri_v0", "tri_v1", "tri_v2"), grads):
+                check(same_bits(getattr(new, k), getattr(cs2, k) - MD_LR * g),
+                      f"the step's {k} differs from the unsharded step")
+            gmax = max(float(g.abs().max()) for g in grads)
+            check(float(loss) > 0 and gmax > 0, "a step that moves nothing")
+            say(f"  make_train_step on {cs2.num_prims} tris, "
+                f"{rays.shape[0]} rays: loss {float(loss):.6e}, largest "
+                f"|gradient| {gmax:.4e}, new tables and loss == the "
+                f"unsharded step's (bits); {step_ms:.3f} ms, launches "
+                f"{counts} [{card}]")
+            res.update(train_loss=float(loss), train_ms=step_ms)
+
+            org, dd = incoherent_rays(MAIN_RAYS, 0)
+            rays = pt.make_rays(org, dd, device=DEV)
+            tr.reset_launch_counts()
+            strong = prender.measure_scaling(cs, rays, [1])
+            weak = prender.measure_scaling_weak(cs, rays, [1])
+            counts = dict(tr.LAUNCHES)
+            add_counts(launches, counts)
+            check(strong[1]["rays_per_s"] > 0 and weak[1]["rays_per_s"] > 0,
+                  "no scaling rate")
+            say(f"  measure_scaling [1], {MAIN_RAYS} rays: "
+                f"{strong[1]['rays_per_s'] / 1e6:.2f} Mrays/s (efficiency "
+                f"{strong[1]['efficiency']:.3f}); measure_scaling_weak [1]: "
+                f"{weak[1]['rays_per_s'] / 1e6:.2f} Mrays/s; launches "
+                f"{counts} [{card}]")
+            res.update(strong=strong[1], weak=weak[1], card=card)
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 28")
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 28 took {res['phase_s']:.1f} s; {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 29: robustness on the kernels
+# ---------------------------------------------------------------------------
+
+ROBUST_TEST_RAYS = 50_000    # tests/test_robustness.py:25, :52
+MISS_RATE_BOUND = 2e-5       # verify.cpp:3686
+
+
+def bad_rays(pt):
+    """tests/test_robustness.py:62's NaN and Inf origins and directions
+    (rays 0-5), then :95's extreme intervals (rays 6-8: tnear 1e30, tfar
+    1e-30; only ray 6 may hit)."""
+    bad = np.array([[np.nan, 0, 0], [0, np.inf, 0], [0, 0, -np.inf]],
+                   np.float32)
+    down = np.tile(np.float32([0, 0, -1]), (3, 1))
+    org = np.vstack([bad, np.zeros((6, 3), np.float32)]) \
+        + np.float32([0, 0, 5])
+    dirs = np.vstack([down, bad, down])
+    tnear = np.float32([0] * 7 + [1e30, 0])
+    tfar = np.float32([np.inf] * 8 + [1e-30])
+    return org, dirs, tnear, tfar
+
+
+def garbage_geometry(pt, steps=1):
+    """tests/test_robustness.py:76: 40 triangles over NaN and 1e30
+    vertices (moving over ``steps`` when more than 1) beside one valid
+    triangle, which the ray from (0.2, 0.2, 1) down meets at t = 1."""
+    rng = np.random.default_rng(2)
+    v = rng.normal(size=(64, 3)).astype(np.float32) * 1e30
+    v[::7] = np.nan
+    idx = rng.integers(0, 64, (40, 3)).astype(np.int32)
+    if steps > 1:
+        v = np.stack([v * np.float32(1 - 0.5 * k) for k in range(steps)])
+    return [pt.TriangleGeometry(v, idx), pt.TriangleGeometry(
+        np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32),
+        np.array([[0, 1, 2]], np.int32))]
+
+
+def flat_strands(pt):
+    """64 flat Bezier strands left of the scenes' rays (B7's slots)."""
+    rng = np.random.default_rng(6)
+    base = rng.uniform(-1, 1, (64, 3)).astype(np.float32) \
+        + np.float32([-4, 0, 0])
+    k = np.arange(4, dtype=np.float32)[None, :, None] / 3
+    cp = base[:, None] + k * np.float32([0.3, 1.0, 0.1])
+    v = np.concatenate([cp, np.full((64, 4, 1), 0.01, np.float32)], -1)
+    return pt.CurveGeometry(v.reshape(-1, 4), np.arange(64, dtype=np.int32)
+                            * 4, basis="bezier", kind="flat")
+
+
+def robustness_cells(pt, sphere_mesh):
+    """(label, scene) pairs: B1, B2, B6 and B7 each on the 8 x 12 sphere
+    (the bad rays) and on the garbage geometry (its ray and the bad
+    rays)."""
+    sv, si = sphere_mesh(8, 12)
+    cells = []
+    for fam, kw, steps, curves in (("B1", {}, 1, False),
+                                   ("B2", {"robust": True}, 1, False),
+                                   ("B6", {}, 2, False),
+                                   ("B7", {}, 1, True)):
+        for what in ("sphere", "garbage"):
+            s = pt.Scene(**kw)
+            if what == "sphere":
+                s.attach(pt.TriangleGeometry(
+                    moving(sv, (0.25, 0, 0), steps) if steps > 1 else sv,
+                    si))
+            else:
+                for g in garbage_geometry(pt, steps):
+                    s.attach(g)
+            if curves:
+                s.attach(flat_strands(pt))
+            cells.append((f"{fam} {what}", s))
+    return cells
+
+
+def launch_pair(tr, cs, x, occ, attrs, label):
+    """One launch of the kernel and of its plain version on the same
+    (sorted) rays: bit-equal outputs and steps, no overflow, every ray
+    finished once. Returns (the kernel's result, its longest ray's
+    steps)."""
+    k = run_kernel(tr, cs.packed, x, occlusion=occ, want_attrs=attrs,
+                   robust=cs.robust)
+    p = run_plain(tr, cs.packed, x, occlusion=occ, want_attrs=attrs,
+                  robust=cs.robust)
+    check(int(k.overflow) == 0 and int(p.overflow) == 0,
+          f"{label}: stack overflow")
+    check_bits(k, p, attrs, label)
+    check_sched(k, x[0].shape[0], label)
+    hit = k.best >= 0
+    check(bool(torch.isfinite(k.t[hit]).all()), f"{label}: a hit at a "
+          "non-finite t")
+    return k, int(k.visits.sum(0).max())
+
+
+def robust_rates(pt, tr, label, scene, org, dirs, card):
+    """A watertightness case of tests/test_robustness.py through B1's
+    entry points: the miss rate of both intersect modes and occluded."""
+    cs = scene.commit(device=DEV)
+    rays = pt.make_rays(org, dirs, device=DEV)
+    tr.reset_launch_counts()
+    rates = []
+    for fn in (lambda: pt.intersect(cs, rays).valid,
+               lambda: pt.intersect(cs, rays, differentiable=False).valid,
+               lambda: pt.occluded(cs, rays)):
+        rates.append(1.0 - float(fn().float().mean()))
+    counts = dict(tr.LAUNCHES)
+    check(max(rates) <= MISS_RATE_BOUND, f"{label}: miss rates {rates}")
+    say(f"  {label}: {rays.shape[0]} rays through B1, miss rates "
+        f"{rates} (closest, closest + attrs, occluded; bound "
+        f"{MISS_RATE_BOUND}), launches {counts} [{card}]")
+    return counts
+
+
+def phase_robustness(pt, tr, sphere_mesh, out):
+    """Phase 29: the NaN and Inf rays, the garbage vertices and the extreme
+    intervals through B1, B2, one B6 and one B7 variant, each launch
+    bit-equal to the plain version; tests/test_robustness.py's watertight
+    sphere and plane grid through B1; its deep scene with no overflow."""
+    say("phase 29: robustness on the kernels")
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = {}
+    res = out.setdefault("robustness", {})
+    org, dirs, tnear, tfar = bad_rays(pt)
+    for label, scene in robustness_cells(pt, sphere_mesh):
+        cs = scene.commit(device=DEV)
+        check(cs.packed is not None, f"{label}: no packed table")
+        o, d, tn, tf = org, dirs, tnear, tfar
+        if label.endswith("garbage"):
+            o = np.vstack([np.float32([[0.2, 0.2, 1.0]]), org])
+            d = np.vstack([np.float32([[0, 0, -1]]), dirs])
+            tn, tf = np.append(np.float32(0), tnear), \
+                np.append(np.float32(np.inf), tfar)
+        rays = pt.make_rays(o, d, tnear=tn, tfar=tf, device=DEV)
+        tr.reset_launch_counts()
+        hits = [pt.intersect(cs, rays), pt.intersect(cs, rays,
+                                                     differentiable=False)]
+        occ = pt.occluded(cs, rays)
+        counts = dict(tr.LAUNCHES)
+        check(counts, f"{label}: nothing launched")
+        add_counts(launches, counts)
+        for h in hits:
+            check(bool(torch.isfinite(h.t[h.valid]).all()),
+                  f"{label}: a hit at a non-finite t")
+            check(torch.equal(h.valid, occ), f"{label}: occluded and "
+                  "intersect disagree")
+            if label.endswith("garbage"):
+                check(bool(h.valid[0]) and abs(float(h.t[0]) - 1.0) < 1e-4,
+                      f"{label}: the valid triangle was not found at t = 1")
+            else:
+                check(h.valid[6:].tolist() == [True, False, False],
+                      f"{label}: extreme intervals {h.valid[6:].tolist()}")
+        x = sorted_inputs(tr, rays)
+        steps = []
+        variants = VARIANTS if cs.packed.tri_attrs else KIND_VARIANTS
+        for name, occl, attrs in variants:
+            _, n = launch_pair(tr, cs, x, occl, attrs, f"{label} {name}")
+            steps.append(n)
+        family = tr.packed_variant(cs.packed, False, False, cs.robust)
+        say(f"  {label} ({family} family): {rays.shape[0]} rays, "
+            f"{int(hits[0].valid.sum())} hits; each variant == plain (bits, "
+            f"steps), every ray finished, no overflow; longest ray's steps "
+            f"by variant "
+            f"{steps}; launches {counts}")
+        res[label] = dict(max_steps=steps, launches=counts)
+
+    n = ROBUST_TEST_RAYS
+    d = np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    add_counts(launches, robust_rates(
+        pt, tr, "watertight sphere (:16)",
+        tri_scene(pt, *sphere_mesh(32, 64)), np.zeros((n, 3), np.float32),
+        d, card))
+    k = 64
+    xs, ys = np.meshgrid(np.linspace(-1, 1, k + 1, dtype=np.float32),
+                         np.linspace(-1, 1, k + 1, dtype=np.float32),
+                         indexing="ij")
+    v = np.stack([xs.ravel(), ys.ravel(),
+                  np.zeros((k + 1) ** 2, np.float32)], -1)
+    a = (np.arange(k)[:, None] * (k + 1) + np.arange(k)[None, :]).ravel()
+    idx = np.stack([np.stack([a, a + 1, a + k + 2], -1),
+                    np.stack([a, a + k + 2, a + k + 1], -1)], 1) \
+        .reshape(-1, 3).astype(np.int32)
+    rng = np.random.default_rng(1)
+    targets = rng.uniform(-0.98, 0.98, (n, 2)).astype(np.float32)
+    po = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)),
+                         np.full((n, 1), 3.0)], axis=1).astype(np.float32)
+    pd = (np.concatenate([targets, np.zeros((n, 1))], axis=1) - po) \
+        .astype(np.float32)
+    add_counts(launches, robust_rates(pt, tr, "plane grid (:33)",
+                                      tri_scene(pt, v, idx), po, pd, card))
+
+    # :140's deep tree: clusters at exponentially shrinking scales
+    rng = np.random.default_rng(4)
+    vs = [rng.normal(size=(8, 3, 3)).astype(np.float32) * 2.0 ** -(j + 3)
+          + np.array([2.0 ** -j, 0, 0], np.float32) for j in range(12)]
+    verts = np.concatenate(vs).reshape(-1, 3)
+    cs = tri_scene(pt, verts, np.arange(verts.shape[0], dtype=np.int32)
+                   .reshape(-1, 3)).commit(device=DEV)
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    # the test's random directions, then one ray at each triangle's
+    # centroid, which walks the tree to its deepest leaves
+    aim = verts.reshape(-1, 3, 3).mean(1) - np.float32(3.0)
+    d = np.vstack([d, aim]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = pt.make_rays(np.full((d.shape[0], 3), 3.0, np.float32), d,
+                        device=DEV)
+    tr.reset_launch_counts()
+    hit = pt.intersect(cs, rays, differentiable=False)
+    counts = dict(tr.LAUNCHES)
+    add_counts(launches, counts)
+    x = sorted_inputs(tr, rays)
+    steps = [launch_pair(tr, cs, x, occl, attrs, f"deep scene {name}")[1]
+             for name, occl, attrs in VARIANTS]
+    check(int(hit.valid[512:].sum()) > 0, "no aimed ray hit the deep scene")
+    say(f"  deep scene (:140): {cs.num_prims} tris, {int(hit.valid.sum())} "
+        f"of {d.shape[0]} rays hit; overflow 0 in every variant, == plain "
+        f"(bits, steps); longest ray's steps {steps}; launches {counts}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 29 took {res['phase_s']:.1f} s; {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the parity tools
+# ---------------------------------------------------------------------------
+
+PARITY_SIZE = 512            # the tools' frame, as the reference renders
+PARITY_BUDGET = 55           # wrong pixels (tutorial.cpp:646-658)
+PARITY_CAM = dict(from_=np.array([0.3, 0.8, 3.5]), to=np.zeros(3),
+                  up=np.array([0.0, 1.0, 0.0]), fov=50.0)
+# a Catmull-Clark patch of two quads with texcoords (the texcoords shaders)
+SUBDIV_TEX_XML = """<?xml version="1.0"?>
+<scene>
+  <PerspectiveCamera name="default" from="1 0.5 2.4" to="1 0.5 0"
+                     up="0 1 0" fov="60"/>
+  <SubdivisionMesh>
+    <positions>0 0 0  1 0 0  2 0 0  0 1 0.2  1 1 0.4  2 1 0.2</positions>
+    <position_indices>0 1 4 3  1 2 5 4</position_indices>
+    <faces>4 4</faces>
+    <texcoords>0 0  0.5 0  1 0  0 1  0.5 1  1 1</texcoords>
+    <texcoord_indices>0 1 4 3  1 2 5 4</texcoord_indices>
+  </SubdivisionMesh>
+</scene>
+"""
+# .ecs command files (tools/parity_models.py): name -> text
+PARITY_ECS = {
+    "generators.ecs": (
+        "# every generator flag of the reference's viewer\n"
+        "--point-sphere -2.2 1.2 0 0.6 0.04 12\n"
+        "--disc-sphere 0 1.2 0 0.6 0.04 12\n"
+        "--oriented-disc-sphere 2.2 1.2 0 0.6 0.04 12\n"
+        "--triangle-sphere -2.2 -1.2 0 0.6 12\n"
+        "--quad-sphere 0 -1.2 0 0.6 12\n"
+        "--grid-sphere 2.2 -1.2 0 0.6 6\n"
+        "-vp 0 0 7 -vi 0 0 0 -vu 0 1 0 -fov 60\n"),
+    "moving.ecs": "-i ../moving.xml -vp 0.3 0.8 3.5 -vi 0 0 0 -fov 50\n",
+    "min_width.ecs": "-i ../curves.xml --min-width 3 4\n",
+    "shader_ng.ecs": "-i ../kinds.xml --shader Ng\n",
+    "texcoords.ecs": "-i subdiv_tex.xml --shader texcoords\n",
+    "texcoords_grid.ecs": "-i subdiv_tex.xml --shader texcoords-grid\n",
+}
+
+
+def write_parity_scenes(pt, d, sphere_mesh):
+    """The scenes of phase 30 and tests/test_torch_parity_tools.py, written
+    into directory ``d``: XML scenes (``utils/ply.write_xml``) for
+    ``tools/parity.py`` and, under ``d/ecs``, the .ecs files of PARITY_ECS
+    for ``tools/parity_models.py`` beside the subdivision patch that the
+    texcoords shaders read (its XML as text). Returns (XML paths, .ecs
+    paths)."""
+    from embree_tpu_torch.utils.ply import write_xml
+    from embree_tpu_torch.utils.xml_scene import XMLScene
+
+    rng = np.random.default_rng(8)
+    sv, si = sphere_mesh(16, 24)
+    floor = pt.QuadGeometry(np.float32([[-3, -1.2, -3], [3, -1.2, -3],
+                                        [3, -1.2, 3], [-3, -1.2, 3]]),
+                            np.int32([[0, 1, 2, 3]]))
+    pts = np.concatenate([rng.uniform(-2, 2, (48, 3)),
+                          rng.uniform(0.05, 0.15, (48, 1))], -1)
+    pts[:, 2] -= 1.5
+    strands = np.concatenate([rng.uniform(-1.5, 1.5, (32, 1, 3))
+                              + np.arange(4)[None, :, None]
+                              * np.float64([0.1, 0.5, 0.05]),
+                              np.full((32, 4, 1), 0.02)], -1)
+    seg = np.concatenate([rng.uniform(-1.5, 1.5, (24, 3)),
+                          np.full((24, 1), 0.03)], -1)
+    seg = np.stack([seg, seg + np.float64([0.6, 0.3, 0.0, 0.0])], 1)
+    gv, grows = prim_sphere("grid", (0, 0, 0), 0.6, 8)
+    scenes = {
+        "kinds.xml": [pt.TriangleGeometry(sv, si), floor,
+                      pt.PointGeometry(pts[:24].astype(np.float32),
+                                       kind="sphere"),
+                      pt.PointGeometry(pts[24:].astype(np.float32),
+                                       kind="disc"),
+                      pt.GridGeometry(gv + np.float32([2.2, 0, -1]), grows)],
+        "curves.xml": [pt.CurveGeometry(
+            strands.reshape(-1, 4).astype(np.float32),
+            np.arange(32, dtype=np.int32) * 4, basis="bezier", kind="flat"),
+            pt.LineSegmentsGeometry(seg.reshape(-1, 4).astype(np.float32),
+                                    np.arange(24, dtype=np.int32) * 2,
+                                    kind="round")],
+        "moving.xml": [pt.TriangleGeometry(moving(sv, (0.4, 0, 0), 2), si),
+                       floor],
+    }
+    xmls = []
+    for name, geoms in scenes.items():
+        xs = XMLScene()
+        xs.geometries = geoms
+        xs.camera = PARITY_CAM
+        xmls.append(os.path.join(d, name))
+        write_xml(xmls[-1], xs)
+    os.makedirs(os.path.join(d, "ecs"), exist_ok=True)
+    with open(os.path.join(d, "ecs", "subdiv_tex.xml"), "w") as f:
+        f.write(SUBDIV_TEX_XML)
+    ecss = []
+    for name, text in PARITY_ECS.items():
+        ecss.append(os.path.join(d, "ecs", name))
+        with open(ecss[-1], "w") as f:
+            f.write(text)
+    return sorted(xmls), ecss
+
+
+def phase_parity(pt, tr, sphere_mesh, out):
+    """Phase 30: tools/parity.py (5 shaders a scene) and
+    tools/parity_models.py (the viewer's default and named shaders) on the
+    card at 512^2, each image scored against the port's CPU render of the
+    same file with the reference's 8-bit wrong-pixel metric."""
+    from embree_tpu_torch.tools import parity, parity_models
+    from embree_tpu_torch.utils.exr import compare_images, quantize8
+    say("phase 30: the parity tools")
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = {}
+    res = out.setdefault("parity", {})
+    with tempfile.TemporaryDirectory() as d:
+        xmls, ecss = write_parity_scenes(pt, d, sphere_mesh)
+        jobs = [(os.path.basename(x), lambda dev, x=x: parity.run_scene(
+            x, parity.SHADERS, size=PARITY_SIZE, device=dev)) for x in xmls]
+        jobs += [(os.path.basename(e), lambda dev, e=e: {
+            "default": parity_models.run_ecs(e, size=PARITY_SIZE,
+                                             device=dev)}) for e in ecss]
+        for name, job in jobs:
+            tr.reset_launch_counts()
+            ms, card_imgs = host_ms(lambda: job(DEV))
+            counts = dict(tr.LAUNCHES)
+            add_counts(launches, counts)
+            t0 = time.perf_counter()
+            cpu_imgs = job("cpu")
+            cpu_s = time.perf_counter() - t0
+            scores = {}
+            for sh, img in card_imgs.items():
+                check(img.shape == (PARITY_SIZE, PARITY_SIZE, 3)
+                      and np.isfinite(img).all(), f"{name} {sh}: bad image")
+                scores[sh] = compare_images(quantize8(img),
+                                            quantize8(cpu_imgs[sh]))
+            check(max(scores.values()) <= PARITY_BUDGET,
+                  f"{name}: wrong pixels {scores} over {PARITY_BUDGET}")
+            say(f"  {name}: card vs CPU wrong pixels "
+                f"{ {k: round(v, 3) for k, v in scores.items()} }; card "
+                f"{ms:.1f} ms (load, commit, trace, shade), CPU {cpu_s:.1f} "
+                f"s; launches {counts} [{card}]")
+            res[name] = dict(scores=scores, card_ms=ms, launches=counts)
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 30 took {res['phase_s']:.1f} s; {card}")
+    return launches
+
+
+def kernel_entries(record, errs, phase_launches):
     """One entry of the kernels line per timed variant, with the launches
-    of the path that timed it; each traversal variant also carries its
-    launches on the instance paths of phases 22-23
-    (``instance_launches``), on the grid and subdivision paths of phase
-    24 (``grid_subdiv_launches``) and in phase 26's renders
-    (``pathtracer_launches``)."""
-    inst_launches = inst_launches or {}
-    grid_launches = grid_launches or {}
-    pt_launches = pt_launches or {}
+    of the path that timed it; each traversal variant also carries, under
+    each key of ``phase_launches``, its launches on a later phase's path:
+    the instance paths of phases 22-23 (``instance_launches``), the grid
+    and subdivision paths of phase 24 (``grid_subdiv_launches``), phase
+    26's renders (``pathtracer_launches``) and phases 28-30's paths
+    (``parallel_launches``, ``robustness_launches``,
+    ``parity_launches``)."""
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
@@ -4142,9 +4583,8 @@ def kernel_entries(record, errs, inst_launches=None, grid_launches=None,
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "instance_launches": inst_launches.get(name, 0),
-            "grid_subdiv_launches": grid_launches.get(name, 0),
-            "pathtracer_launches": pt_launches.get(name, 0)})
+            **{key: counts.get(name, 0)
+               for key, counts in phase_launches.items()}})
     return kernels
 
 
@@ -4213,9 +4653,8 @@ def main():
     phase_scene_api(pt, tr, sphere_mesh, builders)
     instances = {}
     inst_launches = phase_instances(pt, tr, sphere_mesh, errs, instances)
-    for k, n in phase_two_level(pt, tr, sphere_mesh, errs,
-                                instances).items():
-        inst_launches[k] = inst_launches.get(k, 0) + n
+    add_counts(inst_launches, phase_two_level(pt, tr, sphere_mesh, errs,
+                                              instances))
     api = {}
     grid_launches, grid_state = phase_grids_subdiv(pt, tr, errs, api)
     phase_api(pt, tr, sphere_mesh, grid_state, api)
@@ -4223,14 +4662,22 @@ def main():
     pathtracer = {}
     pt_launches = phase_pathtracer(pt, tr, sphere_mesh, errs, pathtracer)
     phase_gradients(pt, tr, sphere_mesh, pathtracer)
+    later = {}
+    phase_launches = {
+        "instance_launches": inst_launches,
+        "grid_subdiv_launches": grid_launches,
+        "pathtracer_launches": pt_launches,
+        "parallel_launches": phase_parallel(pt, tr, sphere_mesh, later),
+        "robustness_launches": phase_robustness(pt, tr, sphere_mesh, later),
+        "parity_launches": phase_parity(pt, tr, sphere_mesh, later)}
 
-    kernels = kernel_entries(record, errs, inst_launches, grid_launches,
-                             pt_launches)
+    kernels = kernel_entries(record, errs, phase_launches)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
                    "builders": builders, "instances": instances,
                    "grids_api": api, "pathtracer": pathtracer,
+                   "parallel_robustness_parity": later,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

@@ -46,7 +46,7 @@ def _moving_mixed(pt, cs, masked, robust):
     pos_s, _ = cs.point_sphere((2.5, 0, 0), 1.0, 0.01, 256)
     pos_d, _ = cs.point_sphere((-2.5, 0, 0), 1.0, 0.01, 256)
     pos_o, nrm = cs.point_sphere((0, 2.5, 0), 1.0, 0.01, 256, oriented=True)
-    qv, qi = cs.prim_sphere_quads((0, 0, 0), 1.0, 512)
+    qv, qi = cs.prim_sphere("quad", (0, 0, 0), 1.0, 512)
     rv, ri = cs.hair(rng, (0, -2.5, 0), 65536)
     fv, fi = cs.hair(rng, (0, 0, 2.5), 16384)
     geoms = [

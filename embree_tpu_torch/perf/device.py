@@ -1,6 +1,6 @@
 """What the harnesses of this package share on the card: the loader of the
-built kernel libraries, one count of kernel launches, and CUDA-event
-timing.
+built kernel libraries, one count of kernel launches, CUDA-event timing,
+and the card's name and power limit.
 
 Every wrapper that launches a kernel of ``perf/`` adds one to its entry of
 ``LAUNCHES`` where it launches it and nowhere else; the ablations count by
@@ -11,6 +11,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import statistics
+import subprocess
 import threading
 import time
 from typing import Callable, Dict, Sequence
@@ -29,6 +30,15 @@ LAUNCHES: Dict[str, int] = collections.defaultdict(int)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the first card)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def reset_launch_counts() -> None:

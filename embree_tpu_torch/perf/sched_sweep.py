@@ -57,7 +57,6 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import tempfile
 
 import numpy as np
@@ -65,6 +64,7 @@ import torch
 
 from .. import _build
 from ..accel import traverse as tr
+from .device import card_line
 
 MOTION_CONSTANTS = (("traverse.cuh", "kRefillLanes"),
                     ("traverse.cuh", "kLeafLanes"),
@@ -357,9 +357,7 @@ def main(argv=None):
                 for c in args.configs.split(",")] if args.configs
                else list(CELLS[cells[0]][1]))
     names = [n for _, n in CELLS[cells[0]][0]]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     rows = []
     with tempfile.TemporaryDirectory() as tmp:

@@ -49,7 +49,7 @@ def _mixed(pt, cs, masked, robust):
     """chip_smoke.mixed_full_scene, ``masked``: every second geometry has
     mask 0x2; ``robust``: in robust mode."""
     rng = np.random.default_rng(1)
-    geoms = [pt.QuadGeometry(*cs.prim_sphere_quads((0, 0, 0), 1.0, 512))]
+    geoms = [pt.QuadGeometry(*cs.prim_sphere("quad", (0, 0, 0), 1.0, 512))]
     for center, kind in (((2.5, 0, 0), "sphere"), ((-2.5, 0, 0), "disc")):
         pos, _ = cs.point_sphere(center, 1.0, 0.01, 256)
         geoms.append(pt.PointGeometry(pos, kind=kind))

@@ -1,9 +1,10 @@
-"""Built-in procedural scenes of the viewer, the subset the port covers.
+"""The viewer's scenes: an OBJ file or a built-in procedural scene.
 
-Port of embree_tpu/tools/viewer.py::build_scene (:21-71): the cube + ground
-plane, the UV sphere (built with vectorized numpy) and the ``mixed`` scene
-(a quad floor, two spheres and a native round Bezier curve, which rides
-the generic engine).
+Port of embree_tpu/tools/viewer.py::build_scene (:21-71): an ``.obj`` path
+(its meshes as triangle geometries), the cube + ground plane, the UV
+sphere (built with vectorized numpy) and the ``mixed`` scene (a quad
+floor, two spheres and a native round Bezier curve, which rides the
+generic engine).
 """
 from __future__ import annotations
 
@@ -45,8 +46,15 @@ def cube_plane():
 
 
 def build_scene(name: str, et):
-    """Returns (Scene, eye point) for a built-in scene; ``et`` is the package
-    whose Scene and geometry classes to use."""
+    """Returns (Scene, eye point) for an ``.obj`` path or a built-in scene;
+    ``et`` is the package whose Scene and geometry classes to use."""
+    if name.endswith(".obj"):
+        from ..utils.obj import load_obj
+        meshes, _ = load_obj(name)
+        s = et.Scene()
+        for m in meshes:
+            s.attach(et.TriangleGeometry(m.vertices, m.indices))
+        return s, (3.0, 2.0, 3.0)
     if name == "cube":
         s = et.Scene()
         for v, i in cube_plane():
@@ -71,4 +79,4 @@ def build_scene(name: str, et):
             np.array([0], np.int32), basis="bezier", kind="round",
             tessellation_rate=12))
         return s, (0.0, 1.5, 4.5)
-    raise NotImplementedError(f"scene '{name}' is not covered by the port")
+    raise ValueError(f"unknown scene '{name}'")

@@ -94,3 +94,61 @@ def test_random_color_matches_jax():
     np.testing.assert_array_equal(
         pviewer.random_color(torch.from_numpy(ids)).numpy(),
         np.asarray(jviewer.random_color(jax.numpy.asarray(ids))))
+
+
+# a square pyramid over a ground quad, two objects and the face forms
+# v, v/vt, v//vn and negative indices
+PYRAMID_OBJ = """mtllib scene.mtl
+o pyramid
+v -1 0 -1
+v 1 0 -1
+v 1 0 1
+v -1 0 1
+v 0 1.5 0
+usemtl red
+f 1 2 5
+f 2/1 3/2 5/3
+f 3//1 4//1 5//1
+f -2 -5 -1
+o ground
+v -3 -0.5 -3
+v 3 -0.5 -3
+v 3 -0.5 3
+v -3 -0.5 3
+usemtl grey
+f -4 -3 -2 -1
+"""
+PYRAMID_MTL = """newmtl red
+Kd 0.8 0.1 0.1
+newmtl grey
+Kd 0.5 0.5 0.5
+"""
+
+
+def test_obj_scene_matches_jax(tmp_path):
+    """An .obj path as the viewer's scene (tools/viewer.py:22-28): the
+    port's build_scene loads it as the JAX package's does, and renders it
+    the same."""
+    (tmp_path / "scene.obj").write_text(PYRAMID_OBJ)
+    (tmp_path / "scene.mtl").write_text(PYRAMID_MTL)
+    path = str(tmp_path / "scene.obj")
+    sj, eye = jbuild(path, et)
+    sp, eye_p = pbuild(path, pt)
+    assert eye == eye_p
+    cam = dict(from_point=np.asarray(eye, np.float32),
+               to_point=np.zeros(3, np.float32),
+               up=np.array([0, 1, 0], np.float32))
+    cp = sp.commit(device="cpu")
+    assert cp.num_prims == sj.commit().num_prims
+    for sh in ("eyelight", "primID"):
+        img = pviewer.render(cp, Camera(**cam), 64, 64, shader=sh).numpy()
+        jimg = np.asarray(jax.jit(lambda c: jviewer.render(
+            c, jcam.Camera(**cam), 64, 64, shader=sh))(sj.commit()))
+        assert img.max() > 0
+        assert compare_images(img, jimg) == 0
+        assert (np.abs(img - jimg).max(-1) < 1e-4).mean() > 0.99
+
+
+def test_unknown_scene_raises():
+    with pytest.raises(ValueError):
+        pbuild("no_such_scene", pt)
