@@ -246,11 +246,30 @@ Hopper traversal kernel against its plain PyTorch version:
    generator flag, a moving scene, min-width, texcoords) at 512 x 512 on
    the card, each image within 55 wrong pixels (8-bit metric) of the
    port's CPU render of the same file;
-31. the kernels line (each traversal variant with its launches on the
+31. the tools, examples and perf scripts, each through its own main() on
+   the card at the JAX package's defaults: the viewer's command line
+   (cube, eyelight, 96 x 96 against tests/golden/cube_eyelight.pfm, 5
+   timed frames); the triangle demo (within 1 grey level of its CPU run on
+   every pixel, equal hit and shadow fractions); the path-tracer demo
+   (128 x 128, 8 spp, depth 4, held against a CPU render with the card's
+   draws replayed); the 13 feature demos; perf/sort_tax.py (variants a-g
+   at 1,048,576 rows, each variant's rows equal to its CPU rows from the
+   same inputs); perf/compaction.py (the 16,384-tri sphere, 1,048,576
+   rays, 0/50/75/90% dead lanes; live lanes' t bit-equal to the all-live
+   run's); perf/profile_steps.py (visits per 2,048-ray block of the sorted
+   rays, the kernel's visits equal to the plain version's on a strided
+   sample); perf/bigscene.py (a 1024 x 1024 sphere, 4,194,304 rays: hit
+   rate above 0, no overflow); tools/buildbench.py (10,000 and 100,000
+   tris x LOW/MEDIUM/HIGH x create/update/refit: 18 figures, recorded
+   into a score file under chiprun_out/); perf/obb_hair.py on a round
+   Bezier hair scene written here (the tier active with the OBBs on, hits
+   equal); tools/info.py and the score file's listing;
+32. the kernels line (each traversal variant with its launches on the
    instance paths, on the grid and subdivision paths, in phase 26's
-   renders and on phases 28-30's paths), then the result line.
+   renders, on phases 28-30's paths and on phase 31's), then the result
+   line.
 
-Launch counts are zeroed just before each driven path (4-30) and read just
+Launch counts are zeroed just before each driven path (4-31) and read just
 after; a variant the path uses that was never launched fails the run, and
 the kernels line gives each variant the count of the path that timed it. Any
 failed check raises, and the script then exits non-zero without a result
@@ -278,7 +297,8 @@ import types
 import numpy as np
 import torch
 
-from embree_tpu_torch.perf.device import card_line
+from embree_tpu_torch.examples.render_pathtracer_demo import cornell_box
+from embree_tpu_torch.perf.device import OUT_DIR, card_line, default_out
 from embree_tpu_torch.tools.parity_models import point_sphere, prim_sphere
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3580,43 +3600,6 @@ GRAD_MESH = (64, 128)        # the viewer-style vertex gradient's mesh
 GRAD_RAYS = 256              # its camera, GRAD_RAYS x GRAD_RAYS
 
 
-def cornell_box(pt, tm, tl):
-    """examples/render_pathtracer_demo.py:40-74: five walls, a mirror and
-    a matte ball (sphere points), an emissive ceiling panel, a quad light;
-    walls and panel are triangles (B3-B5 with the balls)."""
-    s = pt.Scene()
-    mats = {}
-
-    def wall(p, mat):
-        gid = s.attach(pt.TriangleGeometry(
-            np.array(p, np.float32), np.array([[0, 1, 2], [0, 2, 3]],
-                                              np.int32)))
-        mats[gid] = mat
-
-    white = (tm.MATTE, (0.73, 0.73, 0.73), 0.0)
-    wall([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], white)
-    wall([[-1, 2, 1], [1, 2, 1], [1, 2, -1], [-1, 2, -1]], white)
-    wall([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], white)
-    wall([[-1, 0, 1], [-1, 2, 1], [-1, 2, -1], [-1, 0, -1]],
-         (tm.MATTE, (0.65, 0.05, 0.05), 0.0))
-    wall([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]],
-         (tm.MATTE, (0.12, 0.45, 0.15), 0.0))
-    gid = s.attach(pt.PointGeometry(
-        np.array([[-0.35, 0.4, -0.3, 0.4]], np.float32), kind="sphere"))
-    mats[gid] = (tm.MIRROR, (0.9, 0.9, 0.9), 0.0)
-    gid = s.attach(pt.PointGeometry(
-        np.array([[0.45, 0.3, 0.35, 0.3]], np.float32), kind="sphere"))
-    mats[gid] = (tm.MATTE, (0.3, 0.3, 0.8), 0.0)
-    wall([[-0.4, 1.99, -0.4], [0.4, 1.99, -0.4], [0.4, 1.99, 0.4],
-          [-0.4, 1.99, 0.4]], (tm.EMISSIVE, (6.0, 6.0, 6.0), 0.0))
-    lights = tl.LightSetBuilder().quad([-0.4, 1.98, -0.4], [0.8, 0, 0],
-                                       [0, 0, 0.8], (6, 6, 6))
-    cam = dict(from_point=np.array([0, 1.0, 3.6], np.float32),
-               to_point=np.array([0, 0.9, 0], np.float32),
-               up=np.array([0, 1, 0], np.float32), fov_deg=40)
-    return s, mats, lights, cam
-
-
 def sphere_on_floor(pt, tm, tl, sphere_mesh):
     """The main sphere (2,097,152 tris, matte) on a rough-metal floor under
     a quad light and an ambient term: all triangles (B1)."""
@@ -3853,7 +3836,7 @@ def phase_pathtracer(pt, tr, sphere_mesh, errs, out):
         f"{PT_SPHERE['max_depth']} [{card}]")
     launches = {}
     for label, build, cfg in (
-            ("cornell", cornell_box(pt, tm, tl), PT_CORNELL),
+            ("cornell", cornell_box(pt), PT_CORNELL),
             ("sphere", sphere_on_floor(pt, tm, tl, sphere_mesh), PT_SPHERE)):
         parts = pt_parts(tm, build, label)
         got = pt_cell(tr, tpt, label, parts, cfg, errs, out, card)
@@ -3888,7 +3871,6 @@ def translated(cs, gid, direction, d):
 
 def phase_gradients(pt, tr, sphere_mesh, out):
     """Phase 27: image gradients on the card."""
-    from embree_tpu_torch.models import lights as tl
     from embree_tpu_torch.models import materials as tm
     from embree_tpu_torch.models import pathtracer as tpt
     from embree_tpu_torch.models.viewer import ispc_camera_rays
@@ -3898,8 +3880,7 @@ def phase_gradients(pt, tr, sphere_mesh, out):
     say(f"phase 27: gradients: the Cornell box at {n}^2, 1 spp, depth 2, "
         f"with respect to the albedo and the back wall's depth; the "
         f"viewer-style vertex gradient through the kernel [{card}]")
-    cs, mats, lights, cam, _ = pt_parts(tm, cornell_box(pt, tm, tl),
-                                        "cornell")
+    cs, mats, lights, cam, _ = pt_parts(tm, cornell_box(pt), "cornell")
     back_wall = 2
     w = torch.as_tensor(np.random.default_rng(11).uniform(
         0.5, 1.5, (n, n, 3)).astype(np.float32), device=DEV)
@@ -4533,15 +4514,217 @@ def phase_parity(pt, tr, sphere_mesh, out):
     return launches
 
 
+TOOLS_MESH = (64, 128)         # phase 31: the perf scripts' 16K sphere
+TOOLS_RAYS = 1 << 20           # and their rays (the scripts' defaults)
+SORT_ROWS = 1 << 20
+BIG_SCENE = (1024, 1024, 1 << 22)   # perf/bigscene.py's defaults
+BUILD_SIZES = "10000,100000"   # tools/buildbench.py's defaults
+HAIR_OBB_STRANDS = 1 << 13     # phase 31's round Bezier hair (a cut)
+HAIR_OBB_SIZE = 256            # perf/obb_hair.py's default frame
+PROFILE_STRIDE = 16            # profile_steps rays held against the plain
+DEMO_MAX_FLIPS = 32            # pixels of the 8-spp demo a flipped branch
+                               # may move (phase 26's bound at 2 spp, x 4)
+
+
+def write_hair_scene(pt, d, n_strands, seed=1, kind="round"):
+    """A hair scene of Bezier curves (``kind``: round or flat) as XML
+    (``utils/ply.write_xml``) and an .ecs file in ``d``: ``n_strands``
+    strands of 4 control points rooted on the unit sphere with hair()'s
+    layout (numpy ``seed``), radius 0.004 -> 0.002, one curve each, and a
+    camera 3.5 away. Returns the .ecs path."""
+    from embree_tpu_torch.utils.ply import write_xml
+    from embree_tpu_torch.utils.xml_scene import XMLScene
+    verts, _ = hair(np.random.default_rng(seed), (0, 0, 0), n_strands,
+                    n_seg=3)
+    xs = XMLScene()
+    xs.geometries = [pt.CurveGeometry(
+        verts, (4 * np.arange(n_strands)).astype(np.int32), basis="bezier",
+        kind=kind)]
+    xs.camera = dict(from_=np.array([0.0, 0.0, 3.5]), to=np.zeros(3),
+                     up=np.array([0.0, 1.0, 0.0]), fov=50.0)
+    write_xml(os.path.join(d, "hair.xml"), xs)
+    ecs = os.path.join(d, "hair.ecs")
+    with open(ecs, "w") as f:
+        f.write("-i hair.xml -vp 0 0 3.5 -vi 0 0 0 -vu 0 1 0 -fov 50\n")
+    return ecs
+
+
+def phase_tools(pt, tr, out):
+    """Phase 31: the tools, examples and perf scripts through their own
+    main() on the card, each held against its CPU run or its own checks;
+    returns the traversal kernel's launches on these paths."""
+    from embree_tpu_torch.examples import (feature_demos,
+                                           render_pathtracer_demo,
+                                           render_triangle_demo)
+    from embree_tpu_torch.models.pathtracer import ReplayDraws
+    from embree_tpu_torch.perf import (bigscene, compaction, obb_hair,
+                                       profile_steps, sort_tax)
+    from embree_tpu_torch.tools import benchdb, buildbench, info, viewer
+    say("phase 31: the tools, examples and perf scripts")
+    t_phase = time.perf_counter()
+    card = card_line()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    launches = {}
+    secs = out.setdefault("seconds", {})
+
+    def drive(name, fn, kernel=True):
+        """fn() with the launch counts zeroed just before and read just
+        after; its seconds on the host clock. ``kernel``: the path runs
+        the traversal kernel, so it must have launched it."""
+        tr.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts = dict(tr.LAUNCHES)
+        add_counts(launches, counts)
+        say(f"  {name}: {secs[name]:.1f} s, launches {counts}")
+        check(bool(counts) or not kernel,
+              f"{name}: the traversal kernel was never launched")
+        return res
+
+    golden = os.path.join(ROOT, "tests", "golden", "cube_eyelight.pfm")
+    rc = drive("viewer", lambda: viewer.main(
+        ["--scene", "cube", "--shader", "eyelight", "--size", str(VIEW),
+         "--golden", golden, "--benchmark", "5",
+         "--out", os.path.join(OUT_DIR, "viewer_cube.png")]))
+    check(rc == 0, f"viewer main returned {rc}")
+
+    tri_out = os.path.join(OUT_DIR, "et_render")
+    got = drive("triangle_demo", lambda: render_triangle_demo.main(
+        ["--out", tri_out + ".pgm"]))
+    ref = render_triangle_demo.main(["--cpu", "--out", tri_out + "_cpu.pgm"])
+    grey = int(np.abs(got["image"].astype(np.int32)
+                      - ref["image"].astype(np.int32)).max())
+    check(grey <= 1, f"triangle demo: {grey} grey levels from the CPU run")
+    check((got["hits"], got["shadows"]) == (ref["hits"], ref["shadows"]),
+          f"triangle demo: {got['hits']} hits and {got['shadows']} shadowed "
+          f"pixels, the CPU run {ref['hits']} and {ref['shadows']}")
+    out["triangle_demo"] = dict(max_grey_diff=grey, ms=got["render_ms"],
+                                hit=got["hit_fraction"],
+                                shadowed=got["shadowed"])
+
+    rec = []
+    got = drive("pathtracer_demo", lambda: render_pathtracer_demo.main(
+        ["--out", os.path.join(OUT_DIR, "et_pathtracer")], record=rec))
+    t0 = time.perf_counter()
+    parts = render_pathtracer_demo.setup(pt, "cpu")
+    ref = render_pathtracer_demo.render(
+        parts, got["size"], got["spp"], ReplayDraws(rec, "cpu")).numpy()
+    cpu_s = time.perf_counter() - t0
+    img = got["image"]
+    close = np.isclose(img, ref, rtol=1e-4, atol=1e-6).all(-1)
+    flips = int((~close).sum())
+    say(f"  path-tracer demo: {got['size']}^2, {got['spp']} spp card render"
+        f" vs the CPU's ({len(rec)}"
+        f" draws replayed): {flips} pixels outside rtol 1e-4 / atol 1e-6 "
+        f"(bound {DEMO_MAX_FLIPS}), max |diff| "
+        f"{float(np.abs(img - ref).max()):.3e}; card {got['render_ms']:.1f}"
+        f" ms, CPU {cpu_s:.1f} s")
+    check(np.isfinite(img).all() and flips <= DEMO_MAX_FLIPS,
+          f"path-tracer demo: {flips} pixels differ from the CPU render")
+    out["pathtracer_demo"] = dict(flips=flips, ms=got["render_ms"],
+                                  cpu_s=cpu_s)
+    del parts, ref, rec
+
+    ran = drive("feature_demos", lambda: feature_demos.main([]))
+    check(len(ran) == 13, f"feature demos ran {len(ran)} of 13")
+
+    tax = drive("sort_tax", lambda: sort_tax.main(
+        ["--rays", str(SORT_ROWS)]), kernel=False)
+    key, ops = sort_tax.inputs(SORT_ROWS, "cpu")
+    for name, (ms, rows) in tax.items():
+        cpu = sort_tax.VARIANTS[name](key, ops)
+        same = (all(torch.equal(a, b) for a, b in zip(rows, cpu))
+                if isinstance(cpu, list) else torch.equal(rows, cpu))
+        check(same, f"sort_tax {name}: the card's rows differ from the CPU's")
+    out["sort_tax"] = {k: v[0] for k, v in tax.items()}
+    say(f"  sort_tax rows equal to the CPU's in all 7 variants [{card}]")
+
+    perf_args = ["--rays", str(TOOLS_RAYS), "--mesh",
+                 ",".join(map(str, TOOLS_MESH))]
+    comp = drive("compaction", lambda: compaction.main(perf_args))
+    t0 = comp[0.0]["t"]
+    for frac, r in comp.items():
+        live = ~r["dead"]
+        check(same_bits(r["t"][live], t0[live]),
+              f"compaction {frac:.0%}: live lanes' t differs from all-live")
+        check(not torch.isfinite(r["t"][r["dead"]]).any(),
+              f"compaction {frac:.0%}: a dead lane hit")
+    out["compaction"] = {str(k): v["ms"] for k, v in comp.items()}
+
+    prof = drive("profile_steps", lambda: profile_steps.main(perf_args))
+    sample = [x[::PROFILE_STRIDE].contiguous() for x in prof["inputs"]]
+    plain = tr.traverse_packed_reference(prof["packed"], *sample)
+    vis = prof["result"].visits[:, ::PROFILE_STRIDE]
+    check(torch.equal(vis, plain.visits) and same_bits(
+        prof["result"].t[::PROFILE_STRIDE], plain.t),
+        "profile_steps: the kernel's visits differ from the plain version's")
+    say(f"  profile_steps: visits of {sample[0].shape[0]} sampled rays "
+        f"({int(vis.sum())}) equal the plain version's")
+    check(prof["overflow"] == 0, "profile_steps: stack overflow")
+    out["profile_steps"] = {k: prof.get(k) for k in (
+        "ms", "sorted", "unsorted", "useful_lane_steps", "lane_slots",
+        "ns_per_useful_lane_step", "table_mib")}
+    del prof, sample, plain, vis
+
+    big = drive("bigscene", lambda: bigscene.main(
+        [str(x) for x in BIG_SCENE]))
+    check(big["hit_rate"] > 0 and big["overflow"] == 0,
+          f"bigscene: hit rate {big['hit_rate']}, overflow "
+          f"{big['overflow']}")
+    out["bigscene"] = big
+    torch.cuda.empty_cache()
+
+    db = os.path.join(OUT_DIR, "benchscores.json")
+    old = os.environ.get("EMBREE_TPU_BENCH_DB")
+    os.environ["EMBREE_TPU_BENCH_DB"] = db
+    try:
+        bb = drive("buildbench", lambda: buildbench.main(
+            ["--sizes", BUILD_SIZES]), kernel=False)
+        check(len(bb) == 6 and all(
+            set(r) == {"create", "update", "refit"}
+            and all(v > 0 for v in r.values()) for r in bb.values()),
+            "buildbench: not 2 sizes x 3 qualities x 3 modes")
+        out["buildbench"] = {f"{m}_{q}_{n}": v for (n, q), r in bb.items()
+                             for m, v in r.items()}
+        benchdb.main([])
+    finally:
+        if old is None:
+            os.environ.pop("EMBREE_TPU_BENCH_DB")
+        else:
+            os.environ["EMBREE_TPU_BENCH_DB"] = old
+
+    with tempfile.TemporaryDirectory() as d:
+        ecs = write_hair_scene(pt, d, HAIR_OBB_STRANDS)
+        res = drive("obb_hair", lambda: obb_hair.main(
+            ["--scenes", ecs, "--size", str(HAIR_OBB_SIZE),
+             "--out", os.path.join(OUT_DIR, "obb_hair.json")]),
+            kernel=False)
+    r = res["hair"]
+    check("error" not in r, f"obb_hair: {r.get('error')}")
+    check(r["hits_equal"] and r["tier_active_on"]
+          and not r["tier_active_off"],
+          f"obb_hair: hits_equal {r['hits_equal']}, tier on "
+          f"{r['tier_active_on']}, off {r['tier_active_off']}")
+    out["obb_hair"] = dict(r, strands=HAIR_OBB_STRANDS)
+
+    drive("info", lambda: info.main([]), kernel=False)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 31 took {out['phase_s']:.1f} s; {card}")
+    return launches
+
+
 def kernel_entries(record, errs, phase_launches):
     """One entry of the kernels line per timed variant, with the launches
     of the path that timed it; each traversal variant also carries, under
     each key of ``phase_launches``, its launches on a later phase's path:
     the instance paths of phases 22-23 (``instance_launches``), the grid
     and subdivision paths of phase 24 (``grid_subdiv_launches``), phase
-    26's renders (``pathtracer_launches``) and phases 28-30's paths
+    26's renders (``pathtracer_launches``), phases 28-30's paths
     (``parallel_launches``, ``robustness_launches``,
-    ``parity_launches``)."""
+    ``parity_launches``) and phase 31's tools, examples and perf scripts
+    (``tools_launches``)."""
     kernels = []
     for name, rec in record.items():
         if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
@@ -4670,14 +4853,15 @@ def main():
         "parallel_launches": phase_parallel(pt, tr, sphere_mesh, later),
         "robustness_launches": phase_robustness(pt, tr, sphere_mesh, later),
         "parity_launches": phase_parity(pt, tr, sphere_mesh, later)}
+    tools = {}
+    phase_launches["tools_launches"] = phase_tools(pt, tr, tools)
 
     kernels = kernel_entries(record, errs, phase_launches)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+    with open(default_out("chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "detail": record,
                    "builders": builders, "instances": instances,
                    "grids_api": api, "pathtracer": pathtracer,
-                   "parallel_robustness_parity": later,
+                   "parallel_robustness_parity": later, "tools": tools,
                    "ptxas": ptxas, "ptxas_ablate": ptxas_ablate,
                    "ptxas_micro": ptxas_micro}, f,
                   indent=1)

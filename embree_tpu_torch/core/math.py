@@ -1,12 +1,13 @@
-"""Vector math, the subset the port uses.
+"""Vector math.
 
-Port of embree_tpu/core/math.py (:32-63, ``reflect`` among them, :88-91,
-:109-110, :196-288, :290-303). Every "vector" is a trailing-dim-3 tensor.
+Port of embree_tpu/core/math.py. Every "vector" is a trailing-dim-3 tensor.
 Dot and cross products are written out component by component, so they
-sum in one fixed order on every device. Affines and quaternions (the
-instance transforms, resolved at commit on the host) are float32 numpy
+sum in one fixed order on every device. The affines and quaternions that
+instance transforms use (resolved at commit on the host) are float32 numpy
 arrays: (3, 4) affines [linear | translation] and (4,) quaternions (w, x,
-y, z), each product written out and rounded term by term, without FMA.
+y, z), each product written out and rounded term by term, without FMA. The
+JAX package's other vector, box and affine helpers (:28-186) are torch
+functions on tensors with the jnp originals' shapes and results.
 """
 from __future__ import annotations
 
@@ -14,6 +15,13 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+def vec3(x, y, z, dtype=torch.float32):
+    """Stack three components (tensors or numbers) along a new last dim."""
+    return torch.stack([torch.as_tensor(x, dtype=dtype),
+                        torch.as_tensor(y, dtype=dtype),
+                        torch.as_tensor(z, dtype=dtype)], dim=-1)
 
 
 def dot(a, b):
@@ -33,6 +41,14 @@ def sqrt_rn(x):
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return torch.sqrt(x.double()).to(torch.float32)
     return torch.sqrt(x)
+
+
+def length(a):
+    return sqrt_rn(dot(a, a))
+
+
+def sqr_length(a):
+    return dot(a, a)
 
 
 def normalize(a, eps=1e-20):
@@ -106,6 +122,35 @@ def segment_reduce(x, seg, num, op):
         0, idx, _total_key(x), op, include_self=False))
 
 
+def aabb_empty(shape=(), dtype=torch.float32, device=None):
+    """(lower, upper) of empty boxes: +inf and -inf, shape + (3,)."""
+    shape = tuple(shape) + (3,)
+    return (torch.full(shape, float("inf"), dtype=dtype, device=device),
+            torch.full(shape, float("-inf"), dtype=dtype, device=device))
+
+
+def aabb_union(lo_a, up_a, lo_b, up_b):
+    return fmin(lo_a, lo_b), fmax(up_a, up_b)
+
+
+def aabb_extend_point(lo, up, p):
+    return fmin(lo, p), fmax(up, p)
+
+
+def aabb_center(lo, up):
+    return 0.5 * (lo + up)
+
+
+def aabb_contains_point(lo, up, p):
+    return ((p >= lo) & (p <= up)).all(dim=-1)
+
+
+def aabb_lerp(lo0, up0, lo1, up1, t):
+    """Linear bounds interpolation (LBBox, reference common/math/lbbox.h)."""
+    t = torch.as_tensor(t, dtype=lo0.dtype, device=lo0.device)[..., None]
+    return lo0 * (1 - t) + lo1 * t, up0 * (1 - t) + up1 * t
+
+
 def aabb_half_area(lo, up):
     """Half surface area of (lower, upper) boxes (the SAH metric; cf.
     halfArea in common/math/bbox.h), summed in the JAX package's order.
@@ -133,6 +178,88 @@ def morton_code(p_norm):
     return ((_expand_bits_10(q[..., 0]) << 2)
             | (_expand_bits_10(q[..., 1]) << 1)
             | _expand_bits_10(q[..., 2]))
+
+
+# ---------------------------------------------------------------------------
+# affines as torch tensors (..., 3, 4) [R | t] (embree_tpu/core/math.py
+# :113-186; reference common/math/affinespace.h)
+# ---------------------------------------------------------------------------
+
+def _mv(m, v):
+    """m (..., 3, 3) times v (..., 3), each row summed left to right."""
+    return (m[..., 0] * v[..., None, 0] + m[..., 1] * v[..., None, 1]) \
+        + m[..., 2] * v[..., None, 2]
+
+
+def affine_from_cols(vx, vy, vz, p):
+    """Build from column vectors (linear part columns + translation)."""
+    return torch.stack([vx, vy, vz, p], dim=-1)
+
+
+def affine_translate(t):
+    t = torch.as_tensor(t)
+    eye = torch.eye(3, dtype=t.dtype, device=t.device).expand(
+        t.shape[:-1] + (3, 3))
+    return torch.cat([eye, t[..., None]], dim=-1)
+
+
+def affine_scale(s):
+    s = torch.as_tensor(s)
+    if s.ndim == 0:
+        s = torch.stack([s, s, s])
+    return torch.cat([torch.diag(s), torch.zeros((3, 1), dtype=s.dtype,
+                                                  device=s.device)], dim=-1)
+
+
+def affine_rotate(axis, angle):
+    """Rotation about ``axis`` by ``angle`` radians."""
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=axis.device)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    c, s = torch.cos(angle), torch.sin(angle)
+    C = 1 - c
+    R = torch.stack([
+        torch.stack([x * x * C + c, x * y * C - z * s, x * z * C + y * s], -1),
+        torch.stack([y * x * C + z * s, y * y * C + c, y * z * C - x * s], -1),
+        torch.stack([z * x * C - y * s, z * y * C + x * s, z * z * C + c], -1),
+    ], dim=-2)
+    return torch.cat([R, torch.zeros(R.shape[:-1] + (1,), dtype=R.dtype,
+                                     device=R.device)], dim=-1)
+
+
+def affine_mul(a, b):
+    """Compose: (a @ b)(x) = a(b(x))."""
+    Ra, ta = a[..., :3], a[..., 3]
+    Rb, tb = b[..., :3], b[..., 3]
+    R = torch.stack([_mv(Ra, Rb[..., :, j]) for j in range(3)], dim=-1)
+    return torch.cat([R, (_mv(Ra, tb) + ta)[..., None]], dim=-1)
+
+
+def affine_inverse(a):
+    Rinv = torch.linalg.inv(a[..., :3])
+    return torch.cat([Rinv, -_mv(Rinv, a[..., 3])[..., None]], dim=-1)
+
+
+def xfm_point(a, p):
+    return _mv(a[..., :3], p) + a[..., 3]
+
+
+def xfm_vector(a, v):
+    return _mv(a[..., :3], v)
+
+
+def xfm_normal(a, n):
+    """Transform a normal: the inverse transpose of the linear part."""
+    return _mv(torch.linalg.inv(a[..., :3]).transpose(-1, -2), n)
+
+
+def xfm_aabb(a, lo, up):
+    """The AABB of an AABB's eight transformed corners."""
+    corners = torch.stack([
+        vec3(x[..., 0], y[..., 1], z[..., 2])
+        for z in (lo, up) for y in (lo, up) for x in (lo, up)], dim=-2)
+    tc = xfm_point(a[..., None, :, :], corners)
+    return amin(tc, -2), amax(tc, -2)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,16 @@ def load_library():
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the native builder builds and loads here. It only reports:
+    a commit that needs the builder still raises where it cannot load."""
+    try:
+        load_library()
+    except Exception:  # noqa: BLE001 — any build or load failure
+        return False
+    return True
+
+
 def build_bvh8_native(lo, up, leaf_size=8, threads=0):
     """Build a BVH8 with the native builder.
 

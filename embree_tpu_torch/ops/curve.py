@@ -99,6 +99,15 @@ def eval_curve(basis: str, cp, t, pairwise: bool = True):
     return (a[0] + a[1]) + (a[2] + a[3])
 
 
+def eval_curve_derivative(basis: str, cp, t, eps=1e-4):
+    """Tangent by central differences (embree_tpu/ops/curve.py:92; enough
+    for tessellation normals). One parameter per curve: the four products
+    sum in order, as XLA's batched einsum does."""
+    f0 = eval_curve(basis, cp, torch.clamp(t - eps, 0.0, 1.0), False)
+    f1 = eval_curve(basis, cp, torch.clamp(t + eps, 0.0, 1.0), False)
+    return (f1 - f0) / (2 * eps)
+
+
 # Every cubic basis converts exactly to Bezier control points of the same
 # span (a linear map), so the intersectors handle Bezier only.
 _TO_BEZIER = {

@@ -1,6 +1,6 @@
 """Line segments: round (tangent cone + end spheres) and flat (ray-facing).
 
-Port of embree_tpu/ops/line.py:27-213:
+Port of embree_tpu/ops/line.py:27-218:
 - round: kernels/geometry/roundline_intersector.h. The surface is the cone
   tangent to the end spheres p0/r0 and p1/r1, united with the spheres; the
   begin sphere belongs to a segment only at the start of a chain, and hits
@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ..core.math import dot, sqrt_rn
+from ..core.math import dot, fmax, fmin, sqrt_rn
 
 SELF_INTERSECTION_AVOIDANCE = 2.0   # the reference's CMake default
 _EPS = 1.19209290e-07
@@ -175,3 +175,10 @@ def intersect_flat_line(org, dir, p0, r0, p1, r1, tnear, tfar):
            & (v != 0.0).any(-1))
     ng = torch.broadcast_to(v, m.shape)
     return hit, torch.where(hit, t, math.inf), u, torch.zeros_like(u), ng
+
+
+def line_bounds(p0, r0, p1, r1):
+    """Per-segment AABBs over both end spheres (embree_tpu/ops/line.py:215)."""
+    lo = fmin(p0 - r0[..., None], p1 - r1[..., None])
+    up = fmax(p0 + r0[..., None], p1 + r1[..., None])
+    return lo, up

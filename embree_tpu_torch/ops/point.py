@@ -1,6 +1,6 @@
 """Point primitives: sphere, ray-facing disc, oriented disc.
 
-Port of embree_tpu/ops/point.py:15-60 (kernels/geometry/
+Port of embree_tpu/ops/point.py:15-63 (kernels/geometry/
 sphere_intersector.h, disc_intersector.h). Points are (center, radius).
 """
 from __future__ import annotations
@@ -55,3 +55,9 @@ def intersect_oriented_disc(org, dir, center, radius, normal, tnear, tfar):
     hit = ok & (t >= tnear) & (t <= tfar) & (r2 <= radius * radius)
     z = torch.zeros_like(t)
     return hit, t, z, z, torch.broadcast_to(normal, p.shape)
+
+
+def point_bounds(centers, radii):
+    """Per-point AABBs (embree_tpu/ops/point.py:61): center -/+ radius."""
+    r = radii[..., None]
+    return centers - r, centers + r

@@ -1,6 +1,6 @@
 """Triangle intersection in differentiable torch ops.
 
-Port of embree_tpu/ops/triangle.py:20-103: Möller-Trumbore with precomputed
+Port of embree_tpu/ops/triangle.py:20-109: Möller-Trumbore with precomputed
 edges (kernels/geometry/triangle_intersector_moeller.h:9-16), branch-free
 over any batch shape. Autograd through the closed-form solve gives dt/dverts
 and the other hit derivatives.
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math import cross, dot
+from ..core.math import amax, amin, cross, dot
 
 
 def intersect_moeller(org, dir, v0, v1, v2, tnear, tfar):
@@ -82,3 +82,10 @@ def interpolate_attribute(attr_v0, attr_v1, attr_v2, u, v):
     in that order. Differentiable."""
     w = (1.0 - u - v)[..., None]
     return w * attr_v0 + u[..., None] * attr_v1 + v[..., None] * attr_v2
+
+
+def triangle_bounds(vertices, indices):
+    """Per-triangle AABBs (embree_tpu/ops/triangle.py:106): (lower, upper),
+    each (n_tris, 3)."""
+    tri = vertices[indices.long()]          # (n, 3, 3)
+    return amin(tri, 1), amax(tri, 1)

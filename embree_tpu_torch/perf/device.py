@@ -1,6 +1,6 @@
 """What the harnesses of this package share on the card: the loader of the
 built kernel libraries, one count of kernel launches, CUDA-event timing,
-and the card's name and power limit.
+the card's name and power limit, and the default output directory.
 
 Every wrapper that launches a kernel of ``perf/`` adds one to its entry of
 ``LAUNCHES`` where it launches it and nowhere else; the ablations count by
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import os
 import statistics
 import subprocess
 import threading
@@ -28,6 +29,12 @@ SPIN_CYCLES = 2_000_000  # the spin kernel ahead of a window (~1 ms)
 # else.
 LAUNCHES: Dict[str, int] = collections.defaultdict(int)
 
+# the repository's root, and where the tools, examples and perf scripts
+# write unless told otherwise (listed in .gitignore)
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
@@ -39,6 +46,18 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def default_out(name: str) -> str:
+    """``name`` under OUT_DIR, which is made if missing."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    return os.path.join(OUT_DIR, name)
+
+
+def sync(device) -> None:
+    """Waits for the card's queued work when ``device`` is the card."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def reset_launch_counts() -> None:
@@ -85,3 +104,20 @@ def time_call(fn: Callable, reps: int = REPS, cuda: bool = True,
             out = fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), out
+
+
+def timed(fn: Callable, device):
+    """(ms, fn()) of one call: CUDA events after a synchronize on the card,
+    the host clock on the CPU (a CPU time, not a device metric)."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out

@@ -1,12 +1,27 @@
-"""The viewer's scenes: an OBJ file or a built-in procedural scene.
+"""embree_viewer analog: render a scene (OBJ or built-in procedural) with a
+chosen shader, benchmark it, or compare it against a golden image.
 
-Port of embree_tpu/tools/viewer.py::build_scene (:21-71): an ``.obj`` path
-(its meshes as triangle geometries), the cube + ground plane, the UV
-sphere (built with vectorized numpy) and the ``mixed`` scene (a quad
-floor, two spheres and a native round Bezier curve, which rides the
-generic engine).
+Usage:
+  python -m embree_tpu_torch.tools.viewer --scene cube --shader eyelight \
+      --size 256 --out /tmp/out.png [--golden ref.pfm --compare-threshold 55]
+      [--benchmark N] [--cpu]
+
+Port of embree_tpu/tools/viewer.py: ``build_scene`` (:21-71) takes an
+``.obj`` path (its meshes as triangle geometries), the cube + ground
+plane, the UV sphere (built with vectorized numpy) or the ``mixed`` scene
+(a quad floor, two spheres and a native round Bezier curve, which rides
+the generic engine); ``main`` (:75) has the same flags. Parity:
+tutorials/viewer (shader modes viewer_device.cpp:45-54), the CTest
+image-regression flow (tutorial.cpp:646 compare) and the --benchmark
+timing mode (tutorial/benchmark.h). On the card ``--benchmark`` times each
+frame with CUDA events after a synchronize; the line prints the best frame
+(the JAX tool's figure) with the median beside it.
 """
 from __future__ import annotations
+
+import argparse
+import statistics
+import sys
 
 import numpy as np
 
@@ -80,3 +95,73 @@ def build_scene(name: str, et):
             tessellation_rate=12))
         return s, (0.0, 1.5, 4.5)
     raise ValueError(f"unknown scene '{name}'")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", default="cube")
+    ap.add_argument("--shader", default="eyelight",
+                    choices=["eyelight", "uv", "Ng", "primID", "geomID",
+                             "occlusion"])
+    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--golden", default=None,
+                    help="golden .pfm to compare against")
+    ap.add_argument("--compare-threshold", type=float, default=55,
+                    help="max wrong pixels (reference CTest default)")
+    ap.add_argument("--save-golden", default=None)
+    ap.add_argument("--benchmark", type=int, default=0, metavar="N",
+                    help="time N repetitions")
+    ap.add_argument("--cpu", action="store_true")
+    args = ap.parse_args(argv)
+
+    import embree_tpu_torch as pt
+    from ..models.camera import Camera
+    from ..models.viewer import render
+    from ..utils.image import compare_images, load_pfm, save_pfm, save_png
+
+    try:
+        scene, eye = build_scene(args.scene, pt)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    cs = scene.commit(device="cpu" if args.cpu else None)
+    cam = Camera(from_point=np.asarray(eye, np.float32),
+                 to_point=np.zeros(3, np.float32),
+                 up=np.array([0, 1, 0], np.float32))
+
+    H = W = args.size
+
+    def run():
+        return render(cs, cam, H, W, shader=args.shader)
+    img = run().cpu().numpy()
+
+    if args.benchmark:
+        from ..perf.device import timed
+        cuda = cs.device.type == "cuda"
+        times = [timed(run, cs.device)[0] for _ in range(args.benchmark)]
+        best, med = min(times), statistics.median(times)
+        print(f"BENCHMARK {args.scene}/{args.shader}: {best:.2f} ms/frame "
+              f"({H * W / best / 1e3:.2f} Mrays/s primary); median "
+              f"{med:.2f} ms ({'CUDA events' if cuda else 'host clock'})")
+
+    if args.out:
+        if args.out.endswith(".pfm"):
+            save_pfm(args.out, img)
+        else:
+            save_png(args.out, img)
+        print("wrote", args.out)
+    if args.save_golden:
+        save_pfm(args.save_golden, img)
+        print("wrote golden", args.save_golden)
+    if args.golden:
+        ref = load_pfm(args.golden)
+        wrong = compare_images(img, ref)
+        status = "PASS" if wrong <= args.compare_threshold else "FAIL"
+        print(f"COMPARE {status}: {wrong} wrong pixels "
+              f"(threshold {args.compare_threshold})")
+        return 0 if wrong <= args.compare_threshold else 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
