@@ -18,7 +18,9 @@ Hopper traversal kernel against its plain PyTorch version:
    mixed-class ones at most 128 registers; and no function of its SASS
    reads or overwrites a register before the wait on the load that
    writes it (perf/sass_hazards.py: fault C.2, a pop that read the next
-   record before its shared-memory load landed);
+   record before its shared-memory load landed); the ablation library
+   holds v7's 11 and v5's 7 instantiations, with no local memory and no
+   such hazard either;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow, and the 1M-ray launch's
@@ -115,11 +117,15 @@ Hopper traversal kernel against its plain PyTorch version:
 18. the traversal ablations (perf/ablate_v7.py, perf/kernel_ablate.py) at
    the harnesses' size, the 16,384-triangle sphere and 1,048,576 sorted
    rays: each harness's variants (12 v7, pinned at 24 steps; 9 v5) timed
-   through its entry point, every kernel held against its plain version
-   on 65,536 of the rays (t bits, ids, step row, each ray's steps), the
-   full variants against B1 on the same rays (hit masks, t within 1e-4,
-   prim ids but at near-ties), then the v7 variants again on the main
-   cell's 2,097,152-triangle sphere and 16,777,216 rays beside B1;
+   through its entry point beside B1, every kernel held against its plain
+   version on 65,536 of the rays in whole 128-ray sub-groups (t bits,
+   ids, step row, each ray's steps), and each variant's full-size launch
+   (its persistent warps refill) on those rays, with its counts: every ray
+   finished once, useful lane-steps overall and of node and leaf passes,
+   warps per SM; the full variants against B1 on the same rays (hit
+   masks, t within 1e-4, prim ids but at near-ties); then both ablations
+   again on the main cell's 2,097,152-triangle sphere and 16,777,216 rays
+   beside B1, with the same full-size checks and counts;
 19. the loop probes (perf/micro_ops.py, perf/micro_expand.py,
    perf/micro_v8.py) at the harnesses' size: 14, 12 and 19 probes, each
    one CUDA block carrying an (8,128), (8,128) or (128,128) int32 tile over
@@ -2050,27 +2056,45 @@ def check_traverse_ptxas(ptxas):
     check(not bad, "persistent kernels: " + "; ".join(bad))
 
 
-def check_traverse_sass(library):
-    """Fault C.2's check: no function of the traversal library reads or
-    overwrites a register before the wait on the load that writes it
+def check_sass(library, label, expect):
+    """Fault C.2's check: no function of a library reads or overwrites a
+    register before the wait on the load that writes it
     (perf/sass_hazards.py over cuobjdump's SASS). The faulty build read the
-    pop's next record before its shared-memory load landed."""
+    pop's next record before its shared-memory load landed. ``expect``:
+    {name: the functions whose name holds it}."""
     from embree_tpu_torch.perf import sass_hazards
     t0 = time.perf_counter()
     funcs = sass_hazards.parse(sass_hazards.disassemble(library))
     found = {f: sass_hazards.hazards(code) for f, code in funcs.items()}
     n = sum(map(len, found.values()))
-    say(f"  SASS dependency barriers: {n} hazards in {len(funcs)} functions "
-        f"({sum(map(len, funcs.values()))} instructions, "
+    say(f"  SASS dependency barriers ({label}): {n} hazards in {len(funcs)} "
+        f"functions ({sum(map(len, funcs.values()))} instructions, "
         f"{time.perf_counter() - t0:.1f} s)")
     for f, hz in found.items():
         for h in hz[:4]:
             say(f"    {f}: {h.kind} on barrier {h.barrier} for {h.reg}: "
                 f"{h.source.addr:#x} {h.source.text} -> {h.at.addr:#x} "
                 f"{h.at.text}")
-    check(sum("persistent_kernel" in f for f in funcs) == 72,
-          "the SASS does not hold the 72 persistent instantiations")
-    check(n == 0, f"{n} dependency-barrier hazards in the traversal SASS")
+    for name, count in expect.items():
+        check(sum(name in f for f in funcs) == count,
+              f"the {label} SASS does not hold {count} {name}s")
+    check(n == 0, f"{n} dependency-barrier hazards in the {label} SASS")
+
+
+def check_ablate_ptxas(ptx):
+    """The ablation library holds v7's 11 and v5's 7 instantiations; none
+    uses local memory (no stack frame: the stacks are in shared memory) or
+    spills."""
+    check(sum(u == "v7" for u, _ in ptx) == 11, "not 11 v7 instantiations")
+    check(sum(u == "v5" for u, _ in ptx) == 7, "not 7 v5 instantiations")
+    for (unit, flags), info in sorted(ptx.items()):
+        say(f"  ablation kernel {unit} {flags:#04x}: "
+            f"{info.get('registers')} registers, {info.get('stack')} B stack "
+            f"frame (local memory), spill {info.get('spill_st')} / "
+            f"{info.get('spill_ld')} B")
+        check(info.get("stack") == 0 and info.get("spill_st") == 0
+              and info.get("spill_ld") == 0,
+              f"ablation kernel {unit} {flags:#04x}: local memory in use")
 
 
 def lane_shares(visits):
@@ -2123,28 +2147,139 @@ def sched_split(res):
 
 
 def b1_on(tr, packed, rays, card):
-    """B1 closest on the ablation's rays: (ms, its record: ms, ray steps
-    at nodes and leaves, the most steps of a ray)."""
-    ms = events_ms(lambda: tr.traverse_kernel(packed, *rays))
-    v = tr.traverse_kernel(packed, *rays).visits
+    """B1 closest on the ablation's rays, timed as the ablations are
+    (``device.time_call``): (ms, its record: ms, ray steps at nodes and
+    leaves, the most steps of a ray, useful lane-steps, warps per SM)."""
+    from embree_tpu_torch.perf.device import time_call
+    ms, res = time_call(lambda: tr.traverse_kernel(packed, *rays),
+                        cuda=rays[0].is_cuda)
+    v = res.visits
     rec = dict(ms=ms, node_visits=int(v[0].sum(dtype=torch.int64)),
                leaf_visits=int(v[1].sum(dtype=torch.int64)),
-               max_steps=int((v[0] + v[1]).max()), card=card)
+               max_steps=int((v[0] + v[1]).max()),
+               useful_lane_steps=int(res.sched[1]) / max(int(res.sched[0]),
+                                                         1),
+               warps_per_sm=int(res.sched[3]), card=card)
     say(f"  B1 closest on the same rays: {ms:.3f} ms, "
         f"{rec['node_visits']} node + {rec['leaf_visits']} leaf steps, "
-        f"max {rec['max_steps']} [{card}]")
+        f"max {rec['max_steps']}, useful lane-steps "
+        f"{rec['useful_lane_steps']:.4f}, {rec['warps_per_sm']} warps/SM "
+        f"[{card}]")
     return ms, rec
 
 
+def ablate_sample(n, m):
+    """Indices of m of n rays in whole 128-ray sub-groups, every k-th
+    sub-group, so that the sample spans the batch and a one_trip sub-group
+    of the sample is one of the full launch's."""
+    groups = n // 128
+    g = torch.arange(0, groups, max(groups * 128 // m, 1),
+                     device=DEV)[:m // 128]
+    return (g[:, None] * 128 + torch.arange(128, device=DEV)).reshape(-1)
+
+
+def ablate_full_check(full, plain, idx, label):
+    """A full-size launch's outputs on the sampled rays ``idx`` equal the
+    plain run's on the sample, bit for bit (t, ids, each ray's steps)."""
+    m = idx.numel()
+    check(torch.equal(full.t.reshape(-1)[idx].view(torch.int32),
+                      plain.t.reshape(-1)[:m].view(torch.int32)),
+          f"{label}: full-size t bits differ on the sample")
+    check(torch.equal(full.best.reshape(-1)[idx], plain.best.reshape(-1)[:m]),
+          f"{label}: full-size ids differ on the sample")
+    check(torch.equal(full.visits[:, idx], plain.visits[:, :m]),
+          f"{label}: full-size ray steps differ on the sample")
+
+
+def ablate_counts(res, n, unit, label):
+    """The work counts of a full-size ablation launch: every ray finished
+    once and the lane steps the rays' steps (where leaf passes dealt items,
+    their lane steps the rays' leaf steps). Returns useful lane-steps, of
+    node passes and of leaf passes, the leaf passes' share of lane slots,
+    the share of item-round lanes that held an item, and warps per SM."""
+    slots, steps, finished, warps, leaf_slots, leaf_steps, items = (
+        int(x) for x in res.sched)
+    check(finished == n, f"{label}: {finished} rays finished of {n}")
+    check(steps == int(res.visits.sum(dtype=torch.int64)),
+          f"{label}: lane steps differ from the rays' steps")
+    check(slots >= steps, f"{label}: more lane steps than slots")
+    out = dict(rays_finished=finished, useful_lane_steps=steps / max(slots, 1),
+               warps_per_sm=warps)
+    if items:
+        check(leaf_steps == int(res.visits[1].sum(dtype=torch.int64)),
+              f"{label}: leaf-pass steps differ from the leaf visits")
+        out.update(node_lane_steps=(steps - leaf_steps)
+                   / max(slots - leaf_slots, 1),
+                   leaf_lane_steps=leaf_steps / max(leaf_slots, 1),
+                   leaf_pass_share=leaf_slots / max(slots, 1),
+                   item_lane_share=ABLATE_SLOTS[unit] * leaf_steps / items)
+    return out
+
+
+def ablate_line(key, rec):
+    say(f"  {key}: {rec['ms']:.3f} ms, rays finished {rec['rays_finished']}"
+        f", useful lane-steps {rec['useful_lane_steps']:.4f} (node passes "
+        f"{rec.get('node_lane_steps', float('nan')):.4f}, leaf passes "
+        f"{rec.get('leaf_lane_steps', float('nan')):.4f}, leaf passes' share "
+        f"{rec.get('leaf_pass_share', float('nan')):.4f}), "
+        f"{rec['warps_per_sm']} warps/SM, B1 {rec['b1_ms']:.3f} ms "
+        f"[{rec['card']}]")
+
+
+def ablate_cell(mods, tabs, rays, sample_idx, card, b1_ms,
+                share_ugrp=False):
+    """Each harness's variants on one cell through its entry point (timed;
+    the launch counts zeroed just before, read just after), then each
+    variant's full-size launch held on the sampled rays against the plain
+    version there, with its work counts. ``share_ugrp``: v5 variants that
+    differ only in UGRP share one plain run (a ray's outputs do not depend
+    on its program). Returns ({unit: records}, {(unit, name): (plain ms,
+    the plain result)}, the launch counts)."""
+    from embree_tpu_torch.perf import device
+    n = rays[0].shape[0]
+    device.reset_launch_counts()
+    runs = {unit: mod.run_variants(tabs[unit], rays)
+            for unit, mod in mods.items()}
+    torch.cuda.synchronize()
+    launches = dict(device.LAUNCHES)
+    sample = [x[sample_idx].contiguous() for x in rays]
+    plain, shared = {}, {}
+    for unit, mod in mods.items():
+        for rec, (name, kw) in zip(runs[unit], mod.VARIANTS):
+            kw = dict(kw)
+            args = (kw.pop("UGRP"),) if unit == "v5" else ()
+            label = f"{unit} {name}"
+            key = (unit, rec["flag_bits"], rec["max_steps"])
+            if share_ugrp and key in shared:
+                plain[(unit, name)] = shared[key]
+            else:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                b = mod.traverse_plain(tabs[unit], *sample, *args, **kw)
+                e1.record()
+                torch.cuda.synchronize()
+                plain[(unit, name)] = shared[key] = (e0.elapsed_time(e1), b)
+            full = mod.traverse_kernel(tabs[unit], *rays, *args, **kw)
+            torch.cuda.synchronize()
+            b = plain[(unit, name)][1]
+            ablate_full_check(full, b, sample_idx, label)
+            rec.update(card=card, b1_ms=b1_ms, n_rays=n,
+                       **ablate_counts(full, n, unit, label))
+            del full
+    return runs, plain, launches
+
+
 def phase_ablations(pt, tr, record, regs):
-    """The two traversal ablations (perf/) at the harnesses' size, the v7
-    variants again on the main cell; ``regs``: ptxas_info of the
-    ablation kernels."""
+    """The two traversal ablations (perf/) at the harnesses' size and on
+    the main cell, beside B1; ``regs``: ptxas_info of the ablation
+    kernels."""
     from embree_tpu_torch.perf import ablate_v7 as v7
-    from embree_tpu_torch.perf import device, harness, scenes, tables
+    from embree_tpu_torch.perf import harness, scenes, tables
     from embree_tpu_torch.perf import kernel_ablate as v5
     say("phase 18: traversal ablations (perf/ablate_v7.py, "
         "perf/kernel_ablate.py): 16K-tri sphere, 1,048,576 sorted rays")
+    t_phase = time.perf_counter()
     card = card_line()
     cs = scenes.sphere_scene(device=DEV)
     tabs = {"v7": tables.v7_tables(cs.packed).to(DEV),
@@ -2156,37 +2291,24 @@ def phase_ablations(pt, tr, record, regs):
     n = rays[0].shape[0]
     b1_check_ms, b1_check = b1_on(tr, cs.packed, rays, card)
     record["ablate_b1"] = dict(check_cell=b1_check)
+    mods = {"v7": v7, "v5": v5}
 
     # ---- the harnesses' main loops (each variant: a warm-up and 5 timed
-    # calls), launch counts zeroed just before, read just after ----
-    device.reset_launch_counts()
-    runs = {"v7": v7.run_variants(tabs["v7"], rays),
-            "v5": v5.run_variants(tabs["v5"], rays)}
-    torch.cuda.synchronize()
-    launches = dict(device.LAUNCHES)
+    # calls), launch counts zeroed just before, read just after; then each
+    # kernel against its plain version on 65,536 rays in whole sub-groups,
+    # at the sample's size and in a full-size launch ----
+    idx = ablate_sample(n, ABLATE_COMPARE)
+    runs, plain, launches = ablate_cell(mods, tabs, rays, idx, card,
+                                        b1_check_ms)
     say(f"  launches on the ablation path: {launches}")
-    for unit, recs in runs.items():
-        for rec in recs:
-            check(launches.get(rec["kernel"], 0) > 0,
-                  f"{rec['kernel']}: no launch on its path")
-
-    # ---- kernel vs plain version on every 16th ray ----
-    k = n // ABLATE_COMPARE
-    sample = [x[::k][:ABLATE_COMPARE].contiguous() for x in rays]
-    mods = {"v7": v7, "v5": v5}
-    plain = {}
+    sample = [x[idx].contiguous() for x in rays]
     for unit, mod in mods.items():
         for name, kw in mod.VARIANTS:
             kw = dict(kw)
             args = (kw.pop("UGRP"),) if unit == "v5" else ()
             a = mod.traverse_kernel(tabs[unit], *sample, *args, **kw)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            b = mod.traverse_plain(tabs[unit], *sample, *args, **kw)
-            e1.record()
+            plain_ms, b = plain[(unit, name)]
             torch.cuda.synchronize()
-            plain[(unit, name)] = e0.elapsed_time(e1)
             label = f"{unit} {name}"
             check(torch.equal(a.t.view(torch.int32), b.t.view(torch.int32)),
                   f"{label}: t bits differ")
@@ -2197,7 +2319,8 @@ def phase_ablations(pt, tr, record, regs):
                   f"{label}: ray steps differ")
             say(f"  {label}: {ABLATE_COMPARE} rays, "
                 f"{int((a.best >= 0).sum())} hits, kernel == plain (t bits, "
-                f"ids, steps); plain {plain[(unit, name)]:.1f} ms")
+                f"ids, steps), and the full-size launch on them; plain "
+                f"{plain_ms:.1f} ms")
 
     # ---- the full variants against B1 on the same rays ----
     b1 = tr.traverse_kernel(cs.packed, *sample)
@@ -2226,7 +2349,7 @@ def phase_ablations(pt, tr, record, regs):
             rays=ABLATE_COMPARE, hits=int(hit.sum()),
             max_rel_dt=rel.max().item(), prim_equal=same, t_bit_equal=exact)
 
-    # ---- records: time, launches, bound, plain time ----
+    # ---- records: time, launches, bound, plain time, counts, registers ----
     for unit, recs in runs.items():
         for rec in recs:
             fl = rec["flags"]
@@ -2241,39 +2364,50 @@ def phase_ablations(pt, tr, record, regs):
             bound, by, visit_ms = ablate_bound(unit, flags, rec["node_visits"],
                                                rec["leaf_visits"], n,
                                                tabs[unit])
-            rec.update(unit=unit, plain_ms=plain[(unit, rec["name"])],
-                       registers=regs.get((unit, rec["flag_bits"]),
-                                              {}).get("registers"),
-                       b1_ms=b1_check_ms,
-                       plain_rays=ABLATE_COMPARE, n_rays=n, bound_ms=bound,
-                       bound_by=by, visit_bytes_ms=visit_ms, card=card,
+            check(launches.get(rec["kernel"], 0) > 0,
+                  f"{rec['kernel']}: no launch on its path")
+            ptx = regs.get((unit, rec["flag_bits"]), {})
+            rec.update(unit=unit, plain_ms=plain[(unit, rec["name"])][0],
+                       registers=ptx.get("registers"),
+                       local_bytes=ptx.get("stack"),
+                       plain_rays=ABLATE_COMPARE, bound_ms=bound,
+                       bound_by=by, visit_bytes_ms=visit_ms,
                        launches=launches[rec["kernel"]])
             key = f"ablate_{unit}_{rec['name'].replace(' ', '_')}"
             record[key] = rec
-            say(f"  {key}: {rec['ms']:.3f} ms, {rec['registers']} "
-                f"registers, bound {bound:.4f} ms ({by}), "
-                f"record reads {visit_ms:.4f} ms, plain {rec['plain_ms']:.1f}"
-                f" ms on {ABLATE_COMPARE} rays, {rec['launches']} launches "
-                f"[{card}]")
-    del cs, tabs, rays, sample
+            ablate_line(key, rec)
+            say(f"    {rec['registers']} registers, {rec['local_bytes']} B "
+                f"local, bound {bound:.4f} ms ({by}), record reads "
+                f"{visit_ms:.4f} ms, plain {rec['plain_ms']:.1f} ms on "
+                f"{ABLATE_COMPARE} rays, {rec['launches']} launches")
+    del cs, tabs, rays, sample, b1, a7, a5, plain
     torch.cuda.empty_cache()
 
-    # ---- the v7 variants on the main cell, beside B1 ----
-    say("  v7 on the main cell: sphere_mesh(1024, 1024), 16,777,216 sorted "
-        "rays")
+    # ---- both ablations on the main cell, beside B1 ----
+    say("  v7 and v5 on the main cell: sphere_mesh(1024, 1024), "
+        "16,777,216 sorted rays")
     cs = scenes.sphere_scene(*MAIN_MESH, device=DEV)
-    t7 = tables.v7_tables(cs.packed).to(DEV)
+    t0 = time.perf_counter()
+    tabs = {"v7": tables.v7_tables(cs.packed).to(DEV),
+            "v5": tables.pack_v5(cs).to(DEV)}
+    say(f"  tables in {time.perf_counter() - t0:.2f} s: v7 "
+        f"{tabs['v7'].table_bytes / 1e6:.1f} MB, v5 "
+        f"{tabs['v5'].table_bytes / 1e6:.1f} MB")
     rays = scenes.harness_rays(MAIN_RAYS, device=DEV)
     b1_ms, record["ablate_b1"]["main_cell"] = b1_on(tr, cs.packed, rays,
                                                     card)
-    main_cell = v7.run_variants(t7, rays)
-    for rec in main_cell:
-        rec.update(card=card, b1_ms=b1_ms, n_rays=MAIN_RAYS)
-    record["ablate_v7_main_cell"] = dict(b1_ms=b1_ms, card=card,
-                                         table_mb=t7.table_bytes / 1e6,
-                                         variants=main_cell)
-    del cs, t7, rays
+    runs, _, _ = ablate_cell(mods, tabs, rays,
+                             ablate_sample(MAIN_RAYS, ABLATE_COMPARE), card,
+                             b1_ms, share_ugrp=True)
+    for unit, recs in runs.items():
+        for rec in recs:
+            ablate_line(f"main cell {unit} {rec['name']}", rec)
+        record[f"ablate_{unit}_main_cell"] = dict(
+            b1_ms=b1_ms, card=card, table_mb=tabs[unit].table_bytes / 1e6,
+            variants=recs)
+    del cs, tabs, rays
     torch.cuda.empty_cache()
+    say(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def sm_clock_hz() -> float:
@@ -4727,7 +4861,8 @@ def kernel_entries(record, errs, phase_launches):
     (``tools_launches``)."""
     kernels = []
     for name, rec in record.items():
-        if name in ("ablate_v7_main_cell", "ablate_vs_b1", "ablate_b1"):
+        if name in ("ablate_v7_main_cell", "ablate_v5_main_cell",
+                    "ablate_vs_b1", "ablate_b1"):
             continue
         if name == "micro":
             for key, r in rec.items():
@@ -4797,11 +4932,13 @@ def main():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say("  ptxas: " + line.strip())
     check_traverse_ptxas(ptxas)
-    check_traverse_sass(_build.ensure("traverse_cuda"))
+    check_sass(_build.ensure("traverse_cuda"), "traversal",
+               {"persistent_kernel": 72})
     ptxas_ablate = _build.BUILD_LOGS.get("ablate_cuda", "")
-    for line in ptxas_ablate.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill")):
-            say("  ptxas (ablate): " + line.strip())
+    ablate_ptx = ptxas_info(ptxas_ablate, r"(v[57])_kernelILi(\d+)E")
+    check_ablate_ptxas(ablate_ptx)
+    check_sass(_build.ensure("ablate_cuda"), "ablation",
+               {"v7_kernel": 11, "v5_kernel": 7})
     ptxas_micro = _build.BUILD_LOGS.get("micro_cuda", "")
     units = {"Ops": "micro_ops", "Expand": "micro_expand", "V8": "micro_v8"}
     micro_ptx = {(units[u], k): v for (u, k), v in ptxas_info(
@@ -4828,8 +4965,7 @@ def main():
     phase_round_hair(pt, tr, errs, record)
     phase_engine_vs_kernel(pt, tr)
     phase_mixed_goldens(pt)
-    phase_ablations(pt, tr, record,
-                    ptxas_info(ptxas_ablate, r"(v[57])_kernelILi(\d+)E"))
+    phase_ablations(pt, tr, record, ablate_ptx)
     phase_micro(record, micro_ptx)
     builders = {}
     phase_builders(pt, tr, sphere_mesh, builders)

@@ -15,7 +15,7 @@ Shared libraries, each with a plain C interface loaded through ctypes:
   arithmetic where there is no GPU; it is never on the main path;
 - ``ablate_cuda``: the two traversal ablation kernels of ``perf/``
   (``csrc/ablate_v7.cu``, ``csrc/ablate_v5.cu``, compiled in parallel and
-  linked into one library), and ``ablate_twin``, their per-ray step
+  linked into one library), and ``ablate_twin``, their walk and scheduler
   (``csrc/ablate.cuh``) compiled for the host for the tests;
 - ``micro_cuda``: the three loop-probe kernels of ``perf/``
   (``csrc/micro_ops.cu``, ``csrc/micro_expand.cu``, ``csrc/micro_v8.cu``
@@ -93,7 +93,7 @@ def _targets() -> Dict[str, Target]:
             "libablate_cuda.so",
             (os.path.join(CSRC, "ablate_v7.cu"),
              os.path.join(CSRC, "ablate_v5.cu")),
-            (os.path.join(CSRC, "ablate.cuh"), cuh),
+            (os.path.join(CSRC, "ablate.cuh"), launch, cuh),
             (_nvcc(),) + arch + ("-std=c++17", "-O3", "--fmad=false",
                                  "-Xptxas", "-v", "-Xcompiler", "-fPIC"),
             link=(_nvcc(),) + arch + ("-shared",)),

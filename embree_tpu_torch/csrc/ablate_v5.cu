@@ -1,13 +1,17 @@
-// Hopper kernel of the v5 traversal ablation, one ray per thread: the
-// counterpart of perf/kernel_ablate.py::traverse (make_kernel, :32). The
-// per-ray step, its flags and what bounds it are in ablate.cuh.
+// Hopper kernel of the v5 traversal ablation: the counterpart of
+// perf/kernel_ablate.py::traverse (pallas_call :310, make_kernel :32). Its
+// steps, what bounds it and the design are in ablate.cuh.
 //
-// Programs of UGRP x 128 rays (UGRP 16, 8 or 4) are the harness's. Every
-// ray walks until it retires (or to the pinned max_steps), then the warps
-// report each program's most steps with an atomicMax: the harness's
-// lockstep count it_final. The fetch trips the harness counts (steps rows
-// 1-2) are left to the plain version: a per-step reduction over the
-// program would distort the timing the kernel exists for.
+// Persistent warps (abl::run_warp over abl::V5<F>): rays taken from a
+// global counter, each walking until it retires (or to the pinned
+// max_steps, else the runaway guard), its leaves' 4 slots dealt across the
+// warp, 8 leaves a round, stacks in shared memory. The rays a pass
+// finishes raise their programs' most steps with one atomicMax per program
+// among them (abl::raise_prog_steps), since a warp now holds rays of
+// several programs (UGRP x 128 rays, UGRP 16, 8 or 4): the harness's
+// lockstep count it_final. The fetch trips the harness counts
+// (steps rows 1-2) are left to the plain version: a per-step reduction
+// over the program would distort the timing the kernel exists for.
 //
 // Build (with ablate_v7.cu, in parallel, linked into one library):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -17,26 +21,24 @@
 #include <cuda_runtime.h>
 
 #include "ablate.cuh"
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kBlock = abl::kLane;
 
+// counts: abl::run_warp's; [3] gets warps_per_sm. At least trav::kMinBlocks
+// resident blocks, as the traversal kernels.
 template <int F>
-__global__ void __launch_bounds__(kBlock) v5_kernel(abl::Params p) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const abl::ARay r = abl::load_ray(p, i);
-  abl::State s;
-  abl::init_state(p, i, s);
-  for (int it = 0; it < p.max_steps && s.act; ++it) abl::v5_step<F>(p, r, s);
-  abl::finish(p, i, s);
-  const int m = __reduce_max_sync(0xffffffffu, s.n_node + s.n_leaf);
-  if ((threadIdx.x & 31) == 0) atomicMax(p.out_prog_steps + i / p.prog_rays, m);
-}
-
-template <int F>
-void launch(const abl::Params& p, cudaStream_t st) {
-  v5_kernel<F><<<p.n_rays / kBlock, kBlock, 0, st>>>(p);
+__global__ void __launch_bounds__(kBlock, trav::kMinBlocks)
+    v5_kernel(abl::Params p, int32_t* next_ray, unsigned long long* counts,
+              int warps_per_sm) {
+  extern __shared__ int32_t smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) counts[3] = warps_per_sm;
+  const trav::CudaScratchWarp w{
+      {smem + threadIdx.x, static_cast<int>(threadIdx.x & 31)},
+      smem + abl::kStack * kBlock + (threadIdx.x >> 5) * abl::kScratchWords};
+  abl::run_warp<trav::CudaScratchWarp, abl::V5<F>>(p, w, next_ray, counts);
 }
 
 }  // namespace
@@ -50,18 +52,21 @@ extern "C" int ablate_v5_launch(const int32_t* nodes, int n_node_tiles,
                                 const int32_t* mask, int n_rays,
                                 int prog_rays, int max_steps, float* out_t,
                                 int32_t* out_best, int32_t* out_visits,
-                                int32_t* out_prog_steps, int flags,
-                                void* stream) {
+                                int32_t* out_prog_steps, int32_t* next_ray,
+                                int64_t* counts, int flags, void* stream) {
   const abl::Params p{nodes, n_node_tiles, leaves,  n_leaf_tiles, org,
                       dir,   tnear,        tfar,    mask,         n_rays,
                       prog_rays, max_steps, out_t, out_best, out_visits,
                       out_prog_steps};
-  if (abl::bad_launch(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (abl::bad_launch(p, false)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
   switch (flags) {
-#define ABL_CASE(F)    \
-  case F:              \
-    launch<F>(p, st);  \
+#define ABL_CASE(F)                                                  \
+  case F:                                                            \
+    abl::launch_persistent(v5_kernel<F>, p, next_ray, c, st);        \
     break;
     ABL_V5_VARIANTS(ABL_CASE)
 #undef ABL_CASE

@@ -16,62 +16,7 @@
 
 namespace {
 
-// The scheduler's lane bookkeeping on the host (trav::run_warp's WARP): one
-// warp of 32 emulated lanes, each with its own local stack, and the warp's
-// scratch words; a plain counter stands for the card's fetch-add. each()
-// runs the lanes one after another, so a pass sees the scratch words that
-// earlier passes wrote, as the card's lanes do after a __syncwarp.
-struct HostWarp {
-  static constexpr int kLanes = 32;
-  int32_t* stacks;  // kLanes x kStack
-  int32_t* scr;
-
-  trav::Stack<1> stack(int l) const {
-    return trav::Stack<1>{stacks + l * trav::kStack};
-  }
-
-  int32_t* scratch() const { return scr; }
-
-  template <class F>
-  void each(F f) const {
-    for (int l = 0; l < kLanes; ++l) f(l, l);
-  }
-
-  template <class F>
-  uint32_t ballot(F pred) const {
-    uint32_t bits = 0;
-    for (int l = 0; l < kLanes; ++l) bits |= pred(l) ? 1u << l : 0u;
-    return bits;
-  }
-
-  void sync() const {}
-
-  void atomic_min(int32_t* word, int32_t v) const {
-    if (v < *word) *word = v;
-  }
-
-  int take(int32_t* next_ray, uint32_t idle) const {
-    const int base = *next_ray;
-    *next_ray += trav::popc(idle);
-    return base;
-  }
-
-  void overflow(int32_t* out_overflow) const { ++*out_overflow; }
-
-  void add_counts(unsigned long long* counts, uint32_t passes,
-                  uint32_t steps, const uint32_t* finished) const {
-    counts[0] += 32ull * passes;
-    counts[1] += steps;
-    for (int l = 0; l < kLanes; ++l) counts[2] += finished[l];
-  }
-
-  void add_leaf_counts(unsigned long long* counts, uint32_t passes,
-                       uint32_t steps, uint32_t rounds) const {
-    counts[4] += 32ull * passes;
-    counts[5] += steps;
-    counts[6] += 32ull * rounds;
-  }
-};
+using trav::HostWarp;
 
 template <bool OCCLUSION, bool WANT_ATTRS, bool HAS_MASK, bool ROBUST,
           bool KINDS, bool MOTION, bool CURVES, bool ROUND>

@@ -131,14 +131,14 @@ def traverse_plain(tables: AblateTables, org, dir, tnear, tfar, mask, *,
 
 def _native(tables, org, dir, tnear, tfar, mask, max_steps, kw):
     B, tables, rays = _prepare(tables, org, dir, tnear, tfar, mask)
-    tf, best, visits, _ = harness.run_native(
+    tf, best, visits, _, sched = harness.run_native(
         "v7", tables, rays, PROG, max_steps, flag_bits(**kw))
     zeros = torch.zeros(B, dtype=torch.int32, device=org.device)
     # the harness's step count is its pinned limit; the kernel leaves the
     # fetch trips (rows 1-2) at 0
     return AblateResult(tf.view(B, UGRP, -1), best.view(B, UGRP, -1),
                         harness.steps_rows(zeros + max_steps, zeros, zeros,
-                                           UGRP), visits)
+                                           UGRP), visits, sched)
 
 
 def traverse_kernel(tables: AblateTables, org, dir, tnear, tfar, mask, *,

@@ -45,6 +45,7 @@ INF_BITS = 0x7F800000
 STACK = 64               # STACK_BLOCKS * 8 (v7), STACK_ROWS (v5)
 STACK_REACH = 72         # the clamped ninth block: entries 64-71 alias 56-63
 MAX_STEPS = 200_000      # traverse_pallas.MAX_STEPS, v5's runaway guard
+UNWRITTEN = 0x7FC0DEAD   # the twin's t before a ray is finished
 
 class AblateResult(NamedTuple):
     """The harness's outputs, (B, UGRP, 128) each, and the rays' steps."""
@@ -54,6 +55,9 @@ class AblateResult(NamedTuple):
     #                       steps, row 1 node and row 2 leaf fetch trips
     visits: torch.Tensor  # (2, B*UGRP*128) int32: steps each ray took at a
     #                       node and at a leaf
+    sched: Optional[torch.Tensor] = None  # the kernels' (and the twin's)
+    #                       seven int64 work counts (``run_native``); None
+    #                       from the plain version
 
 
 def pad_rays(org, dir, tnear, tfar, mask, prog: int):
@@ -306,8 +310,11 @@ def walk_plain(tables: AblateTables, rays, prog: int, *, fetch_node: bool,
 # ---------------------------------------------------------------------------
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
          + [ctypes.c_int])
+# the work counts of a launch (csrc/ablate.cuh::run_warp)
+SCHED = ("lane_slots", "lane_steps", "rays_finished", "warps_per_sm",
+         "leaf_lane_slots", "leaf_lane_steps", "item_slots")
 
 
 def _load(target: str, fn: str, extra=()):
@@ -321,19 +328,30 @@ def _ptr(x):
 def run_native(unit: str, tables: AblateTables, rays, prog: int,
                max_steps: int, flags: int):
     """Launch the CUDA kernel (CUDA rays) or run its g++ twin (CPU rays)
-    of ``unit`` ("v7" or "v5") on padded rays. Returns (tf, best, visits,
-    the most steps any ray of each program took (B,))."""
+    of ``unit`` ("v7" or "v5") on R rays, whole programs of ``prog`` or
+    not. Returns (tf, best, visits, the most steps any ray of each program
+    took (ceil(R / prog),), the launch's work counts (7,) int64: ``SCHED``)."""
     org = rays[0]
     R = org.shape[0]
     dev = org.device
-    out_t = torch.empty(R, dtype=torch.float32, device=dev)
-    out_best = torch.empty(R, dtype=torch.int32, device=dev)
-    visits = torch.empty((2, R), dtype=torch.int32, device=dev)
-    prog_steps = torch.zeros(R // prog, dtype=torch.int32, device=dev)
+
+    def out(shape, unwritten):
+        # the twin's outputs start as values no walk writes (a NaN payload,
+        # an id below -1, negative steps), so a ray it never finished shows
+        if dev.type == "cpu":
+            return torch.full(shape, unwritten, dtype=torch.int32, device=dev)
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    out_t = out((R,), UNWRITTEN).view(torch.float32)
+    out_best = out((R,), -2)
+    visits = out((2, R), -1)
+    prog_steps = torch.zeros(-(-R // prog), dtype=torch.int32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(len(SCHED), dtype=torch.int64, device=dev)
     args = [_ptr(tables.nodes), tables.n_node_tiles, _ptr(tables.leaves),
             tables.n_leaf_tiles] + [_ptr(x) for x in rays] + [
         R, prog, max_steps, _ptr(out_t), _ptr(out_best), _ptr(visits),
-        _ptr(prog_steps), flags]
+        _ptr(prog_steps), _ptr(next_ray), _ptr(counts), flags]
     if dev.type == "cuda":
         launch = _load("ablate_cuda", f"ablate_{unit}_launch",
                        [ctypes.c_void_p])
@@ -344,10 +362,11 @@ def run_native(unit: str, tables: AblateTables, rays, prog: int,
                                f"CUDA error {err}")
     elif dev.type == "cpu":
         if _load("ablate_twin", f"ablate_{unit}_twin")(*args) != 0:
-            raise ValueError(f"{unit}: no such variant (flags {flags:#x})")
+            raise ValueError(f"{unit}: no such variant (flags {flags:#x}) "
+                             "or launch shape")
     else:
         raise ValueError(f"no ablation kernel for device {dev}")
-    return out_t, out_best, visits, prog_steps
+    return out_t, out_best, visits, prog_steps, counts
 
 
 # ---------------------------------------------------------------------------

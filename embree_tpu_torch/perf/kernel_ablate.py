@@ -139,13 +139,13 @@ def traverse_plain(tables: AblateTables, org, dir, tnear, tfar, mask, UGRP,
 def _native(tables, org, dir, tnear, tfar, mask, UGRP, max_steps, kw):
     prog = UGRP * harness.LANE
     B, rays = harness.pad_rays(org, dir, tnear, tfar, mask, prog)
-    tf, best, visits, prog_max = harness.run_native(
+    tf, best, visits, prog_max, sched = harness.run_native(
         "v5", _tables_on(tables, org.device), rays, prog, _limit(max_steps),
         flag_bits(**kw))
     zeros = torch.zeros(B, dtype=torch.int32, device=org.device)
     return AblateResult(tf.view(B, UGRP, -1), best.view(B, UGRP, -1),
                         harness.steps_rows(_it_final(prog_max, max_steps),
-                                           zeros, zeros, UGRP), visits)
+                                           zeros, zeros, UGRP), visits, sched)
 
 
 def traverse_kernel(tables: AblateTables, org, dir, tnear, tfar, mask, UGRP,
