@@ -19,8 +19,9 @@ Hopper traversal kernel against its plain PyTorch version:
    reads or overwrites a register before the wait on the load that
    writes it (perf/sass_hazards.py: fault C.2, a pop that read the next
    record before its shared-memory load landed); the ablation library
-   holds v7's 11 and v5's 7 instantiations, with no local memory and no
-   such hazard either;
+   holds v7's 11 and v5's 7 instantiations, and the loop-probe library
+   micro_ops' 14, micro_expand's 12 and micro_v8's 19, each with no local
+   memory and no such hazard either;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow, and the 1M-ray launch's
@@ -136,8 +137,12 @@ Hopper traversal kernel against its plain PyTorch version:
    harness's x: ms, ns/iter and ns/iter over the harness's base probe,
    launches, the per-SM bound, the least work over implementations (a
    probe timed below it fails the run: its loop was folded; a fold too
-   small to take it below is not caught), registers and stack frame, and
-   the plain version's time at 64 iterations;
+   small to take it below is not caught), the share of the bound,
+   registers and stack frame (any local memory in a probe instantiation
+   fails the run, as does a dependency-barrier hazard in the library's
+   SASS, phase 2), the plain version's time at 64 iterations, and for
+   micro_v8's five lane gathers the shared-memory wavefronts the harness's
+   x gives against a conflict-free count;
 20. the builders on the card (the default route sends every scene under
    50,000 prims through the SAH builder, as the JAX package does):
    sphere_mesh(128, 192), 49,152 triangles, committed at MEDIUM and LOW
@@ -435,6 +440,7 @@ MICRO_REPLACES = {"micro_ops": "perf/micro_ops.py:41",
 MICRO_CHECK_ITERS = (64, 67)
 MICRO_LONG_ITERS = 1000
 MICRO_PLAIN_ITERS = 64
+MICRO_CLOCK_CYCLES = 5_000_000       # ~2.5 ms a clock measurement
 # phases 20-21, the builders and the rest of Scene
 BUILD_MESH = (128, 192)      # 49,152 tris: the SAH route's largest sphere
 BUILD_COMPARE = 1 << 16
@@ -2097,6 +2103,23 @@ def check_ablate_ptxas(ptx):
               f"ablation kernel {unit} {flags:#04x}: local memory in use")
 
 
+def check_micro_ptxas(ptx):
+    """The loop-probe library holds micro_ops' 14, micro_expand's 12 and
+    micro_v8's 19 instantiations; none uses local memory (a stack frame or
+    spills)."""
+    for unit, n in (("micro_ops", 14), ("micro_expand", 12),
+                    ("micro_v8", 19)):
+        check(sum(u == unit for u, _ in ptx) == n,
+              f"not {n} {unit} instantiations")
+    for (unit, kid), info in sorted(ptx.items()):
+        say(f"  ptxas (micro): {unit} probe {kid}: {info.get('registers')} "
+            f"registers, {info.get('stack')} B stack frame (local memory), "
+            f"spill {info.get('spill_st')} / {info.get('spill_ld')} B")
+        check(info.get("stack") == 0 and info.get("spill_st") == 0
+              and info.get("spill_ld") == 0,
+              f"{unit} probe {kid}: local memory in use")
+
+
 def lane_shares(visits):
     """Useful lane-steps of one ray per thread over the rays in launch
     order: the share of lane slots that did work when each warp of 32 runs
@@ -2410,28 +2433,22 @@ def phase_ablations(pt, tr, record, regs):
     say(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
-def sm_clock_hz() -> float:
-    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
-
-
 def phase_micro(record, ptx):
     """The three loop probes at their harnesses' size: every kernel held
     bit for bit against its plain version, then each timed through its
     entry point at the harness's ITERS on the harness's x; ``ptx``:
     ptxas_info of the probe kernels, keyed (unit, probe id)."""
     from embree_tpu_torch.perf import device, micro, micro_expand, micro_ops
-    from embree_tpu_torch.perf import micro_v8
+    from embree_tpu_torch.perf import micro_batches, micro_v8
     mods = (micro_ops, micro_expand, micro_v8)
     say("phase 19: loop probes (perf/micro_ops.py, perf/micro_expand.py, "
         "perf/micro_v8.py): 14 + 12 + 19 probes")
+    t_phase = time.perf_counter()
     card = card_line()
-    clock = sm_clock_hz()
-    say(f"  SM clock (max) {clock / 1e6:.0f} MHz [{card}]")
+    smi_clock = micro_batches.sm_clock_hz()
+    say(f"  SM clock: nvidia-smi max {smi_clock / 1e6:.0f} MHz, measured "
+        f"against the global timer {micro.measured_sm_clock_hz() / 1e6:.1f}"
+        f" MHz [{card}]")
 
     # ---- kernel vs plain version, both inputs ----
     plain_ms = {}
@@ -2443,45 +2460,67 @@ def phase_micro(record, ptx):
             (MICRO_LONG_ITERS,) if h.rows_acc == 8 else ())
         for p in mod.PROBES:
             for tag, x in xs.items():
+                # one plain loop to the longest count, its tile kept at
+                # each count (the shorter runs are its prefixes), timed to
+                # MICRO_PLAIN_ITERS
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                want = {}
+                acc = x[0:h.rows_acc].clone()
+                e0.record()
+                for it in range(1, max(counts) + 1):
+                    acc = p.body(acc, it - 1, x)
+                    if it == MICRO_PLAIN_ITERS:
+                        e1.record()
+                    if it in counts:
+                        want[it] = acc
+                torch.cuda.synchronize()
+                if tag == "harness":
+                    plain_ms[(h.unit, p.name)] = e0.elapsed_time(e1)
                 for iters in counts:
                     k = micro.launch(h, p, x, iters)
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    e1 = torch.cuda.Event(enable_timing=True)
-                    e0.record()
-                    q = micro.run_plain(p.body, x, iters, h.rows_acc)
-                    e1.record()
-                    torch.cuda.synchronize()
-                    if (tag, iters) == ("harness", MICRO_PLAIN_ITERS):
-                        plain_ms[(h.unit, p.name)] = e0.elapsed_time(e1)
-                    check(torch.equal(k, q), f"{h.unit}:{p.name}: kernel "
-                          f"!= plain on the {tag} x at {iters} iterations")
+                    check(torch.equal(k, want[iters]), f"{h.unit}:{p.name}: "
+                          f"kernel != plain on the {tag} x at {iters} "
+                          f"iterations")
         say(f"  {h.unit}: {len(mod.PROBES)} kernels == plain (int32 bits) "
             f"on both inputs at {', '.join(map(str, counts))} iterations")
+
+    t_checks = time.perf_counter() - t_phase
 
     # ---- the harnesses' loops (each probe: a warm-up, then 5 timed
     # windows of 5 launches), launch counts zeroed just before, read just
     # after ----
+    # the SM clock measured just before and after each probe's timing: the
+    # bound takes the fastest of those and nvidia-smi's max, since the card
+    # ran up to 0.8% above the max against the timer the events read
     device.reset_launch_counts()
-    timed = {}
+    timed, clocks = {}, {}
     for mod in mods:
         h = mod.HARNESS
         x = micro.harness_x(h, DEV)
         for p in mod.PROBES:
+            before = micro.measured_sm_clock_hz(MICRO_CLOCK_CYCLES)
             timed[(h.unit, p.name)], _ = device.time_call(
                 lambda: mod.run(p.name, x, h.iters))
+            clocks[(h.unit, p.name)] = max(
+                smi_clock, before,
+                micro.measured_sm_clock_hz(MICRO_CLOCK_CYCLES))
     torch.cuda.synchronize()
     launches = dict(device.LAUNCHES)
+    t_timed = time.perf_counter() - t_phase - t_checks
 
     # ---- records ----
     for mod in mods:
         h = mod.HARNESS
         x = micro.harness_x(h, DEV)
         base_ns = timed[(h.unit, mod.PROBES[0].name)] * 1e6 / h.iters
+        gaps = 0.0
         for p in mod.PROBES:
             key = f"{h.unit}:{p.name}"
             ms = timed[(h.unit, p.name)]
             ns = ms * 1e6 / h.iters
             cost = micro.cost_of(p, x, h.iters)
+            clock = clocks[(h.unit, p.name)]
             bound, by = micro.bound_ms(cost, h.iters, clock)
             ptxas = ptx.get((h.unit, p.kid), {})
             rec = dict(unit=h.unit, probe=p.name, kid=p.kid, ms=ms,
@@ -2492,17 +2531,30 @@ def phase_micro(record, ptx):
                        sm_clock_mhz=clock / 1e6,
                        plain_ms=plain_ms[(h.unit, p.name)],
                        plain_iters=MICRO_PLAIN_ITERS, card=card, **ptxas)
+            if p.name in getattr(mod, "GATHERS", ()):
+                rec["wavefronts"], rec["wavefronts_free"] = (
+                    mod.gather_wavefronts(p.name, x, h.iters))
             record.setdefault("micro", {})[key] = rec
+            gaps += rec["launches"] * (ms - bound)
             say(f"  {key}: {ms:.4f} ms, {ns:.2f} ns/iter (+{ns - base_ns:.2f}"
                 f" over base), bound {bound:.4f} ms ({by}), "
+                f"{100 * bound / ms:.1f}% of it, "
                 f"{rec['launches']} launches, {ptxas.get('registers')} "
                 f"registers, {ptxas.get('stack')} B stack (local memory); "
                 f"plain {rec['plain_ms']:.1f} ms "
                 f"at {MICRO_PLAIN_ITERS} iterations [{card}]")
+            if "wavefronts" in rec:
+                say(f"    shared-memory wavefronts an iteration on the "
+                    f"harness's x: {rec['wavefronts']:.2f} (conflict-free "
+                    f"{rec['wavefronts_free']:.2f})")
             check(rec["launches"] > 0, f"{key}: no launch on its path")
             check("registers" in ptxas, f"{key}: no ptxas line")
             check(ms >= bound, f"{key}: {ms:.4f} ms is below its bound "
                   f"{bound:.4f} ms: the loop was folded away")
+        say(f"  {h.unit}: sum of launches x (ms - bound) {gaps:.1f}")
+    t_all = time.perf_counter() - t_phase
+    say(f"  phase 19 took {t_all:.1f} s (checks {t_checks:.1f}, timing "
+        f"{t_timed:.1f}, records {t_all - t_checks - t_timed:.1f})")
 
 
 # ---------------------------------------------------------------------------
@@ -4943,10 +4995,9 @@ def main():
     units = {"Ops": "micro_ops", "Expand": "micro_expand", "V8": "micro_v8"}
     micro_ptx = {(units[u], k): v for (u, k), v in ptxas_info(
         ptxas_micro, r"(Ops|Expand|V8)ELi(\d+)E").items()}
-    for (unit, kid), info in sorted(micro_ptx.items()):
-        say(f"  ptxas (micro): {unit} probe {kid}: {info.get('registers')} "
-            f"registers, {info.get('stack')} B stack frame (local memory), "
-            f"spill {info.get('spill_st')} / {info.get('spill_ld')} B")
+    check_micro_ptxas(micro_ptx)
+    check_sass(_build.ensure("micro_cuda"), "loop-probe",
+               {"probe_kernel": 33, "loop_kernel": 12})
 
     errs = {name: 0.0 for name, _, _ in VARIANTS}
     phase_kernel_check(pt, tr, sphere_mesh, errs)

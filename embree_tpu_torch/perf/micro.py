@@ -62,12 +62,10 @@ class Cost(NamedTuple):
     smem_bytes: float = 0
 
 
-# shared-memory bytes of two exchanges in a block of 128 threads, one a
-# lane: a word one thread holds, read by the other 127 (4 + 127 * 4); and
-# the lane minimum of one row to every thread: the 4 warps' minima written
-# (16 bytes), one thread reads the other 3 (12) and writes their minimum
-# (4), the other 127 read it (508), with 3 mins
-BCAST_BYTES = 512
+# shared-memory bytes of the lane minimum of one row to every thread of a
+# block of 128, one a lane: the 4 warps' minima written (16 bytes), one
+# thread reads the other 3 (12) and writes their minimum (4), the other 127
+# read it (508), with 3 mins
 ROW_MIN_BYTES = 540
 
 
@@ -235,6 +233,29 @@ def launch(h: Harness, p: Probe, x: torch.Tensor, iters: int) -> torch.Tensor:
     return out
 
 
+def twin(h: Harness, p: Probe, x: torch.Tensor, iters: int,
+         aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run probe ``p``'s kernel code compiled for the host (the g++ twin,
+    ``csrc/micro_cpu.cpp``; ``micro_ops`` and ``micro_v8`` only) for
+    ``iters`` iterations on a CPU x; returns the carried tile. ``aux``, an
+    int32 CPU tensor of one word a thread of the probe's block, receives
+    each thread's copy of acc[0, 0] (the dynamic slices)."""
+    if x.dtype != I32 or tuple(x.shape) != (h.rows_in, LANE):
+        raise ValueError(f"{h.unit}: x must be ({h.rows_in}, {LANE}) int32")
+    if x.device.type != "cpu":
+        raise ValueError(f"{h.unit}: the twin takes CPU tensors only")
+    x = x.contiguous()
+    out = torch.empty((h.rows_acc, LANE), dtype=I32)
+    entry = load("micro_twin", f"{h.unit}_twin", _ARGS[:5] + (
+        ctypes.c_void_p,))
+    err = entry(p.kid, ctypes.c_void_p(x.data_ptr()), h.rows_in,
+                ctypes.c_void_p(out.data_ptr()), iters,
+                ctypes.c_void_p(None if aux is None else aux.data_ptr()))
+    if err != 0:
+        raise RuntimeError(f"{h.unit} twin {p.kid} ({p.name}) refused")
+    return out
+
+
 def run(h: Harness, probes, name: str, x: Optional[torch.Tensor] = None,
         iters: Optional[int] = None, device=None) -> torch.Tensor:
     """The carried tile after ``iters`` (default: the harness's ITERS)
@@ -278,6 +299,21 @@ ALU_PER_CLK = 64
 INT_PER_CLK = 128
 FP32_PER_CLK = 128
 SMEM_BYTES_PER_CLK = 128
+
+
+def measured_sm_clock_hz(cycles: int = 200_000_000) -> float:
+    """The SM clock as the card runs it, in Hz: ``cycles`` clock64() cycles
+    of one spinning thread over the global timer's ns, the timer CUDA
+    events read (``micro_sm_clock`` in ``csrc/micro_ops.cu``)."""
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    entry = load("micro_cuda", "micro_sm_clock",
+                 (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p))
+    err = entry(ctypes.c_void_p(out.data_ptr()), cycles, ctypes.c_void_p(
+        torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"micro_sm_clock launch failed: CUDA error {err}")
+    counted, ns = out.tolist()
+    return counted / ns * 1e9
 
 
 def bound_ms(cost: Cost, iters: int, sm_clock_hz: float) -> Tuple[float, str]:

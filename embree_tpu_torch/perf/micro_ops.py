@@ -25,7 +25,7 @@ import sys
 import torch
 
 from . import micro
-from .micro import (BCAST_BYTES, ROW_MIN_BYTES, Cost, Harness, Probe, add,
+from .micro import (ROW_MIN_BYTES, Cost, Harness, Probe, add,
                     bcast_row, f2i, lane_gather, row_gather)
 
 ITERS = 20000
@@ -120,16 +120,20 @@ PROBES = (
     Probe("sublane gather (32,128) ax0 (8 idx rows)", sub32, 6,
           Cost(2 * E, alu_ops=E, smem_bytes=4 * E)),
     Probe("pltpu.roll sublane", roll, 7, Cost(E)),
-    # acc[0, 0] to every thread, then x's rows through L1
+    # acc[0, 0] evolves on its own: each thread carries a copy (its start,
+    # its add) and reads its word of x; the slice's rows staged in shared
+    # memory
     Probe("scalar-extract + dyn-slice (32,128) load", dynslice, 8,
-          Cost(E, smem_bytes=4 * E + BCAST_BYTES)),
-    # 7 mins a lane over its 8 rows, 3 over the warps' minima, an add an
-    # element
+          Cost(E + 2 * 128, alu_ops=128, smem_bytes=4 * E + 4 * 128)),
+    # 7 mins a lane over its 8 rows, a warp reduction (not counted), 3
+    # mins over the four warps' minima, an add an element
     Probe("scalar min-reduction (8,128)", scalar_min, 9,
           Cost(7 * 128 + 3 + E, alu_ops=7 * 128 + 3,
                smem_bytes=ROW_MIN_BYTES)),
+    # a row in one warp: 3 mins over each thread's 4 lanes (96 a row), a
+    # warp reduction, an add an element; nothing crosses warps
     Probe("row min-reduction (8,128)->(8,1)", row_min, 10,
-          Cost(E + 8 * 3, alu_ops=8 * 3, smem_bytes=8 * ROW_MIN_BYTES)),
+          Cost(E + 8 * 96, alu_ops=8 * 96)),
     # the compare and an add under it
     Probe("select (8,128)", select, 11, Cost(2 * E, alu_ops=E)),
     # 10 x (mul, add) in fp32; the conversions are not counted

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 from . import micro
@@ -198,9 +199,10 @@ def merge72_cost(x, iters: int) -> Cost:
     """merge72's least work per iteration, averaged over ``iters``
     iterations on x. The merge's mask ``acc[0] & 1`` is one bit a lane, the
     same for all the rows a thread holds, so one branch a thread picks the
-    gathered rows or ``x[72:144]`` (registers): the 72-row gather is needed
-    only where the lane's bit is set. Row 0 evolves on its own (``acc[0] +
-    (g[0] if m else x[72])``), so its loop alone counts those lanes."""
+    gathered rows or ``x[72:144]`` (registers): the 72-row gather (72 words,
+    rows r and r + 72 of the tile add one word) is needed only where the
+    lane's bit is set. Row 0 evolves on its own (``acc[0] + (g[0] if m else
+    x[72])``), so its loop alone counts those lanes."""
     x = x.cpu()
     a = x[0].clone()
     lanes = 0
@@ -208,18 +210,22 @@ def merge72_cost(x, iters: int) -> Cost:
         m = (a & 1) > 0
         lanes += int(m.sum())
         a = add(a, torch.where(m, x[0].gather(0, (a & 127).long()), x[72]))
-    # a lane's 128 gathered words, row 0 to the lane's other threads, the
-    # index and the branch once a thread, an add an element
-    return Cost(E + 2 * 1024, alu_ops=2 * 1024,
-                smem_bytes=lanes / max(iters, 1) * 4 * ROWS + _ROW0)
+    # the index and the bit once a thread (128 threads, a lane's 128 rows
+    # each), an add an element
+    return Cost(E + 2 * LANE, alu_ops=2 * LANE,
+                smem_bytes=lanes / max(iters, 1) * 4 * 72)
 
 
 # micro_v8.py:52-204; least work per iteration (micro.Cost): 16,384
-# elements; a 72-row gather reads 4 bytes an element; row 0 of a lane is
-# held by its group-0 thread and read by the lane's other 7 threads ((1 +
-# 7) x 4 bytes x 128 lanes); acc[0, 0] by thread 0, read by the other 1023
-_ROW0 = 4 * 8 * 128
-_SCALAR = 4 * 1024
+# elements. Where rows 0-15 of a lane feed its other rows (the expand, the
+# 72-row gathers' index row, the compact state), one thread holds the
+# lane's 128 rows, so nothing is exchanged; a 72-row gather reads 72 words
+# a lane (tile rows r and r + 72 add the same word), its index (and a
+# dynamic slice's start) once a thread. acc[0, 0], a dynamic slice's start,
+# evolves on its own: each of the 128 threads carries it (its start, its
+# index, its add) and reads its word of x (4 bytes).
+_GATHER72 = 4 * 72 * LANE
+_SLICE0 = 4 * LANE
 # a sort of 8 keys: 19 compare-exchanges at the least (the six bitonic
 # stages take 24), a min and a max each
 _SORT8 = 19 * 2 * E // 8
@@ -245,29 +251,32 @@ PROBES = (
     # acc plus both: 11 adds per 8 elements
     Probe("block-sum butterfly 3x(2roll+sel+add) (128,128)", butterfly, 6,
           Cost(11 * E // 8)),
-    # rows 2-15, each written by group 0 and read by the one group that
-    # needs it (rows 0-1 are group 0's own)
+    # rows 0-15 are the lane's thread's own: an add an element
     Probe("expand (16,128)->(128,128) block-broadcast", expand16, 7,
-          Cost(E, smem_bytes=2 * 14 * 4 * 128)),
+          Cost(E)),
     Probe("block-reduce (128,128)->(16,128) + re-expand", reduce_rows, 8,
           Cost(11 * E // 8)),
-    # the index once a thread (and the slice's start), an add an element
+    # the index once a thread, an add an element
     Probe("lane gather (72,128) broadcast idx", gather72, 9,
-          Cost(E + 1024, alu_ops=1024, smem_bytes=4 * E + _ROW0)),
+          Cost(E + LANE, alu_ops=LANE, smem_bytes=_GATHER72)),
+    # the slice's 72 (32) rows gathered; acc[0, 0]'s copy: its start
+    # (& 3 or & 7), its index, its add
     Probe("dynslice (72,128) + lane gather", dynslice72, 10,
-          Cost(E + 2048, alu_ops=2048, smem_bytes=4 * E + _ROW0 + _SCALAR)),
+          Cost(E + 4 * LANE, alu_ops=3 * LANE,
+               smem_bytes=_GATHER72 + _SLICE0)),
     Probe("dynslice (32,128) + lane gather", dynslice32, 11,
-          Cost(E + 2048, alu_ops=2048, smem_bytes=4 * E + _ROW0 + _SCALAR)),
+          Cost(E + 4 * LANE, alu_ops=3 * LANE,
+               smem_bytes=4 * 32 * LANE + _SLICE0)),
     Probe("gather72 + select72 merge", merge72, 12, merge72_cost),
-    # rows 0-7 of each lane to its other threads, 8 indices a thread
+    # rows 0-7 are the thread's own: 8 indices a thread, 72 words gathered
+    # a lane
     Probe("9x lane gather (8,128) [v7 style]", gather8x9, 13,
-          Cost(E + 8 * 1024, alu_ops=8 * 1024,
-               smem_bytes=4 * E + 8 * _ROW0)),
-    # the (16,128) state: compare, select, IMAD, shift, add (2,048
-    # elements), each row written by group 0 and read by the lane's other
-    # 7 threads ((1 + 7) x 16 words a lane); an add an element
+          Cost(E + 8 * LANE, alu_ops=8 * LANE, smem_bytes=_GATHER72)),
+    # the (16,128) state on the thread's own rows 0-15: compare, select of
+    # +3 or -3, IMAD (3c +- 3), shift (2,048 elements); then each tile row
+    # plus both, one three-input add an element
     Probe("compact (16,128) 5-op chain + concat x8", compact, 14,
-          Cost(5 * 2048 + E, alu_ops=2 * 2048, smem_bytes=4 * E)),
+          Cost(4 * 2048 + E, alu_ops=3 * 2048)),
     # each 8-row block sorted ascending (any sorting network does), the add
     Probe("tile-parallel bitonic6 gather-form key-only (128,128)",
           bitonic_gather, 15, Cost(_SORT8 + E, alu_ops=_SORT8)),
@@ -281,6 +290,81 @@ PROBES = (
     Probe("per-group bitonic6 x16 key+ref (8,128) [v7 style]",
           bitonic_group, 18, Cost(_SORT8 + 2 * E, alu_ops=_SORT8 + E)),
 )
+
+
+# the five probes that gather x's rows in shared memory at a lane index
+# (csrc/micro_v8.cu): row-major x, one 4-byte read a row, except the
+# merge's transposed x[0:144] (76 words an index, 16-byte reads)
+GATHERS = ("lane gather (72,128) broadcast idx",
+           "dynslice (72,128) + lane gather",
+           "dynslice (32,128) + lane gather",
+           "gather72 + select72 merge",
+           "9x lane gather (8,128) [v7 style]")
+
+
+def _busiest(ids, group: int, bank):
+    """Wavefronts of reads at ids (reads, 128 lanes; an id names one
+    word, or 16 bytes, with bank ``bank[id]``, as many ids in each bank),
+    taken ``group`` lanes at a time: per read and group, the most distinct
+    ids in one bank, summed."""
+    by_bank = np.argsort(bank, kind="stable")
+    banks = int(bank.max()) + 1
+    groups = np.broadcast_to(np.arange(LANE) // group, (4096, LANE))
+    total = 0
+    for c in range(0, ids.shape[0], 4096):
+        chunk = ids[c:c + 4096]
+        n = chunk.shape[0]
+        seen = np.zeros((n, LANE // group, len(bank)), dtype=np.uint8)
+        seen[np.arange(n)[:, None], groups[:n], chunk] = 1
+        per_bank = seen[:, :, by_bank].reshape(n, LANE // group, banks, -1)
+        total += int(per_bank.sum(3, dtype=np.int32).max(2).sum())
+    return total
+
+
+def gather_wavefronts(name, x, iters: int):
+    """Shared-memory wavefronts per iteration of gather probe ``name``'s
+    kernel on x, averaged over ``iters`` iterations, and the count if no
+    read met a bank conflict: (wavefronts, conflict_free). The indices come
+    from the rows the probe's reads depend on (rows 0-7 of the tile, which
+    evolve on their own). A warp's 4-byte read takes one wavefront per
+    distinct word in its busiest of 32 banks (words at one address are
+    broadcast); the merge's 16-byte reads (72 rows at a lane's index in
+    x[0:72] where its bit is set, its own lane of x[72:144] elsewhere, both
+    staged transposed, 76 words a lane) are taken a quarter warp at a time,
+    one wavefront per distinct 16 bytes in the busiest of 8 bank quads. The
+    dynamic slices' copy of acc[0, 0] adds one broadcast read a warp."""
+    xs = x.cpu().numpy().astype(np.int64)
+    a = xs[0:8].copy()
+    lane = np.arange(LANE)
+    rows = []
+    for _ in range(iters):
+        idx = a & 127
+        if name == GATHERS[3]:
+            m = (a[0] & 1) > 0
+            rows.append(np.where(m, idx[0], LANE + lane))
+            a[0] = a[0] + np.where(m, xs[0, idx[0]], xs[72])
+        elif name == GATHERS[4]:
+            rows.append(idx)
+            a = a + xs[np.arange(8)[:, None], idx]
+        else:
+            span, mask = {GATHERS[0]: (72, 0), GATHERS[1]: (72, 3),
+                          GATHERS[2]: (32, 7)}[name]
+            start = span * (int(a[0, 0]) & mask)
+            rows.append(idx[0])
+            a[0] = a[0] + xs[start, idx[0]]
+        a = (a + 2 ** 31) % 2 ** 32 - 2 ** 31
+    if iters == 0:
+        return 0.0, 0.0
+    if name == GATHERS[3]:
+        # 16-byte chunk 19 i + q of row block q (i < 256): quad (19 i + q)
+        # % 8, the same spread for every q; 18 reads, 16 quarter warps
+        wf = _busiest(np.stack(rows), 8, (19 * np.arange(2 * LANE)) % 8)
+        return 18 * wf / iters, 18.0 * 16
+    per_read, z_reads = {GATHERS[0]: (72, 0), GATHERS[1]: (72, 4),
+                         GATHERS[2]: (32, 4), GATHERS[4]: (9, 0)}[name]
+    wf = _busiest(np.stack(rows).reshape(-1, LANE), 32, np.arange(LANE) % 32)
+    free = per_read * 4 * (8 if name == GATHERS[4] else 1) + z_reads
+    return (per_read * wf + z_reads * iters) / iters, float(free)
 
 
 def run(name, x=None, iters=None, device=None) -> torch.Tensor:
