@@ -20,8 +20,10 @@ Hopper traversal kernel against its plain PyTorch version:
    writes it (perf/sass_hazards.py: fault C.2, a pop that read the next
    record before its shared-memory load landed); the ablation library
    holds v7's 11 and v5's 7 instantiations, and the loop-probe library
-   micro_ops' 14, micro_expand's 12 and micro_v8's 19, each with no local
-   memory and no such hazard either;
+   micro_ops' 14, micro_expand's 12 and its row-min form of the masked
+   min, and micro_v8's 19, every one a probe_kernel (micro.cuh's block; no function of the first design's
+   loop_kernel is left), each with no local memory and no such hazard
+   either;
 3. kernel vs plain version on the 16K-triangle sphere with 1M incoherent
    rays (and on a masked copy of it): every variant, 65,536 of the rays,
    everything bit-equal, no stack overflow, and the 1M-ray launch's
@@ -130,9 +132,13 @@ Hopper traversal kernel against its plain PyTorch version:
 19. the loop probes (perf/micro_ops.py, perf/micro_expand.py,
    perf/micro_v8.py) at the harnesses' size: 14, 12 and 19 probes, each
    one CUDA block carrying an (8,128), (8,128) or (128,128) int32 tile over
-   x of (512,128), (128,128) and (512,128); every kernel bit-equal to its
-   plain version on the harnesses' x and on x with distinct rows at 64 and
-   67 iterations (and the (8,128) probes at 1,000), then each timed through
+   x of (512,128), (128,128) and (512,128), all three units written
+   against csrc/micro.cuh's block, each probe in the layout its least-work
+   Cost names; every kernel bit-equal to its plain version on the
+   harnesses' x and on x with distinct rows at 64 and 67 iterations (and
+   the (8,128) probes at 1,000), micro_expand's masked mins and selects
+   also on x whose words cross the probe's threshold within 64 iterations
+   (perf/micro_expand.py::edge_x) at 64 and 67, then each timed through
    its entry point at the harness's ITERS (20,000, 3,000, 20,000) on the
    harness's x: ms, ns/iter and ns/iter over the harness's base probe,
    launches, the per-SM bound, the least work over implementations (a
@@ -141,8 +147,11 @@ Hopper traversal kernel against its plain PyTorch version:
    registers and stack frame (any local memory in a probe instantiation
    fails the run, as does a dependency-barrier hazard in the library's
    SASS, phase 2), the plain version's time at 64 iterations, and for
-   micro_v8's five lane gathers the shared-memory wavefronts the harness's
-   x gives against a conflict-free count;
+   micro_v8's five lane gathers and micro_expand's two 72-row gathers the
+   shared-memory wavefronts the harness's x gives against a conflict-free
+   count; micro_expand's row-min form of the masked min (a lane reduction
+   every iteration) is checked and timed with them, outside the sum of
+   launches x (ms - bound);
 20. the builders on the card (the default route sends every scene under
    50,000 prims through the SAH builder, as the JAX package does):
    sphere_mesh(128, 192), 49,152 triangles, committed at MEDIUM and LOW
@@ -2104,10 +2113,10 @@ def check_ablate_ptxas(ptx):
 
 
 def check_micro_ptxas(ptx):
-    """The loop-probe library holds micro_ops' 14, micro_expand's 12 and
-    micro_v8's 19 instantiations; none uses local memory (a stack frame or
-    spills)."""
-    for unit, n in (("micro_ops", 14), ("micro_expand", 12),
+    """The loop-probe library holds micro_ops' 14, micro_expand's 13 (its
+    12 probes and the masked min's row-min form) and micro_v8's 19
+    instantiations; none uses local memory (a stack frame or spills)."""
+    for unit, n in (("micro_ops", 14), ("micro_expand", 13),
                     ("micro_v8", 19)):
         check(sum(u == unit for u, _ in ptx) == n,
               f"not {n} {unit} instantiations")
@@ -2458,8 +2467,15 @@ def phase_micro(record, ptx):
               "distinct": micro.distinct_x(h, DEV)}
         counts = MICRO_CHECK_ITERS + (
             (MICRO_LONG_ITERS,) if h.rows_acc == 8 else ())
-        for p in mod.PROBES:
-            for tag, x in xs.items():
+        crossings = getattr(mod, "CROSSINGS", {})
+        for p in mod.PROBES + getattr(mod, "FORMS", ()):
+            inputs = {tag: (x, counts) for tag, x in xs.items()}
+            if p.name in crossings:
+                # words crossing the threshold within the first count
+                inputs["edge"] = (mod.edge_x(crossings[p.name],
+                                             MICRO_CHECK_ITERS[0], 3, DEV),
+                                  MICRO_CHECK_ITERS)
+            for tag, (x, n) in inputs.items():
                 # one plain loop to the longest count, its tile kept at
                 # each count (the shorter runs are its prefixes), timed to
                 # MICRO_PLAIN_ITERS
@@ -2468,22 +2484,26 @@ def phase_micro(record, ptx):
                 want = {}
                 acc = x[0:h.rows_acc].clone()
                 e0.record()
-                for it in range(1, max(counts) + 1):
+                for it in range(1, max(n) + 1):
                     acc = p.body(acc, it - 1, x)
                     if it == MICRO_PLAIN_ITERS:
                         e1.record()
-                    if it in counts:
+                    if it in n:
                         want[it] = acc
                 torch.cuda.synchronize()
                 if tag == "harness":
                     plain_ms[(h.unit, p.name)] = e0.elapsed_time(e1)
-                for iters in counts:
+                for iters in n:
                     k = micro.launch(h, p, x, iters)
                     check(torch.equal(k, want[iters]), f"{h.unit}:{p.name}: "
                           f"kernel != plain on the {tag} x at {iters} "
                           f"iterations")
-        say(f"  {h.unit}: {len(mod.PROBES)} kernels == plain (int32 bits) "
-            f"on both inputs at {', '.join(map(str, counts))} iterations")
+        forms = len(getattr(mod, "FORMS", ()))
+        say(f"  {h.unit}: {len(mod.PROBES)} kernels"
+            f"{f' and {forms} other forms' if forms else ''} == plain (int32 "
+            f"bits) on both inputs at {', '.join(map(str, counts))} "
+            f"iterations{', and on edge_x at ' if crossings else ''}"
+            f"{', '.join(map(str, MICRO_CHECK_ITERS)) if crossings else ''}")
 
     t_checks = time.perf_counter() - t_phase
 
@@ -2498,7 +2518,7 @@ def phase_micro(record, ptx):
     for mod in mods:
         h = mod.HARNESS
         x = micro.harness_x(h, DEV)
-        for p in mod.PROBES:
+        for p in mod.PROBES + getattr(mod, "FORMS", ()):
             before = micro.measured_sm_clock_hz(MICRO_CLOCK_CYCLES)
             timed[(h.unit, p.name)], _ = device.time_call(
                 lambda: mod.run(p.name, x, h.iters))
@@ -2515,7 +2535,7 @@ def phase_micro(record, ptx):
         x = micro.harness_x(h, DEV)
         base_ns = timed[(h.unit, mod.PROBES[0].name)] * 1e6 / h.iters
         gaps = 0.0
-        for p in mod.PROBES:
+        for p in mod.PROBES + getattr(mod, "FORMS", ()):
             key = f"{h.unit}:{p.name}"
             ms = timed[(h.unit, p.name)]
             ns = ms * 1e6 / h.iters
@@ -2535,7 +2555,8 @@ def phase_micro(record, ptx):
                 rec["wavefronts"], rec["wavefronts_free"] = (
                     mod.gather_wavefronts(p.name, x, h.iters))
             record.setdefault("micro", {})[key] = rec
-            gaps += rec["launches"] * (ms - bound)
+            if p in mod.PROBES:
+                gaps += rec["launches"] * (ms - bound)
             say(f"  {key}: {ms:.4f} ms, {ns:.2f} ns/iter (+{ns - base_ns:.2f}"
                 f" over base), bound {bound:.4f} ms ({by}), "
                 f"{100 * bound / ms:.1f}% of it, "
@@ -2551,7 +2572,8 @@ def phase_micro(record, ptx):
             check("registers" in ptxas, f"{key}: no ptxas line")
             check(ms >= bound, f"{key}: {ms:.4f} ms is below its bound "
                   f"{bound:.4f} ms: the loop was folded away")
-        say(f"  {h.unit}: sum of launches x (ms - bound) {gaps:.1f}")
+        say(f"  {h.unit}: sum of launches x (ms - bound) over its probes "
+            f"{gaps:.1f}")
     t_all = time.perf_counter() - t_phase
     say(f"  phase 19 took {t_all:.1f} s (checks {t_checks:.1f}, timing "
         f"{t_timed:.1f}, records {t_all - t_checks - t_timed:.1f})")
@@ -4997,7 +5019,7 @@ def main():
         ptxas_micro, r"(Ops|Expand|V8)ELi(\d+)E").items()}
     check_micro_ptxas(micro_ptx)
     check_sass(_build.ensure("micro_cuda"), "loop-probe",
-               {"probe_kernel": 33, "loop_kernel": 12})
+               {"probe_kernel": 46, "loop_kernel": 0})
 
     errs = {name: 0.0 for name, _, _ in VARIANTS}
     phase_kernel_check(pt, tr, sphere_mesh, errs)

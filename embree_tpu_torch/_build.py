@@ -20,9 +20,8 @@ Shared libraries, each with a plain C interface loaded through ctypes:
 - ``micro_cuda``: the three loop-probe kernels of ``perf/``
   (``csrc/micro_ops.cu``, ``csrc/micro_expand.cu``, ``csrc/micro_v8.cu``
   over ``csrc/micro.cuh``, compiled in parallel and linked into one
-  library), and ``micro_twin``, the probes of ``micro_ops`` and
-  ``micro_v8`` compiled for the host for the tests
-  (``csrc/micro_cpu.cpp``).
+  library), and ``micro_twin``, the probes of all three compiled for the
+  host for the tests (``csrc/micro_cpu.cpp``).
 
 Every library goes into one build directory inside the package (``_build/``,
 listed in ``.gitignore``) and is rebuilt when it is missing or older than one
@@ -127,7 +126,8 @@ def _targets() -> Dict[str, Target]:
         "micro_twin": Target(
             "libmicro_twin.so", (os.path.join(CSRC, "micro_cpu.cpp"),),
             tuple(os.path.join(CSRC, f) for f in
-                  ("micro.cuh", "micro_ops.cu", "micro_v8.cu")),
+                  ("micro.cuh", "micro_ops.cu", "micro_expand.cu",
+                   "micro_v8.cu")),
             ("g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
              "-fPIC")),
     }

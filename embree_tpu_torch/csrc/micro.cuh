@@ -16,37 +16,37 @@
 // bandwidth (128 bytes, one wavefront, a clock), and, where a probe's tile
 // is small, the latency of the chain that one iteration carries.
 //
-// micro_v8 and micro_ops (probe_kernel) give each probe the layout in which
-// its least-work implementation (its Cost) needs the fewest exchanges: a
-// thread holds lane columns of whole 8-row blocks, as many rows as the
-// probe's data flow wants (the (128,128) tile in 128 threads of 128 rows
-// where rows 0-15 feed every row, in 128-512 threads, the fastest measured,
-// where 8-row blocks stand alone), or whole rows in a warp (micro_ops' row
-// minimum). A value that
-// evolves on its own (acc[0,0] of a dynamic slice) is carried by every
-// thread that needs it, tables of x are built in shared memory before the
-// loop. Each probe is written once, against a block `B` (Dev: one CUDA
-// thread; Host: every thread of the block in turn, for the g++ twin in
-// micro_cpu.cpp), as per-thread passes (B::each) between barriers
+// Each probe runs in the layout in which its least-work implementation (its
+// Cost) needs the fewest exchanges: a thread holds lane columns of whole
+// 8-row blocks, as many rows as the probe's data flow wants (the (128,128)
+// tile in 128 threads of 128 rows where rows 0-15 feed every row, in
+// 128-512 threads, the fastest measured, where 8-row blocks stand alone),
+// or part of a row (a row in a warp or a half warp: the row minima). A
+// value that evolves on its own (acc[0,0] of a dynamic slice, a row's
+// least word with x + it > 0) is carried by every thread that needs
+// it; x, or a table of x, is held in registers or staged in shared memory
+// before the loop. Each probe is written once, against a block `B` (Dev:
+// one CUDA thread; Host: every thread of the block in turn, for the g++
+// twin in micro_cpu.cpp), as per-thread passes (B::each) between barriers
 // (B::sync) and warp reductions (B::warp_min).
 //
 // The loop (loop()): `iters` is a runtime argument, and keep() pins each
 // carried value at the end of every iteration, so no iteration is folded
 // into another. Most probes run one trip an iteration (#pragma unroll 1):
 // an unrolled loop let ptxas fold four iterations of acc + 1 into acc + 4,
-// since keep() is an empty asm that ptxas does not see; where a probe's
-// body cannot fold (a gather, a compare against `it`), the trip loop is
-// unrolled by kUnroll with keep() between iterations and a remainder loop,
-// which takes the counter and branch (that the bound does not count) off
-// most iterations. A probe that carries less than the tile (the XOR-4 pair
-// sums) peels its first iteration (kPeel).
+// and merge the adds of acc + m (m not from acc) in pairs, since keep() is
+// an empty asm that ptxas does not see; where a probe's body cannot fold
+// (a gather, a compare against `it`, a select), the trip loop is unrolled
+// by kUnroll with keep() between iterations and a remainder loop, which
+// takes the counter and branch (that the bound does not count) off most
+// iterations. A probe that carries less than the tile (the XOR-4 pair
+// sums) peels its first iteration (kPeel); one whose operand moves only at
+// some iterations may run the loop itself (kOwnLoop: micro_expand's masked
+// min and select, in stretches between the iterations at which a word's
+// x + it crosses the probe's threshold).
 //
 // probe_kernel asks for one block an SM (__launch_bounds__(threads, 1)):
 // without it ptxas capped 512-thread probes at 40 registers and spilled.
-//
-// micro_expand keeps its first design (loop_kernel below): a thread per lane
-// column of the (8,128) tile, shared memory and a barrier for what another
-// thread holds.
 //
 // int32 arithmetic wraps, as XLA's does: +, - and * are computed in
 // uint32_t (signed overflow is undefined in C++). float -> int32 is
@@ -254,11 +254,12 @@ struct Host {
 // ---------------------------------------------------------------------------
 
 // What a probe leaves to the defaults: no shared memory, no peeled first
-// iteration, one trip an iteration.
+// iteration, one trip an iteration, the trips run by loop().
 struct ProbeBase {
   static constexpr int kSmemWords = 0;
   static constexpr bool kPeel = false;
   static constexpr int kUnroll = 1;
+  static constexpr bool kOwnLoop = false;
 
   template <class B, class S>
   MICRO_HD static void store_aux(const B&, S*, int32_t*) {}
@@ -271,31 +272,36 @@ MICRO_HD void keep_state(const B& b, S* s) {
 
 // `iters` iterations of probe Pr on the state s (its smem words staged by
 // init): the first peeled where Pr::kPeel, then Pr::kUnroll iterations a
-// trip (keep() after each), then the remainder one a trip.
+// trip (keep() after each), then the remainder one a trip. A probe may run
+// the iterations itself (Pr::kOwnLoop: Pr::run), keep() after each.
 template <class Pr, class B, class S>
 MICRO_HD void loop(const B& b, S* s, int iters, int32_t* smem) {
-  int it = 0;
-  if constexpr (Pr::kPeel) {
-    if (iters > 0) {
-      Pr::first(b, s, smem);
-      keep_state<Pr>(b, s);
-      it = 1;
-    }
-  }
-  if constexpr (Pr::kUnroll > 1) {
-#pragma unroll 1
-    for (; it + Pr::kUnroll <= iters; it += Pr::kUnroll) {
-#pragma unroll
-      for (int u = 0; u < Pr::kUnroll; ++u) {
-        Pr::step(b, s, it + u, smem);
+  if constexpr (Pr::kOwnLoop) {
+    Pr::run(b, s, iters, smem);
+  } else {
+    int it = 0;
+    if constexpr (Pr::kPeel) {
+      if (iters > 0) {
+        Pr::first(b, s, smem);
         keep_state<Pr>(b, s);
+        it = 1;
       }
     }
-  }
+    if constexpr (Pr::kUnroll > 1) {
 #pragma unroll 1
-  for (; it < iters; ++it) {
-    Pr::step(b, s, it, smem);
-    keep_state<Pr>(b, s);
+      for (; it + Pr::kUnroll <= iters; it += Pr::kUnroll) {
+#pragma unroll
+        for (int u = 0; u < Pr::kUnroll; ++u) {
+          Pr::step(b, s, it + u, smem);
+          keep_state<Pr>(b, s);
+        }
+      }
+    }
+#pragma unroll 1
+    for (; it < iters; ++it) {
+      Pr::step(b, s, it, smem);
+      keep_state<Pr>(b, s);
+    }
   }
 }
 
@@ -309,9 +315,8 @@ MICRO_HD void stage_rows(const B& b, const int32_t* x, int32_t* xs, int n) {
 }
 
 #ifdef __CUDACC__
-// The loop of every probe of micro_ops and micro_v8: Unit::Probe<P> gives
-// the block (kBlock threads), the state a thread carries, its shared words
-// and its passes.
+// The loop of every probe: Unit::Probe<P> gives the block (kBlock threads),
+// the state a thread carries, its shared words and its passes.
 template <class Unit, int P>
 __global__ void __launch_bounds__(Unit::template Probe<P>::kBlock, 1)
     probe_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
@@ -369,98 +374,6 @@ int run_unit(int probe, const int32_t* x, int rows, int32_t* out, int iters,
       std::make_integer_sequence<int, Unit::kProbes>{}));
 }
 
-// ---------------------------------------------------------------------------
-// the first design's loop, which micro_expand still runs
-// ---------------------------------------------------------------------------
-
-// Copy the first n words of x into shared memory, then a barrier.
-__device__ __forceinline__ void stage(const int32_t* __restrict__ x,
-                                      int32_t* xs, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = x[i];
-  __syncthreads();
-}
-
-// Minimum along the 128 lanes of each of the R rows a thread holds, for a
-// block whose threads 0-127 hold the lanes (four warps): red holds 4 x R
-// words and alternates between iterations.
-template <int R>
-__device__ __forceinline__ void lane_min(const int32_t (&v)[R],
-                                         int32_t (&m)[R], int32_t* red) {
-  const int w = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int32_t s = __reduce_min_sync(0xffffffffu, v[r]);
-    if ((threadIdx.x & 31) == 0) red[r * 4 + w] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = min(min(red[r * 4], red[r * 4 + 1]),
-               min(red[r * 4 + 2], red[r * 4 + 3]));
-  }
-}
-
-// Unit (one per harness) gives the tile: kBlock threads, kRows rows a
-// thread (thread t holds lane t & 127 of rows kRows * (t >> 7) on), x of
-// kRowsIn rows; the rows of x probe P reads from shared memory
-// (staged_rows); the scratch words an iteration uses (kScratchWords, in two
-// halves that alternate between iterations, so one barrier an iteration
-// suffices); and the probe's body, step<P>(a, it, x, staged x, scratch),
-// which replaces a with the next iteration's tile.
-template <class Unit, int P>
-__global__ void __launch_bounds__(Unit::kBlock)
-    loop_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                int iters) {
-  constexpr int kRows = Unit::kRows;
-  constexpr int kStaged = Unit::staged_rows(P) * kLane;
-  extern __shared__ int32_t smem[];
-  const int l = threadIdx.x & (kLane - 1);
-  const int row0 = kRows * (threadIdx.x >> 7);
-  if constexpr (kStaged > 0) stage(x, smem, kStaged);
-  int32_t a[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) a[i] = x[(row0 + i) * kLane + l];
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    Unit::template step<P>(a, it, x, smem,
-                           smem + kStaged + (it & 1) * Unit::kScratchWords);
-    keep_all(a);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) out[(row0 + i) * kLane + l] = a[i];
-}
-
-template <class Unit, int P>
-cudaError_t launch_loop(const int32_t* x, int32_t* out, int iters,
-                        cudaStream_t st) {
-  const size_t smem =
-      (Unit::staged_rows(P) * kLane + 2 * Unit::kScratchWords) *
-      sizeof(int32_t);
-  const cudaError_t e = allow_smem(loop_kernel<Unit, P>, smem);
-  if (e != cudaSuccess) return e;
-  loop_kernel<Unit, P><<<1, Unit::kBlock, smem, st>>>(x, out, iters);
-  return cudaGetLastError();
-}
-
-template <class Unit, int... P>
-cudaError_t dispatch(int probe, const int32_t* x, int32_t* out, int iters,
-                     cudaStream_t st, std::integer_sequence<int, P...>) {
-  cudaError_t e = cudaErrorInvalidValue;
-  ((probe == P ? (e = launch_loop<Unit, P>(x, out, iters, st), 0) : 0),
-   ...);
-  return e;
-}
-
-// run_unit for loop_kernel's units
-template <class Unit>
-int run_probe(int probe, const int32_t* x, int rows, int32_t* out,
-              int iters, void* stream) {
-  if (rows != Unit::kRowsIn || iters < 0 || x == nullptr || out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      dispatch<Unit>(probe, x, out, iters, static_cast<cudaStream_t>(stream),
-                     std::make_integer_sequence<int, Unit::kProbes>{}));
-}
 #else
 // The twin's entry for a unit: probe `probe` run over Host on x, the tile
 // written to out, and where aux is not null, the words a probe carries

@@ -236,10 +236,10 @@ def launch(h: Harness, p: Probe, x: torch.Tensor, iters: int) -> torch.Tensor:
 def twin(h: Harness, p: Probe, x: torch.Tensor, iters: int,
          aux: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run probe ``p``'s kernel code compiled for the host (the g++ twin,
-    ``csrc/micro_cpu.cpp``; ``micro_ops`` and ``micro_v8`` only) for
-    ``iters`` iterations on a CPU x; returns the carried tile. ``aux``, an
-    int32 CPU tensor of one word a thread of the probe's block, receives
-    each thread's copy of acc[0, 0] (the dynamic slices)."""
+    ``csrc/micro_cpu.cpp``) for ``iters`` iterations on a CPU x; returns
+    the carried tile. ``aux``, an int32 CPU tensor of one word a thread of
+    the probe's block, receives each thread's copy of acc[0, 0] (the
+    dynamic slices)."""
     if x.dtype != I32 or tuple(x.shape) != (h.rows_in, LANE):
         raise ValueError(f"{h.unit}: x must be ({h.rows_in}, {LANE}) int32")
     if x.device.type != "cpu":
@@ -290,6 +290,25 @@ def cost_of(p: Probe, x: torch.Tensor, iters: int) -> Cost:
     """Probe ``p``'s cost per iteration on this x over ``iters``
     iterations."""
     return p.cost if isinstance(p.cost, Cost) else p.cost(x, iters)
+
+
+def busiest(ids, group: int, bank):
+    """Wavefronts of reads at ids (reads, 128 lanes; an id names one
+    word, or 16 bytes, with bank ``bank[id]``, as many ids in each bank),
+    taken ``group`` lanes at a time: per read and group, the most distinct
+    ids in one bank, summed."""
+    by_bank = np.argsort(bank, kind="stable")
+    banks = int(bank.max()) + 1
+    groups = np.broadcast_to(np.arange(LANE) // group, (4096, LANE))
+    total = 0
+    for c in range(0, ids.shape[0], 4096):
+        chunk = ids[c:c + 4096]
+        n = chunk.shape[0]
+        seen = np.zeros((n, LANE // group, len(bank)), dtype=np.uint8)
+        seen[np.arange(n)[:, None], groups[:n], chunk] = 1
+        per_bank = seen[:, :, by_bank].reshape(n, LANE // group, banks, -1)
+        total += int(per_bank.sum(3, dtype=np.int32).max(2).sum())
+    return total
 
 
 # per SM and clock on an H100 (sm_90): 64 results of the integer ALU, 128

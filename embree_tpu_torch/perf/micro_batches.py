@@ -4,7 +4,8 @@ tree's: every probe of the three harnesses (``micro_ops``,
 through its entry point as phase 19 of ``chip_smoke.py`` times it
 (``device.time_call``: CUDA events around 5 calls queued behind a spin
 kernel, median of 5 windows), beside the bound this tree's ``Cost`` gives
-at the card's highest SM clock.
+at the card's highest SM clock; a unit's other forms (``FORMS``:
+micro_expand's row-min masked min) are timed after its probes.
 
 Run it from each tree's root in one call, A, B, B, A, to compare trees
 (unpack the other tree with ``git archive`` into ``_checkout/`` and copy
@@ -45,7 +46,7 @@ def time_unit(mod, clock: float):
     h = mod.HARNESS
     x = micro.harness_x(h, "cuda")
     out = []
-    for p in mod.PROBES:
+    for p in mod.PROBES + getattr(mod, "FORMS", ()):
         ms, _ = time_call(lambda: mod.run(p.name, x, h.iters))
         bound, by = micro.bound_ms(micro.cost_of(p, x, h.iters), h.iters,
                                    clock)

@@ -302,25 +302,6 @@ GATHERS = ("lane gather (72,128) broadcast idx",
            "9x lane gather (8,128) [v7 style]")
 
 
-def _busiest(ids, group: int, bank):
-    """Wavefronts of reads at ids (reads, 128 lanes; an id names one
-    word, or 16 bytes, with bank ``bank[id]``, as many ids in each bank),
-    taken ``group`` lanes at a time: per read and group, the most distinct
-    ids in one bank, summed."""
-    by_bank = np.argsort(bank, kind="stable")
-    banks = int(bank.max()) + 1
-    groups = np.broadcast_to(np.arange(LANE) // group, (4096, LANE))
-    total = 0
-    for c in range(0, ids.shape[0], 4096):
-        chunk = ids[c:c + 4096]
-        n = chunk.shape[0]
-        seen = np.zeros((n, LANE // group, len(bank)), dtype=np.uint8)
-        seen[np.arange(n)[:, None], groups[:n], chunk] = 1
-        per_bank = seen[:, :, by_bank].reshape(n, LANE // group, banks, -1)
-        total += int(per_bank.sum(3, dtype=np.int32).max(2).sum())
-    return total
-
-
 def gather_wavefronts(name, x, iters: int):
     """Shared-memory wavefronts per iteration of gather probe ``name``'s
     kernel on x, averaged over ``iters`` iterations, and the count if no
@@ -358,11 +339,13 @@ def gather_wavefronts(name, x, iters: int):
     if name == GATHERS[3]:
         # 16-byte chunk 19 i + q of row block q (i < 256): quad (19 i + q)
         # % 8, the same spread for every q; 18 reads, 16 quarter warps
-        wf = _busiest(np.stack(rows), 8, (19 * np.arange(2 * LANE)) % 8)
+        wf = micro.busiest(np.stack(rows), 8,
+                           (19 * np.arange(2 * LANE)) % 8)
         return 18 * wf / iters, 18.0 * 16
     per_read, z_reads = {GATHERS[0]: (72, 0), GATHERS[1]: (72, 4),
                          GATHERS[2]: (32, 4), GATHERS[4]: (9, 0)}[name]
-    wf = _busiest(np.stack(rows).reshape(-1, LANE), 32, np.arange(LANE) % 32)
+    wf = micro.busiest(np.stack(rows).reshape(-1, LANE), 32,
+                       np.arange(LANE) % 32)
     free = per_read * 4 * (8 if name == GATHERS[4] else 1) + z_reads
     return (per_read * wf + z_reads * iters) / iters, float(free)
 

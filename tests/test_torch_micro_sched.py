@@ -1,4 +1,4 @@
-"""The redesigned loop-probe kernels (``csrc/micro_ops.cu``,
+"""The loop-probe kernels (``csrc/micro_ops.cu``, ``csrc/micro_expand.cu``,
 ``csrc/micro_v8.cu``) through their g++ twin (``csrc/micro_cpu.cpp``).
 
 Each probe's kernel is written once against ``micro.cuh``'s block: the
@@ -8,15 +8,19 @@ the same layouts, tables and carried copies. Here it is held bit for bit
 against the plain versions (the probe bodies of ``perf/micro_*.py``, which
 ``test_torch_micro.py`` holds against the JAX harnesses):
 
-- all 33 probes of micro_ops and micro_v8, on the harness's x and on
-  ``micro.distinct_x``, at 64 and 67 iterations (and at 0 and 1);
+- all 45 probes of the three units, and micro_expand's row-min form of
+  the masked min, on the harness's x and on ``micro.distinct_x``, at 64
+  and 67 iterations (and at 0 and 1);
 - the algebra the kernels rely on: the 19-exchange network sorts all 256
   0/1 vectors of 8 and random int32 blocks; the key + ref probes equal the
   sorted keys plus ``key ^ 12345`` where keys repeat; each thread's copy
   of acc[0, 0] equals the plain loop's acc[0, 0] at every iteration (the
   dynamic slices of micro_ops and micro_v8); the merge taken lane by lane,
   gathered rows where the lane's bit is set and x[72:144] elsewhere,
-  equals the plain merge.
+  equals the plain merge; micro_expand's masked min and select, run in
+  stretches between the iterations at which a word's x + it crosses the
+  probe's threshold, equal the plain loop at every iteration on rows whose
+  words cross it, wrap past INT_MAX, lie near INT_MIN, or never cross.
 
 No JAX runs here. On the card, ``tests/test_torch_micro.py -m cuda`` and
 ``chip_smoke.py`` phase 19 hold the kernels themselves against the plain
@@ -28,13 +32,21 @@ import numpy as np
 import pytest
 import torch
 
-from embree_tpu_torch.perf import micro, micro_ops, micro_v8
+from embree_tpu_torch.perf import micro, micro_expand, micro_ops, micro_v8
 
-MODULES = {"micro_ops": micro_ops, "micro_v8": micro_v8}
+MODULES = {"micro_ops": micro_ops, "micro_expand": micro_expand,
+           "micro_v8": micro_v8}
+
+
+def _kernels(mod):
+    """A unit's probes and the other forms its kernel runs."""
+    return mod.PROBES + getattr(mod, "FORMS", ())
+
+
 INPUTS = ("harness", "distinct")
 ITERS = (0, 1, 64, 67)
 CASES = [(unit, p.name, inp, n) for unit, mod in MODULES.items()
-         for p in mod.PROBES for inp in INPUTS for n in ITERS]
+         for p in _kernels(mod) for inp in INPUTS for n in ITERS]
 # (unit, probe, rows a start step, start mask, the slice's lane gathered
 # at acc[0, l] & 127, or read at lane l)
 SLICES = (("micro_ops", "scalar-extract + dyn-slice (32,128) load", 32, 15,
@@ -72,7 +84,7 @@ def plain():
         h = mod.HARNESS
         for inp in INPUTS:
             x = _x(unit, inp)
-            for p in mod.PROBES:
+            for p in _kernels(mod):
                 acc = x[0:h.rows_acc].clone()
                 for it in range(max(ITERS) + 1):
                     if it in ITERS:
@@ -83,7 +95,7 @@ def plain():
 
 
 def _probe(unit, name):
-    return micro.find(MODULES[unit].PROBES, name)
+    return micro.find(_kernels(MODULES[unit]), name)
 
 
 @pytest.mark.parametrize("unit,name,inp,iters", CASES,
@@ -208,6 +220,48 @@ def test_merge_lane_split(inp):
         acc = want
 
 
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("name", list(micro_expand.CROSSINGS))
+def test_crossing_probes_every_iteration(gxx, name, seed):
+    """The masked min's and the select's kernels re-derive their operand
+    only at the iterations where a word's x + it crosses the threshold T
+    (0, 32): on rows whose words cross it, wrap past INT_MAX, lie near
+    INT_MIN or never cross (``micro_expand.edge_x``), the twin's tile
+    equals the plain loop's after each of the first 140 iterations."""
+    h = micro_expand.HARNESS
+    p = _probe("micro_expand", name)
+    n = 140
+    x = micro_expand.edge_x(micro_expand.CROSSINGS[name], n, 30 + seed)
+    acc = x[0:8].clone()
+    for it in range(n + 1):
+        np.testing.assert_array_equal(micro.twin(h, p, x, it).numpy(),
+                                      acc.numpy(), err_msg=f"iteration {it}")
+        acc = p.body(acc, it, x)
+
+
+def test_expand_wavefront_count():
+    """micro_expand's gathers read x[0:8] transposed at 12 words an index:
+    8 consecutive indices (the harness's x) meet 8 bank quads, so no
+    conflict; random rows conflict, yet less than row-major x or a
+    transposed copy at 8 words would."""
+    h = micro_expand.HARNESS
+    for name in micro_expand.GATHERS:
+        wf, free = micro_expand.gather_wavefronts(name, micro.harness_x(h),
+                                                  300)
+        assert wf == free == (32 if name == micro_expand.GATHERS[0]
+                              else 512), name
+        x = micro.distinct_x(h)
+        wf, free = micro_expand.gather_wavefronts(name, x, 100)
+        assert wf > free, name
+        g = 1 if name == micro_expand.GATHERS[0] else 16
+        idx = (x[0:g].numpy().astype(np.int64)[None]
+               + np.arange(100)[:, None, None]) & 127
+        idx = idx.reshape(-1, 128)
+        row_major = micro.busiest(idx, 32, np.arange(128) % 32) * 8 / 100
+        stride8 = micro.busiest(idx, 8, np.arange(128) % 4) * 2 / 100
+        assert wf < row_major and wf < stride8, name
+
+
 def test_wavefront_count():
     """A warp's 4-byte reads take one wavefront per distinct word in its
     busiest bank: 32 lanes over 32 banks, or all on one word, take one;
@@ -215,9 +269,9 @@ def test_wavefront_count():
     lane gathers all but conflict-free, distinct rows do not."""
     lanes = np.arange(128)
     bank = lanes % 32
-    assert micro_v8._busiest(lanes[None], 32, bank) == 4
-    assert micro_v8._busiest(np.zeros((1, 128), np.int64), 32, bank) == 4
-    assert micro_v8._busiest(((lanes % 4) * 32)[None], 32, bank) == 16
+    assert micro.busiest(lanes[None], 32, bank) == 4
+    assert micro.busiest(np.zeros((1, 128), np.int64), 32, bank) == 4
+    assert micro.busiest(((lanes % 4) * 32)[None], 32, bank) == 16
     h = micro_v8.HARNESS
     for name in micro_v8.GATHERS:
         wf, free = micro_v8.gather_wavefronts(name, micro.harness_x(h), 2000)
